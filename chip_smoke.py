@@ -1,0 +1,609 @@
+#!/usr/bin/env python3
+"""Quickest proof that the PyTorch/CUDA port of FTFI runs on a CUDA card.
+
+Run from the root of a checkout, on a machine with one CUDA card (Hopper,
+sm_90a) and nvcc:
+
+    python3 chip_smoke.py [--out results.json]
+
+It builds the fdist_matvec kernel from the repository's source, holds the
+kernel against its plain PyTorch version on the card, drives the port's
+main path (graph -> MST -> IT plan on the host, then `ftfi.apply` on the
+card) at the sizes of benchmarks/bench_ftfi_runtime.py and holds it against
+the dense BTFI oracle, then times the kernel, its plain version and one
+`torch.bmm` of the materialized M V at the plan's bucket shapes, and traces
+one `apply` with torch.profiler. Any failed
+check raises and the script exits non-zero. It imports neither jax nor the
+reference package `repro`.
+
+Phases print one line each. The line before the last is the card's name
+and power limit as nvidia-smi reports them; the line before that lists the
+kernels with their launch counts on the main path; the last line is
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+
+# peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and fp32 flop/s
+# outside the tensor cores; the bound of a call is the larger of its bytes
+# and its operations over these
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+MODES = [("poly", (0.5, -0.2, 0.1)), ("exp", (-0.7, 1.3)),
+         ("expq", (-0.05, -0.2, 0.1)), ("rational", (0.8,))]
+# the (a, b, d) of tests/test_kernels.py::test_fdist_matvec
+TEST_SHAPES = [(300, 200, 8), (128, 128, 4), (97, 33, 3), (64, 257, 16)]
+FP32_TOL, BF16_TOL = 3e-6, 3e-2  # tests/test_kernels.py bounds
+EXACT_TOL = 1e-5  # tests/test_forest.py / tests/test_plan_api.py bound
+
+# the main path at the sizes users run (bench_ftfi_runtime.py: synthetic
+# graphs of n vertices and n/2 extra edges, icosphere meshes; the forest of
+# bench_graph_classification.make_dataset)
+FULL = {"n": 10000, "extra": 5000, "leaf": 64, "widths": (4, 64),
+        "ico": 5, "per_class": 30, "size_range": (24, 60), "forest_leaf": 16,
+        "reps": 20}
+
+
+def _f_ops(mode: str, k: int) -> int:
+    """fp32 operations of one f(x + y): the add, then the family's ops
+    (an exp or a division counted as one)."""
+    return 1 + {"poly": 2 * k, "exp": 3, "expq": 6, "rational": 4}[mode]
+
+
+def work(B, a, b, d, mode, k, v_bytes=4, out_bytes=4):
+    """(bytes, operations) of one batched call: each input read once, the
+    output written once; a*b evaluations of f plus a*b*d multiply-adds per
+    job."""
+    nbytes = 4 * (B * a + B * b + k) + v_bytes * B * b * d + out_bytes * B * a * d
+    return nbytes, B * a * b * (2 * d + _f_ops(mode, k))
+
+
+def bound(nbytes, ops):
+    """(least time on an H100 in ms, what bounds it) for this much work."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of fn(), from CUDA events. The calls are queued
+    behind a spin kernel, so the card runs them back to back and the time
+    holds none of the host's launch gaps (small buckets take less time on
+    the card than the host takes to launch them). Inputs stay in L2 from
+    one call to the next."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()  # host time to enqueue one call sizes the spin
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(min(int(4e9 * reps * host_s), 2_000_000_000)
+                      + 1_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn, reps: int) -> float:
+    """End-to-end time per call of fn(), host clock, ending in a
+    synchronize: what a caller of the entry point waits."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def rel_err(got, want) -> float:
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+
+def phase_device():
+    import torch
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    props = torch.cuda.get_device_properties(0)
+    info = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "python": sys.version.split()[0], "sms": props.multi_processor_count,
+            "count": torch.cuda.device_count()}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    info["allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
+    print(f"[device] {info['name']} | nvidia-smi: {smi} | torch "
+          f"{info['torch']} cuda {info['cuda']} | {info['sms']} SMs | "
+          f"matmul.allow_tf32={info['allow_tf32']}", flush=True)
+    return info
+
+
+def phase_build():
+    from repro_torch.kernels.fdist_matvec import kernel
+
+    t0 = time.perf_counter()
+    lib = kernel.build()
+    kernel.library()
+    secs = time.perf_counter() - t0
+    regs = [int(r) for r in re.findall(r"Used (\d+) registers",
+                                       kernel.PTXAS_LOG)]
+    spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores",
+                                         kernel.PTXAS_LOG)]
+    info = {"seconds": secs, "library": str(lib.relative_to(ROOT)),
+            "max_registers": max(regs, default=None),
+            "spill_store_bytes": sum(spills)}
+    print(f"[build] {info['library']} in {secs:.1f} s | ptxas: max "
+          f"{info['max_registers']} registers/thread, "
+          f"{info['spill_store_bytes']} bytes of spill stores", flush=True)
+    return info
+
+
+def _check_one(x, y, v, cs, mode, single=False):
+    """(rel err vs the plain version, abs err vs it, rel err vs the exact
+    float64 product, the plain version's rel err vs that product) of one
+    kernel call."""
+    import torch
+    from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.kernels.fdist_matvec.ref import (
+        f_eval, fdist_matvec_batched_ref, fdist_matvec_ref)
+
+    if single:
+        got = ops.fdist_matvec(x[0], y[0], v[0], cs, mode)[None]
+        want = fdist_matvec_ref(x[0], y[0], v[0], cs, mode)[None]
+    else:
+        got = ops.fdist_matvec_batched(x, y, v, cs, mode)
+        want = fdist_matvec_batched_ref(x, y, v, cs, mode)
+    exact = torch.bmm(f_eval(x.double()[:, :, None] + y.double()[:, None, :],
+                             cs.double(), mode), v.double())
+    torch.cuda.synchronize()
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"kernel gave {tuple(got.shape)} {got.dtype}, "
+                             f"plain {tuple(want.shape)} {want.dtype}")
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"kernel gave non-finite values ({mode})")
+    return (rel_err(got, want),
+            float((got.double() - want.double()).abs().max()),
+            rel_err(got, exact), rel_err(want, exact))
+
+
+def phase_kernel_vs_plain(buckets, device):
+    """Every mode at the test shapes (batched B=3 and one B=1 call each)
+    and at the given main-path buckets (their real distances, random
+    fields), fp32 and bf16 fields."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    rows = []
+    cases = [("test", 3, a, b, d, None, None) for a, b, d in TEST_SHAPES]
+    cases += [("test_B1", 1, a, b, d, None, None) for a, b, d in TEST_SHAPES]
+    cases += [("bucket", bx.shape[0], bx.shape[1], by.shape[1], d, bx, by)
+              for bx, by, d in buckets]
+    for kind, B, a, b, d, bx, by in cases:
+        if bx is None:
+            x = torch.tensor(rng.uniform(0, 3, (B, a)), dtype=torch.float32,
+                             device=device)
+            y = torch.tensor(rng.uniform(0, 3, (B, b)), dtype=torch.float32,
+                             device=device)
+        else:
+            x, y = bx, by
+        v32 = torch.tensor(rng.normal(size=(B, b, d)), dtype=torch.float32,
+                           device=device)
+        for mode, coeffs in MODES:
+            cs = torch.tensor(coeffs, dtype=torch.float32, device=device)
+            for vdtype, tol in ((torch.float32, FP32_TOL),
+                                (torch.bfloat16, BF16_TOL)):
+                rel, ab, rel_x, plain_x = _check_one(
+                    x, y, v32.to(vdtype), cs, mode, single=kind == "test_B1")
+                if not (rel < tol and rel_x < tol):
+                    raise AssertionError(
+                        f"kernel {kind} (B={B}, a={a}, b={b}, d={d}) {mode} "
+                        f"{vdtype}: rel err {rel:.3e} vs plain, {rel_x:.3e} "
+                        f"vs exact; bound {tol}")
+                rows.append({"kind": kind, "B": B, "a": a, "b": b, "d": d,
+                             "mode": mode, "dtype": str(vdtype).split(".")[1],
+                             "rel_err": rel, "abs_err": ab,
+                             "rel_err_exact": rel_x,
+                             "plain_rel_err_exact": plain_x})
+    def worst(key, dtype):
+        return max(r[key] for r in rows if r["dtype"] == dtype)
+
+    print(f"[kernel vs plain] {len(rows)} checks, 4 modes, "
+          f"{len(cases)} shapes (B=1 included) | worst rel err fp32 "
+          f"{worst('rel_err', 'float32'):.2e} vs plain, "
+          f"{worst('rel_err_exact', 'float32'):.2e} vs exact (< {FP32_TOL}; "
+          f"plain vs exact {worst('plain_rel_err_exact', 'float32'):.2e}); "
+          f"bf16 {worst('rel_err', 'bfloat16'):.2e} vs plain (< {BF16_TOL})",
+          flush=True)
+    return rows
+
+
+def synthetic_tree(cfg):
+    from repro_torch.graphs.graph import synthetic_graph
+    from repro_torch.graphs.mst import minimum_spanning_tree
+
+    return minimum_spanning_tree(synthetic_graph(cfg["n"], cfg["extra"],
+                                                 seed=1))
+
+
+def families():
+    from repro_torch.core import cordial as C
+
+    return [("Exponential", C.Exponential(-0.5)),
+            ("Polynomial", C.Polynomial((0.5, -0.2, 0.1))),
+            ("ExpQuadratic", C.ExpQuadratic(-0.05, -0.2, 0.1)),
+            ("Rational", C.Rational((1.0,), (1.0, 0.0, 0.8)))]
+
+
+def _apply_checked(spec, params, fn, X, backend):
+    """apply on the card; for backend "cuda", show that every cross bucket
+    went through the kernel."""
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.kernels.fdist_matvec import ops
+
+    before = ops.LAUNCHES
+    Y = ftfi.apply(spec, params, fn, X, backend=backend, device=X.device)
+    torch.cuda.synchronize()
+    launched = ops.LAUNCHES - before
+    mode = ftfi.describe(spec, fn, backend=backend)["cross_engine"]
+    if backend == "cuda" and launched != len(spec.cross_tgt_d0):
+        raise AssertionError(
+            f"{mode}: {launched} kernel launches for "
+            f"{len(spec.cross_tgt_d0)} cross buckets")
+    if Y.shape != X.shape or not bool(torch.isfinite(Y).all()):
+        raise AssertionError(f"{mode}: bad output {tuple(Y.shape)}")
+    return Y, launched, mode
+
+
+def phase_tree(name, tree, fams, widths, cfg, device, exact_torch):
+    """Build the plan on the host, apply both backends on the card, hold
+    both against dense BTFI on the card."""
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.core.integrate import BTFI
+
+    t0 = time.perf_counter()
+    spec, params = ftfi.build(tree, leaf_size=cfg["leaf"], device=device)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dense = BTFI(tree, device=device)
+    t_dense = time.perf_counter() - t0
+    rng = np.random.default_rng(7)
+    rows = []
+    for d in widths:
+        X = torch.tensor(rng.normal(size=(tree.num_vertices, d)),
+                         dtype=torch.float32, device=device)
+        for fname, fn in fams:
+            want = dense.integrate(fn, X)
+            y_cuda, launched, engine = _apply_checked(spec, params, fn, X,
+                                                      "cuda")
+            y_torch, _, engine_t = _apply_checked(spec, params, fn, X,
+                                                  "torch")
+            e_cuda, e_torch = rel_err(y_cuda, want), rel_err(y_torch, want)
+            if not e_cuda <= EXACT_TOL:
+                raise AssertionError(f"{name} {fname} d={d} cuda: rel err "
+                                     f"{e_cuda:.3e} > {EXACT_TOL}")
+            gated = fname in exact_torch
+            if gated and not e_torch <= EXACT_TOL:
+                raise AssertionError(f"{name} {fname} d={d} torch: rel err "
+                                     f"{e_torch:.3e} > {EXACT_TOL}")
+            rows.append({"tree": name, "family": fname, "d": d,
+                         "engine_cuda": engine, "engine_torch": engine_t,
+                         "launches": launched, "rel_err_cuda": e_cuda,
+                         "rel_err_torch": e_torch, "torch_gated": gated})
+            print(f"[main path {name}] n={tree.num_vertices} d={d} {fname}: "
+                  f"cuda ({engine}, {launched} launches) rel err "
+                  f"{e_cuda:.2e} | torch ({engine_t}) rel err {e_torch:.2e}"
+                  f"{'' if gated else ' (approximation, not gated)'}",
+                  flush=True)
+    print(f"[main path {name}] plan build {t_build:.2f} s on the host, "
+          f"{len(spec.cross_tgt_d0)} cross buckets, {spec.num_cross_jobs} "
+          f"cross jobs, {len(spec.leaf_ids)} leaf buckets | dense oracle "
+          f"set-up {t_dense:.2f} s", flush=True)
+    return spec, params, dense, rows
+
+
+def graph_dataset(cfg):
+    """bench_graph_classification.make_dataset's graphs (3 families x
+    per_class graphs of 24-60 vertices, seed 0)."""
+    from repro_torch.graphs.graph import random_graph_family
+
+    rng = np.random.default_rng(0)
+    graphs = []
+    for fam in ("ring_lattice", "pref_attach", "community"):
+        for i in range(cfg["per_class"]):
+            n = int(rng.integers(*cfg["size_range"]))
+            # make_dataset(seed=0) seeds graph i with seed * 977 + i
+            graphs.append(random_graph_family(fam, n, i))
+    return graphs
+
+
+def phase_forest(cfg, device):
+    """One fused plan over the forest of MSTs, with per-tree weights,
+    against the per-tree loop of apply on single trees. The field is
+    bench_graph_classification.features_forest's block identity (N, n_max),
+    which reads every graph's dense kernel off one multiply. That bench
+    builds with leaf size 64, where every MST (<= 60 vertices) is one leaf
+    and no cross job exists; `forest_leaf` splits the trees so that their
+    cross jobs go through the kernel."""
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.core import cordial as C
+    from repro_torch.graphs.graph import Forest
+    from repro_torch.graphs.mst import minimum_spanning_forest
+
+    forest = Forest(minimum_spanning_forest(graph_dataset(cfg)))
+    sizes, off = forest.tree_sizes, forest.offsets
+    E = torch.zeros((forest.num_vertices, int(sizes.max())),
+                    dtype=torch.float32, device=device)
+    E[torch.arange(forest.num_vertices),
+      torch.from_numpy(np.concatenate([np.arange(s) for s in sizes]))] = 1.0
+    rng = np.random.default_rng(3)
+    w = torch.tensor(rng.uniform(0.5, 2.0, forest.num_trees),
+                     dtype=torch.float32, device=device)
+    fn = C.Exponential(-0.5)  # bench_graph_classification's heat kernel
+    leaf = cfg["forest_leaf"]
+    spec, params = ftfi.build(forest, leaf_size=leaf, device=device)
+    params = ftfi.PlanParams(params.cross_tgt_d, params.cross_src_d,
+                             params.leaf_dists, tree_w=w)
+    Y, launched, engine = _apply_checked(spec, params, fn, E, "cuda")
+    if launched == 0:
+        raise AssertionError("the forest plan has no cross bucket")
+    loop = []
+    for t, tree in enumerate(forest.trees):
+        s1, p1 = ftfi.build(tree, leaf_size=leaf, device=device)
+        loop.append(w[t] * ftfi.apply(s1, p1, fn, E[off[t]:off[t + 1]],
+                                      backend="cuda", device=device))
+    err = rel_err(Y, torch.cat(loop))
+    if not err <= EXACT_TOL:
+        raise AssertionError(f"forest vs per-tree loop: rel err {err:.3e}")
+    print(f"[main path forest] {forest.num_trees} MSTs, "
+          f"{forest.num_vertices} vertices, leaf size {leaf}, block identity "
+          f"field d={E.shape[1]}, tree_w: cuda ({engine}, {launched} "
+          f"launches for {len(spec.cross_tgt_d0)} buckets) vs per-tree loop "
+          f"rel err {err:.2e}", flush=True)
+    return {"trees": forest.num_trees, "n": forest.num_vertices,
+            "d": E.shape[1], "launches": launched, "rel_err": err}
+
+
+def top_buckets(params, widths, count=3):
+    """(x, y, d) of the `count` largest cross buckets (by B*Ut*Us) of a
+    plan, for each width."""
+    sizes = [x.numel() * y.shape[1] for x, y in zip(params.cross_tgt_d,
+                                                     params.cross_src_d)]
+    order = sorted(range(len(sizes)), key=lambda i: -sizes[i])[:count]
+    return [(params.cross_tgt_d[i], params.cross_src_d[i], d)
+            for d in widths for i in order]
+
+
+def phase_times(spec, params, dense, cfg, device, card):
+    """Per-bucket kernel / plain / bmm times and bounds, and whole-apply
+    times, at the plan of phase 4(a) with Exponential(-0.5)."""
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.core import cordial as C
+    from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.kernels.fdist_matvec.ref import (
+        f_eval, fdist_matvec_batched_ref, fdist_matvec_ref)
+
+    reps = cfg["reps"]
+    fn = C.Exponential(-0.5)
+    mode, coeffs = "exp", torch.tensor([-0.5, 1.0], device=device)
+    rng = np.random.default_rng(11)
+    out = {"card": card, "buckets": [], "apply": []}
+    for d in cfg["widths"]:
+        X = torch.tensor(rng.normal(size=(spec.n, d)), dtype=torch.float32,
+                         device=device)
+        for backend in ("cuda", "torch"):
+            ms = host_ms(lambda: ftfi.apply(spec, params, fn, X,
+                                            backend=backend, device=device),
+                         reps)
+            out["apply"].append({"d": d, "what": f"apply {backend}",
+                                 "ms": ms})
+        ms = host_ms(lambda: dense.integrate(fn, X), reps)
+        out["apply"].append({"d": d, "what": "dense BTFI", "ms": ms})
+        print(f"[times apply] d={d}: " + ", ".join(
+            f"{r['what']} {r['ms']:.3f} ms" for r in out["apply"]
+            if r["d"] == d) + f" | {card}", flush=True)
+        for i, (x, y) in enumerate(zip(params.cross_tgt_d,
+                                       params.cross_src_d)):
+            B, a = x.shape
+            b = y.shape[1]
+            v = torch.tensor(rng.normal(size=(B, b, d)), dtype=torch.float32,
+                             device=device)
+            M = f_eval(x[:, :, None] + y[:, None, :], coeffs, mode)
+            k_ms = device_ms(lambda: ops.fdist_matvec_batched(x, y, v, coeffs,
+                                                            mode), reps)
+            p_ms = device_ms(lambda: fdist_matvec_batched_ref(x, y, v, coeffs,
+                                                            mode), reps)
+            l_ms = device_ms(lambda: torch.bmm(M, v), reps)
+            nbytes, ops_ = work(B, a, b, d, mode, 2)
+            b_ms, b_by = bound(nbytes, ops_)
+            del M
+            row = {"bucket": i, "B": B, "a": a, "b": b, "d": d, "ms": k_ms,
+                   "plain_ms": p_ms, "library_ms": l_ms, "bytes": nbytes,
+                   "ops": ops_, "bound_ms": b_ms, "bound_by": b_by}
+            out["buckets"].append(row)
+            print(f"[times bucket] d={d} #{i} B={B} a={a} b={b}: kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bmm {l_ms:.4f} ms, "
+                  f"bound {b_ms:.5f} ms ({b_by}) | {card}", flush=True)
+    # kernel 2 of the reference (single job) as the B = 1 launch, at the
+    # first job of the widest bucket
+    big = max(range(len(params.cross_tgt_d)),
+              key=lambda i: params.cross_tgt_d[i].shape[1])
+    x1, y1 = params.cross_tgt_d[big][0], params.cross_src_d[big][0]
+    v1 = torch.tensor(rng.normal(size=(y1.shape[0], 4)), dtype=torch.float32,
+                      device=device)
+    single = {"a": x1.shape[0], "b": y1.shape[0], "d": 4,
+              "ms": device_ms(lambda: ops.fdist_matvec(x1, y1, v1, coeffs,
+                                                     mode), reps),
+              "plain_ms": device_ms(lambda: fdist_matvec_ref(x1, y1, v1, coeffs,
+                                                           mode), reps)}
+    single["bound_ms"], single["bound_by"] = bound(
+        *work(1, single["a"], single["b"], 4, mode, 2))
+    out["single"] = single
+    print(f"[times single job] a={single['a']} b={single['b']} d=4: kernel "
+          f"{single['ms']:.4f} ms, plain {single['plain_ms']:.4f} ms, bound "
+          f"{single['bound_ms']:.5f} ms | {card}", flush=True)
+    return out
+
+
+def phase_profile(spec, params, device, steps=10):
+    """torch.profiler over `steps` calls of apply(backend="cuda") at d=4:
+    device time per kernel name per call, and the device's busy share of
+    the window's wall time (the profiler's own overhead included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch import ftfi
+    from repro_torch.core import cordial as C
+
+    fn = C.Exponential(-0.5)
+    X = torch.tensor(np.random.default_rng(5).normal(size=(spec.n, 4)),
+                     dtype=torch.float32, device=device)
+    for _ in range(3):
+        ftfi.apply(spec, params, fn, X, backend="cuda", device=device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            ftfi.apply(spec, params, fn, X, backend="cuda", device=device)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            kernels.append({"name": ev.key[:90], "ms": us / 1e3 / steps,
+                            "calls": ev.count / steps})
+    kernels.sort(key=lambda k: -k["ms"])
+    device_ms = sum(k["ms"] for k in kernels)
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "busy": device_ms / wall_ms, "kernels": kernels}
+    print(f"[profile apply cuda d=4] wall {wall_ms:.3f} ms/call under the "
+          f"profiler, device {device_ms:.3f} ms/call, busy share "
+          f"{out['busy']:.2f}; top: " + "; ".join(
+              f"{k['name'][:40]} {k['ms']:.3f} ms x{k['calls']:g}"
+              for k in kernels[:6]), flush=True)
+    return out
+
+
+def run(cfg, device, out_path=None) -> dict:
+    """All phases; returns the record. Raises on any failed check."""
+    import torch
+
+    from repro_torch import ftfi
+    from repro_torch.graphs.meshes import icosphere, mesh_graph
+    from repro_torch.graphs.mst import minimum_spanning_tree
+    from repro_torch.kernels.fdist_matvec import ops
+
+    info = phase_device()
+    build = phase_build()
+    # the plan is built on the host first: phase 3 checks the kernel at its
+    # three largest cross buckets
+    tree = synthetic_tree(cfg)
+    _, host_params = ftfi.build(tree, leaf_size=cfg["leaf"], device=device,
+                                use_cache=False)  # phase 4 times a cold build
+    checks = phase_kernel_vs_plain(
+        top_buckets(host_params, cfg["widths"]), device)
+    del host_params
+
+    fams = families()
+    # the main path: counts from zero, read right after
+    ops.LAUNCHES = 0
+    spec, params, dense, rows_a = phase_tree(
+        "synthetic", tree, fams, cfg["widths"], cfg, device,
+        exact_torch={"Exponential", "Polynomial"})
+    mesh = minimum_spanning_tree(mesh_graph(*icosphere(cfg["ico"])))
+    _, _, dense_mesh, rows_b = phase_tree(
+        f"icosphere{cfg['ico']}", mesh, [fams[3]], (4,), cfg, device,
+        exact_torch=set())
+    del dense_mesh
+    forest = phase_forest(cfg, device)
+    main_launches = ops.LAUNCHES
+    if main_launches == 0:
+        raise AssertionError("the main path launched no fdist_matvec kernel")
+
+    card = info["nvidia_smi"]
+    times = phase_times(spec, params, dense, cfg, device, card)
+    times["profile"] = phase_profile(spec, params, device)
+    at_d4 = [r for r in times["buckets"] if r["d"] == cfg["widths"][0]]
+    # the least time for the work of all these launches together
+    b_ms, b_by = bound(sum(r["bytes"] for r in at_d4),
+                       sum(r["ops"] for r in at_d4))
+    bucket_errs = [r["abs_err"] for r in checks
+                   if r["kind"] == "bucket" and r["dtype"] == "float32"]
+    kernels = [{
+        "name": "fdist_matvec_batched", "route": "cuda",
+        "source": "src/repro_torch/kernels/fdist_matvec/fdist_matvec.cu",
+        "replaces": "src/repro/kernels/fdist_matvec/kernel.py:63",
+        "launches": main_launches,
+        "max_abs_err": max(bucket_errs),
+        "ms": sum(r["ms"] for r in at_d4),
+        "plain_ms": sum(r["plain_ms"] for r in at_d4),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": sum(r["library_ms"] for r in at_d4),
+        "at": (f"sum over the {len(at_d4)} cross buckets of the n="
+               f"{cfg['n']} synthetic MST plan, d={cfg['widths'][0]}, exp"),
+    }]
+    record = {"device": info, "build": build, "main_path": rows_a + rows_b,
+              "forest": forest, "kernel_checks": checks, "times": times,
+              "kernels": kernels}
+    if out_path:
+        Path(out_path).parent.mkdir(parents=True, exist_ok=True)
+        Path(out_path).write_text(json.dumps(record, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return record
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out", help="also write every number to this JSON file")
+    args = ap.parse_args(argv)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch" / "kernels").is_dir():
+        print("chip_smoke: src/repro_torch is missing: run from a checkout "
+              "of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    run(FULL, torch.device("cuda"), args.out)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

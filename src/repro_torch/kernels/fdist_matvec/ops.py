@@ -1,0 +1,82 @@
+"""Public wrappers of the fused f-distance matvec.
+
+A CUDA tensor goes to the hand-written kernel (`kernel.py`, built from
+`fdist_matvec.cu`); a CPU tensor goes to the plain PyTorch version
+(`ref.py`). The choice follows the device of the tensors alone: on a card
+the kernel launches or the call raises. `LAUNCHES` counts kernel launches,
+so a caller can show that its path went through the kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.fdist_matvec import kernel
+from repro_torch.kernels.fdist_matvec.ref import fdist_matvec_batched_ref
+
+MODES = ("poly", "exp", "expq", "rational")
+_NUM_COEFFS = {"exp": 2, "expq": 3, "rational": 1}  # poly: any k >= 1
+MAX_COEFFS = 4096  # the coefficients are staged in 48 KB of shared memory
+
+LAUNCHES = 0
+
+
+def _check(x, y, v, coeffs, mode: str) -> None:
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    for name, t in (("x", x), ("y", y), ("v", v), ("coeffs", coeffs)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for name, t in (("x", x), ("y", y), ("coeffs", coeffs)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if v.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"v must be float32 or bfloat16, got {v.dtype}")
+    if x.ndim != 2 or y.ndim != 2 or v.ndim != 3 or coeffs.ndim != 1:
+        raise ValueError(
+            f"expected x (B, a), y (B, b), v (B, b, d), coeffs (k,); got "
+            f"{tuple(x.shape)}, {tuple(y.shape)}, {tuple(v.shape)}, "
+            f"{tuple(coeffs.shape)}")
+    if not (x.shape[0] == y.shape[0] == v.shape[0]
+            and y.shape[1] == v.shape[1]):
+        raise ValueError(
+            f"inconsistent shapes x {tuple(x.shape)}, y {tuple(y.shape)}, "
+            f"v {tuple(v.shape)}")
+    k = coeffs.shape[0]
+    want = _NUM_COEFFS.get(mode)
+    if (want is not None and k != want) or not 1 <= k <= MAX_COEFFS:
+        raise ValueError(f"mode {mode!r} takes {want or '1..4096'} "
+                         f"coefficients, got {k}")
+
+
+def fdist_matvec_batched(x, y, v, coeffs, mode: str = "poly"):
+    """Bucketed form used by the plan executor: (B, a) x (B, b) x (B, b, d)
+    -> (B, a, d) in v's dtype, out[n, i] = sum_j f(x[n, i] + y[n, j]) v[n, j].
+    """
+    global LAUNCHES
+    _check(x, y, v, coeffs, mode)
+    if x.device.type == "cpu":
+        return fdist_matvec_batched_ref(x, y, v, coeffs, mode)
+    if x.device.type != "cuda":
+        raise ValueError(f"no fdist_matvec kernel for device {x.device}")
+    B, a = x.shape
+    b, d = v.shape[1:]
+    if min(B, a, b, d) == 0:  # nothing to launch: an empty sum is zero
+        return torch.zeros((B, a, d), dtype=v.dtype, device=x.device)
+    out = kernel.fdist_matvec_batched_cuda(x, y, v, coeffs, mode)
+    LAUNCHES += 1
+    return out
+
+
+def fdist_matvec(x, y, v, coeffs, mode: str = "poly"):
+    """Single job: x (a,), y (b,), v (b, d) -> (a, d); the B = 1 launch of
+    the batched kernel."""
+    if x.ndim != 1 or y.ndim != 1 or v.ndim != 2:
+        raise ValueError(
+            f"expected x (a,), y (b,), v (b, d); got {tuple(x.shape)}, "
+            f"{tuple(y.shape)}, {tuple(v.shape)}")
+    return fdist_matvec_batched(x[None], y[None], v[None], coeffs, mode)[0]
