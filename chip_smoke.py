@@ -6,15 +6,28 @@ sm_90a) and nvcc:
 
     python3 chip_smoke.py [--out results.json]
 
-It builds the fdist_matvec kernel from the repository's source, holds the
-kernel against its plain PyTorch version on the card, drives the port's
-main path (graph -> MST -> IT plan on the host, then `ftfi.apply` on the
-card) at the sizes of benchmarks/bench_ftfi_runtime.py and holds it against
-the dense BTFI oracle, then times the kernel, its plain version and one
-`torch.bmm` of the materialized M V at the plan's bucket shapes, and traces
-one `apply` with torch.profiler. Any failed
-check raises and the script exits non-zero. It imports neither jax nor the
-reference package `repro`.
+It builds the port's two CUDA kernels (fdist_matvec and the topological
+linear-attention sweep) from the repository's sources, in parallel, and
+drives two paths.
+
+FTFI: it holds the fdist_matvec kernel against its plain PyTorch version
+on the card, drives `ftfi.build` (graph -> MST -> IT plan on the host) and
+`ftfi.apply` on the card at the sizes of benchmarks/bench_ftfi_runtime.py
+against the dense BTFI oracle, then times the kernel, its plain version
+and one `torch.bmm` of the materialized M V at the plan's bucket shapes,
+and traces one `apply` with torch.profiler.
+
+Topo-LM: it holds the sweep kernel against its plain version (decay and
+rank mode, causal and the bidirectional pair) at the served layer's shape
+and against the dense oracle at small shapes; serves 4 requests (prefill
+into the cache, then 32 greedy decode steps at per-slot positions) of the
+full-width Llama-3.2-1B with the paper's topological attention at mask
+degree 1 (decay mode) and 2 (rank mode), with `topo_attn_impl="cuda"`
+held against `"torch"` in float32; then times prefill, decode and the
+kernel in bf16 and traces one prefill.
+
+Any failed check raises and the script exits non-zero. It imports neither
+jax nor the reference package `repro`.
 
 Phases print one line each. The line before the last is the card's name
 and power limit as nvidia-smi reports them; the line before that lists the
@@ -146,23 +159,43 @@ def phase_device():
 
 
 def phase_build():
-    from repro_torch.kernels.fdist_matvec import kernel
+    """Build every kernel of the port from the checkout, one nvcc per
+    source, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
 
+    from repro_torch.kernels.fdist_matvec import kernel as fdist_kernel
+    from repro_torch.kernels.topo_linear_attention import kernel as topo_kernel
+
+    def one(mod):
+        t0 = time.perf_counter()
+        lib = mod.build()
+        mod.library()
+        return lib, time.perf_counter() - t0
+
+    mods = {"fdist_matvec": fdist_kernel, "topo_sweep": topo_kernel}
     t0 = time.perf_counter()
-    lib = kernel.build()
-    kernel.library()
-    secs = time.perf_counter() - t0
-    regs = [int(r) for r in re.findall(r"Used (\d+) registers",
-                                       kernel.PTXAS_LOG)]
-    spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores",
-                                         kernel.PTXAS_LOG)]
-    info = {"seconds": secs, "library": str(lib.relative_to(ROOT)),
-            "max_registers": max(regs, default=None),
-            "spill_store_bytes": sum(spills)}
-    print(f"[build] {info['library']} in {secs:.1f} s | ptxas: max "
-          f"{info['max_registers']} registers/thread, "
-          f"{info['spill_store_bytes']} bytes of spill stores", flush=True)
-    return info
+    with ThreadPoolExecutor(len(mods)) as ex:
+        futs = {name: ex.submit(one, mod) for name, mod in mods.items()}
+        done = {name: f.result() for name, f in futs.items()}
+    wall = time.perf_counter() - t0
+    out = {}
+    for name, mod in mods.items():
+        lib, secs = done[name]
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers",
+                                           mod.PTXAS_LOG)]
+        spills = [int(r) for r in re.findall(r"(\d+) bytes spill stores",
+                                             mod.PTXAS_LOG)]
+        out[name] = {"seconds": secs, "library": str(lib.relative_to(ROOT)),
+                     "max_registers": max(regs, default=None),
+                     "spill_store_bytes": sum(spills)}
+        print(f"[build {name}] {out[name]['library']} in {secs:.1f} s | "
+              f"ptxas: max {out[name]['max_registers']} registers/thread, "
+              f"{out[name]['spill_store_bytes']} bytes of spill stores",
+              flush=True)
+    print(f"[build] {len(mods)} kernels in parallel, {wall:.1f} s wall",
+          flush=True)
+    out["wall_seconds"] = wall
+    return out
 
 
 def _check_one(x, y, v, cs, mode, single=False):
@@ -515,6 +548,401 @@ def phase_profile(spec, params, device, steps=10):
     return out
 
 
+# ----------------------------------------------------------------------------
+# slice 2: the topological Llama-3.2-1B served with the topo sweep kernel
+# ----------------------------------------------------------------------------
+
+# llama3_2_1b (src/repro_torch/configs/llama3_2_1b.py) at full width with the
+# paper's topo attention; 4 requests right-padded to Lp, a cache of S
+# positions for 32 decode steps
+TOPO = {"arch": "llama3_2_1b", "lengths": (4096, 3001, 1537, 4096),
+        "Lp": 4096, "S": 4128, "steps": 32, "gate_steps": 4,
+        "degrees": (1, 2), "seed": 0,
+        # (B, H, L, m, hd): the served layer's sweep, and two odd-L shapes
+        # of tests/test_topo_attention.py
+        "sweep_shapes": [(4, 32, 4096, 64, 64), (1, 2, 33, 4, 8),
+                         (2, 2, 200, 4, 8)],
+        "reps": 5, "prefill_reps": 3, "decode_reps": 10}
+TOPO_PLAIN_TOL, TOPO_REF_TOL = 1e-4, 1e-3  # tests/test_topo_attention.py
+LOGIT_TOL, CACHE_TOL = 1e-4, 1e-5
+
+
+def _topo_cfg(degree: int, impl: str = "cuda", dtype: str | None = None):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(TOPO["arch"], attention_variant="topo", topo_g="exp",
+                     topo_degree=degree, topo_attn_impl=impl,
+                     topo_dist_scale=1.0 / TOPO["S"])
+    return cfg.replace(dtype=dtype) if dtype else cfg
+
+
+def _mask_coeffs(rng, H, degree, device):
+    """Per-head mask scalars drawn as tests/test_topo_attention.py's
+    _topo_params draws them (spread 0.5), shaped as
+    attention.topo_mask_coeffs shapes them for g = exp."""
+    import torch
+
+    raw = torch.tensor(rng.uniform(-0.5, 0.5, (H, degree + 1)),
+                       dtype=torch.float32, device=device)
+    return torch.cat([raw[:, :1], -torch.nn.functional.softplus(raw[:, 1:])],
+                     dim=1)
+
+
+def topo_work(B, H, L, m, hd, C, R):
+    """(bytes, operations) of one causal sweep: q, k, v, the mask pieces
+    and the output each moved once; per (b, h, chunk) the causal half of
+    q k^T and P v (C (C+1) / 2 pairs, what the mask needs), the row sums,
+    and the state's read and write (2 C R m (hd + 1) operations each)."""
+    nC = L // C
+    tables = H if R == 0 else 2 * H * L * R
+    nbytes = 4 * (2 * B * H * L * m + 2 * B * H * L * hd + H * C * C + tables)
+    pairs = C * (C + 1) // 2
+    r = max(R, 1)
+    ops_ = B * H * nC * (pairs * (2 * m + 2 * hd + 2)
+                         + 4 * C * r * m * (hd + 1) + 2 * C * hd)
+    return nbytes, ops_
+
+
+def _sweep_pieces(qf, kf, v, cs, dist_scale):
+    """The kernel's inputs for one call of the fused forward (ops' own
+    padding and mask tables): (qp, kp, vp, dmat_inc, mode kwargs, C)."""
+    from repro_torch.kernels.topo_linear_attention import ops
+
+    L = qf.shape[2]
+    C = min(128, ops._round_up(L, 8))
+    spec = ops.TopoSpec("exp", dist_scale, True, C, 16, 1e-6)
+    qp, kp, vp, Lp = ops._pad_inputs(spec, qf, kf, v, cs)
+    lg, alpha, beta, dmat, _ = ops._prepare(spec, cs, Lp)
+    mode = (dict(log_gamma=lg) if lg is not None else
+            dict(alpha=alpha.contiguous(), beta=beta.contiguous()))
+    return qp, kp, vp, dmat.contiguous(), mode, C
+
+
+def phase_topo_kernel_vs_plain(device):
+    """3b: the sweep kernel against its plain version in decay and rank
+    mode, causal and the bidirectional pair, at the served layer's shape
+    and two odd-L test shapes; against the dense oracle at L <= 1024."""
+    import torch
+    from repro_torch.kernels.topo_linear_attention import ops
+    from repro_torch.kernels.topo_linear_attention.ref import (
+        topo_linear_attention_ref)
+
+    rng = np.random.default_rng(13)
+    rows, served = [], {}
+    for shape in TOPO["sweep_shapes"]:
+        B, H, L, m, hd = shape
+        is_served = shape == TOPO["sweep_shapes"][0]
+        ds = 1.0 / TOPO["S"] if is_served else 1.0 / L
+        qf = torch.tensor(np.abs(rng.normal(size=(B, H, L, m))),
+                          dtype=torch.float32, device=device)
+        kf = torch.tensor(np.abs(rng.normal(size=(B, H, L, m))),
+                          dtype=torch.float32, device=device)
+        v = torch.tensor(rng.normal(size=(B, H, L, hd)), dtype=torch.float32,
+                         device=device)
+        for degree in TOPO["degrees"]:
+            mode_name = "decay" if degree == 1 else "rank16"
+            cs = _mask_coeffs(rng, H, degree, device)
+            for causal in (True, False):
+                kw = dict(g="exp", dist_scale=ds, causal=causal)
+                got = ops.topo_linear_attention(qf, kf, v, cs,
+                                                use_kernel=True, **kw)
+                plain = ops.topo_linear_attention(qf, kf, v, cs,
+                                                  use_kernel=False, **kw)
+                torch.cuda.synchronize()
+                if got.shape != plain.shape or not bool(
+                        torch.isfinite(got).all()):
+                    raise AssertionError(f"topo sweep {shape} {mode_name}: "
+                                         f"bad output {tuple(got.shape)}")
+                row = {"shape": shape, "mode": mode_name, "causal": causal,
+                       "rel_err": rel_err(got, plain),
+                       "abs_err": float((got - plain).abs().max()),
+                       "rel_err_ref": None}
+                if L <= 1024:
+                    ref = topo_linear_attention_ref(qf, kf, v, cs, **kw)
+                    row["rel_err_ref"] = rel_err(got, ref)
+                if not row["rel_err"] <= TOPO_PLAIN_TOL or (
+                        row["rel_err_ref"] is not None
+                        and not row["rel_err_ref"] <= TOPO_REF_TOL):
+                    raise AssertionError(f"topo sweep kernel {row}")
+                rows.append(row)
+            # the first sweep of the bidirectional pair, unnormalized
+            qp, kp, vp, dmat, mode, C = _sweep_pieces(qf, kf, v, cs, ds)
+            num, den = ops.topo_attention_sweep(qp, kp, vp, dmat,
+                                                normalize=False, **mode)
+            pnum, pden = ops._sweep(qp, kp, vp, dmat, mode.get("log_gamma"),
+                                    mode.get("alpha"), mode.get("beta"))
+            e_num, e_den = rel_err(num, pnum), rel_err(den, pden)
+            if not (e_num <= TOPO_PLAIN_TOL and e_den <= TOPO_PLAIN_TOL):
+                raise AssertionError(f"topo sweep {shape} {mode_name} "
+                                     f"unnormalized: num {e_num:.2e}, den "
+                                     f"{e_den:.2e}")
+            rows.append({"shape": shape, "mode": mode_name,
+                         "causal": "unnormalized", "rel_err": max(e_num,
+                                                                  e_den),
+                         "abs_err": float((num - pnum).abs().max()),
+                         "rel_err_ref": None})
+            if is_served:
+                served[degree] = (qp, kp, vp, dmat, mode, C, shape)
+    worst = max(r["rel_err"] for r in rows)
+    worst_ref = max(r["rel_err_ref"] for r in rows
+                    if r["rel_err_ref"] is not None)
+    print(f"[topo kernel vs plain] {len(rows)} checks (decay and rank16; "
+          f"causal, bidirectional pair, unnormalized sweep; shapes "
+          f"{TOPO['sweep_shapes']}) | worst rel err {worst:.2e} vs plain "
+          f"(< {TOPO_PLAIN_TOL}), {worst_ref:.2e} vs the dense oracle at "
+          f"L <= 1024 (< {TOPO_REF_TOL})", flush=True)
+    return rows, served
+
+
+def _prompts(cfg):
+    rng = np.random.default_rng(TOPO["seed"])
+    lengths = np.array(TOPO["lengths"], np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (len(lengths), TOPO["Lp"]))
+    toks[np.arange(TOPO["Lp"])[None, :] >= lengths[:, None]] = 0
+    return toks.astype(np.int32), lengths
+
+
+def _serve(cfg, model, toks, lengths, steps, device, feed=None):
+    """prefill_into_cache, then `steps` decode steps at per-slot positions:
+    greedy, or the tokens of `feed` (another run's) when given. Returns
+    (prefill logits, prefill cache, step logits, fed tokens, launches of
+    the topo kernel in the prefill)."""
+    import torch
+    from repro_torch.kernels.topo_linear_attention import ops
+    from repro_torch.models import api
+
+    S = TOPO["S"]
+    cache = api.init_cache(cfg, len(lengths), S, device=device)
+    before = ops.LAUNCHES
+    logits, cache = api.prefill_into_cache(cfg, model, cache, toks, lengths,
+                                           S, device=device)
+    torch.cuda.synchronize()
+    launched = ops.LAUNCHES - before
+    prefill_cache = cache
+    pos = torch.as_tensor(lengths, device=device).long()
+    tok = logits.argmax(-1)[:, None] if feed is None else feed[0]
+    step_logits, fed = [], [tok]
+    for t in range(steps):
+        lg, cache = api.decode_fn(cfg, model, cache, tok, pos, S,
+                                  device=device)
+        step_logits.append(lg)
+        tok = lg[:, 0].argmax(-1)[:, None] if feed is None else feed[t + 1]
+        fed.append(tok)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    return logits, prefill_cache, step_logits, fed, launched
+
+
+def _check_served(cfg, logits, step_logits, fed):
+    import torch
+
+    V = cfg.padded_vocab()
+    B = len(TOPO["lengths"])
+    if logits.shape != (B, V) or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)}")
+    for lg in step_logits:
+        if lg.shape != (B, 1, V) or not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"decode logits {tuple(lg.shape)}")
+    toks = torch.cat(fed, dim=1)
+    if not bool(((toks >= 0) & (toks < cfg.vocab_size)).all()):
+        raise AssertionError("a greedy token fell outside the vocabulary")
+
+
+def phase_topo_gate(degree, device):
+    """4b gate: float32 (TF32 off), the same weights on impl "cuda" and
+    impl "torch": prefill logits, cache and the first decode steps agree;
+    decode vs prefill on the extended prompt is printed, not gated."""
+    import torch
+    from repro_torch.kernels.topo_linear_attention import ops
+    from repro_torch.models import api
+
+    cfg = _topo_cfg(degree, "cuda", "float32")
+    model = api.init_params(cfg, TOPO["seed"], device=device)
+    toks, lengths = _prompts(cfg)
+    n = TOPO["gate_steps"]
+    got = _serve(cfg, model, toks, lengths, max(n, 2), device)
+    if got[4] != cfg.num_layers:
+        raise AssertionError(f"degree {degree} float32 prefill: {got[4]} "
+                             f"topo kernel launches for {cfg.num_layers} "
+                             "layers")
+    before = ops.LAUNCHES
+    want = _serve(cfg.replace(topo_attn_impl="torch"), model, toks, lengths,
+                  n, device, feed=got[3])
+    if ops.LAUNCHES != before:
+        raise AssertionError("impl 'torch' launched the topo kernel")
+    _check_served(cfg, got[0], got[2], got[3])
+    e_logits = rel_err(got[0], want[0])
+    e_cache = max(rel_err(got[1]["blocks0"][k], want[1]["blocks0"][k])
+                  for k in ("S", "z"))
+    e_steps = [rel_err(a, b) for a, b in zip(got[2][:n], want[2])]
+    ok = (e_logits <= LOGIT_TOL and e_cache <= CACHE_TOL
+          and max(e_steps) <= LOGIT_TOL)
+    # decode vs prefill of the prompt extended by the fed tokens
+    ext = np.zeros((len(lengths), TOPO["Lp"] + 2), np.int32)
+    ext[:, :TOPO["Lp"]] = toks
+    fed = [t[:, 0].cpu().numpy() for t in got[3][:2]]
+    rows = np.arange(len(lengths))
+    ext[rows, lengths] = fed[0]
+    ext[rows, lengths + 1] = fed[1]
+    e_dp = []
+    for k in (1, 2):
+        cache = api.init_cache(cfg, len(lengths), TOPO["S"], device=device)
+        lg, _ = api.prefill_into_cache(cfg, model, cache, ext, lengths + k,
+                                       TOPO["S"], device=device)
+        e_dp.append(rel_err(got[2][k - 1][:, 0], lg))
+    print(f"[topo gate degree {degree}] float32, matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, depth {cfg.num_layers} "
+          f"of {cfg.num_layers} layers, width {cfg.d_model}: cuda vs torch "
+          f"prefill logits {e_logits:.2e} (< {LOGIT_TOL}), cache S/z "
+          f"{e_cache:.2e} (< {CACHE_TOL}), decode steps 1-{n} "
+          f"{max(e_steps):.2e} (< {LOGIT_TOL}); {got[4]} launches in the "
+          f"prefill | not gated: decode vs prefill of the extended prompt "
+          f"{e_dp[0]:.2e}, {e_dp[1]:.2e}", flush=True)
+    if not ok:
+        raise AssertionError(f"degree {degree}: cuda and torch disagree")
+    return {"degree": degree, "dtype": "float32", "layers": cfg.num_layers,
+            "rel_err_prefill_logits": e_logits, "rel_err_cache": e_cache,
+            "rel_err_decode": e_steps, "launches_per_prefill": got[4],
+            "decode_vs_prefill": e_dp}
+
+
+def phase_topo_serve(degree, device, card):
+    """4b main path + 5b times at the config's dtype (bf16): 4 requests,
+    prefill_into_cache then 32 greedy decode steps, with the kernel count
+    from 0 just before and read just after; then prefill and decode
+    times."""
+    import torch
+    from repro_torch.kernels.topo_linear_attention import ops
+    from repro_torch.models import api
+
+    cfg = _topo_cfg(degree, "cuda")
+    model = api.init_params(cfg, TOPO["seed"], device=device)
+    toks, lengths = _prompts(cfg)
+    ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    logits, cache, step_logits, fed, _ = _serve(cfg, model, toks, lengths,
+                                                TOPO["steps"], device)
+    serve_s = time.perf_counter() - t0
+    launches = ops.LAUNCHES
+    if launches != cfg.num_layers:
+        raise AssertionError(f"degree {degree}: {launches} topo kernel "
+                             f"launches on the main path, expected "
+                             f"{cfg.num_layers}")
+    _check_served(cfg, logits, step_logits, fed)
+    S, B = TOPO["S"], len(lengths)
+    pre_ms = host_ms(lambda: api.prefill_into_cache(
+        cfg, model, api.init_cache(cfg, B, S, device=device), toks, lengths,
+        S, device=device), TOPO["prefill_reps"])
+    tok, pos = fed[-1], torch.as_tensor(lengths, device=device).long() + 1
+    dec_ms = host_ms(lambda: api.decode_fn(cfg, model, cache, tok, pos, S,
+                                           device=device),
+                     TOPO["decode_reps"])
+    n_tok = int(lengths.sum())
+    out = {"degree": degree, "dtype": cfg.dtype, "launches": launches,
+           "serve_seconds": serve_s, "prefill_ms": pre_ms,
+           "prefill_tokens_per_s": n_tok / (pre_ms / 1e3),
+           "decode_ms_per_step": dec_ms,
+           "decode_tokens_per_s": B / (dec_ms / 1e3),
+           "tokens": torch.cat(fed, 1)[:, :8].cpu().tolist(),
+           "params": api.param_count(model), "card": card}
+    print(f"[topo serve degree {degree}] {cfg.name} topo, {cfg.dtype}, "
+          f"{cfg.num_layers} layers, {out['params']} params: 4 requests "
+          f"(lengths {TOPO['lengths']}, S={S}), prefill + {TOPO['steps']} "
+          f"greedy steps in {serve_s:.2f} s, {launches} topo kernel "
+          f"launches | prefill {pre_ms:.1f} ms ({out['prefill_tokens_per_s']:.0f}"
+          f" tok/s), decode {dec_ms:.2f} ms/step ({out['decode_tokens_per_s']:.0f}"
+          f" tok/s) | {card}", flush=True)
+    out["profile_prefill"] = phase_topo_profile(
+        f"prefill degree {degree}", lambda: api.prefill_into_cache(
+            cfg, model, api.init_cache(cfg, B, S, device=device), toks,
+            lengths, S, device=device))
+    out["profile_decode"] = phase_topo_profile(
+        f"decode step degree {degree}", lambda: api.decode_fn(
+            cfg, model, cache, tok, pos, S, device=device), calls=4)
+    return out
+
+
+def phase_topo_profile(label, fn, calls=1):
+    """torch.profiler over `calls` calls of fn(): device busy share of the
+    window and the top device ops with their share of device time (per
+    call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+    ops_ = []
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0)
+        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+            ops_.append({"name": ev.key[:90], "ms": us / 1e3 / calls,
+                         "calls": ev.count / calls})
+    ops_.sort(key=lambda k: -k["ms"])
+    dev_ms = sum(k["ms"] for k in ops_)
+    for k in ops_:
+        k["share"] = k["ms"] / dev_ms if dev_ms else 0.0
+    out = {"wall_ms": wall_ms, "device_ms": dev_ms,
+           "busy": dev_ms / wall_ms, "launches": sum(k["calls"] for k in ops_),
+           "ops": ops_[:12]}
+    print(f"[topo profile {label}] wall {wall_ms:.2f} ms per call under the "
+          f"profiler, device {dev_ms:.2f} ms, busy share {out['busy']:.2f}, "
+          f"{out['launches']:.0f} device ops; top: " + "; ".join(
+              f"{k['name'][:38]} {k['ms']:.2f} ms ({k['share']:.0%}) "
+              f"x{k['calls']:g}" for k in ops_[:6]), flush=True)
+    return out
+
+
+def phase_topo_times(served, card, device):
+    """5b: the sweep kernel's device time per launch at the served shape,
+    for each mode, beside its bound and its plain version's time; the
+    dense oracle at L = 1024 for scale."""
+    import torch
+    from repro_torch.kernels.topo_linear_attention import ops
+    from repro_torch.kernels.topo_linear_attention.ref import (
+        topo_linear_attention_ref)
+
+    reps = TOPO["reps"]
+    out = {}
+    for degree, (qp, kp, vp, dmat, mode, C, shape) in served.items():
+        B, H, L, m, hd = shape
+        R = 0 if "log_gamma" in mode else mode["alpha"].shape[-1]
+        k_ms = device_ms(lambda: ops.topo_attention_sweep(qp, kp, vp, dmat,
+                                                          **mode), reps)
+        p_ms = device_ms(lambda: ops._emit(*ops._sweep(
+            qp, kp, vp, dmat, mode.get("log_gamma"), mode.get("alpha"),
+            mode.get("beta")), None, None, True, 1e-6), reps)
+        nbytes, ops_ = topo_work(B, H, L, m, hd, C, R)
+        b_ms, b_by = bound(nbytes, ops_)
+        name = "decay" if R == 0 else f"rank{R}"
+        out[degree] = {"mode": name, "shape": shape, "C": C, "R": R,
+                       "ms": k_ms, "plain_ms": p_ms, "bytes": nbytes,
+                       "ops": ops_, "bound_ms": b_ms, "bound_by": b_by}
+        print(f"[topo times {name}] B={B} H={H} L={L} m={m} hd={hd} C={C}: "
+              f"kernel {k_ms:.3f} ms/launch, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({b_by}), library none | {card}", flush=True)
+    rng = np.random.default_rng(3)
+    B, H, _, m, hd = TOPO["sweep_shapes"][0]
+    L = 1024
+    q, k = (torch.tensor(np.abs(rng.normal(size=(B, H, L, m))),
+                         dtype=torch.float32, device=device) for _ in range(2))
+    v = torch.tensor(rng.normal(size=(B, H, L, hd)), dtype=torch.float32,
+                     device=device)
+    cs = _mask_coeffs(rng, H, 1, device)
+    d_ms = device_ms(lambda: topo_linear_attention_ref(q, k, v, cs, g="exp",
+                                                       dist_scale=1.0 / L),
+                     reps)
+    out["dense_ref_L1024_ms"] = d_ms
+    print(f"[topo times dense oracle] B={B} H={H} L={L}: {d_ms:.3f} ms (for "
+          f"scale only) | {card}", flush=True)
+    return out
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -573,8 +1001,45 @@ def run(cfg, device, out_path=None) -> dict:
         "at": (f"sum over the {len(at_d4)} cross buckets of the n="
                f"{cfg['n']} synthetic MST plan, d={cfg['widths'][0]}, exp"),
     }]
+    del spec, params, dense
+
+    # slice 2: the topo-LM served through the topo sweep kernel
+    topo_checks, served = phase_topo_kernel_vs_plain(device)
+    gates = []
+    for degree in TOPO["degrees"]:
+        gates.append(phase_topo_gate(degree, device))
+        torch.cuda.empty_cache()
+    serves = {}
+    for degree in TOPO["degrees"]:  # each path counts from zero
+        serves[degree] = phase_topo_serve(degree, device, card)
+        torch.cuda.empty_cache()
+    topo_times = phase_topo_times(served, card, device)
+    for degree in TOPO["degrees"]:
+        t = topo_times[degree]
+        B, H, L, m, hd = t["shape"]
+        errs = [r["abs_err"] for r in topo_checks  # the main path's launch
+                if r["shape"] == t["shape"] and r["mode"] == t["mode"]
+                and r["causal"] is True]
+        kernels.append({
+            "name": f"topo_attention_sweep[{t['mode']}]", "route": "cuda",
+            "source": ("src/repro_torch/kernels/topo_linear_attention/"
+                       "topo_sweep.cu"),
+            "replaces": ("src/repro/kernels/topo_linear_attention/"
+                         "kernel.py:132"),
+            "launches": serves[degree]["launches"],
+            "max_abs_err": max(errs),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": None,
+            "at": (f"one causal launch, B={B} H={H} L={L} m={m} hd={hd} "
+                   f"C={t['C']}: one layer of the {TOPO['arch']} topo "
+                   f"prefill at degree {degree}"),
+        })
     record = {"device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
+              "topo_kernel_checks": topo_checks, "topo_gates": gates,
+              "topo_serve": serves, "topo_times": {
+                  str(k): v for k, v in topo_times.items()},
               "kernels": kernels}
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)

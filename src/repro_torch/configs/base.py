@@ -1,0 +1,146 @@
+"""Model configuration schema + registry (--arch lookup), over the archs
+the port carries (ROADMAP A10 brings the rest).
+
+`ModelConfig` has the reference's fields, defaults and `replace`, so a
+reference config maps onto the port's field by field.
+"""
+from __future__ import annotations
+
+import dataclasses
+import importlib
+from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab_size: int
+
+    # attention
+    attention_variant: str = "full"  # full | performer | topo
+    attn_impl: str = "naive"  # naive (materialized scores) | chunked (flash)
+    performer_phi: str = "relu"  # relu | sq | quart | exp
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    attn_logit_softcap: float = 0.0
+
+    # topological (paper) masking
+    topo_g: str = "exp"
+    topo_degree: int = 1  # t: #poly coeffs - 1; (t+1)+1(scale)=3 params synced
+    topo_synced: bool = True
+    topo_dist_scale: float = 1.0 / 256.0
+    # sequence-mask attention impl: ref (dense O(L^2) oracle) | torch (the
+    # plain chunked sweep, the reference's XLA twin) | cuda (the fused
+    # kernel, the reference's "pallas"); "fft" is not ported yet
+    # (ROADMAP A5/A10) and raises
+    topo_attn_impl: str = "fft"
+    # tree/grid Integrator backend override for the ViT path (None: follow
+    # topo_attn_impl — pallas -> pallas, else plan)
+    topo_backend: Optional[str] = None
+    # multi-device: run the topo plan executor under shard_map on the active
+    # launch.sharding mesh (leaf blocks over the plan axis); no-op without a
+    # mesh or on one device
+    topo_shard_plan: bool = False
+
+    # mlp
+    mlp_act: str = "silu"  # silu (SwiGLU) | gelu (GeGLU)
+
+    # MoE
+    moe: bool = False
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    top_k: int = 0
+    moe_d_ff: int = 0
+    capacity_factor: float = 1.25
+    first_dense_layers: int = 0
+    router_aux_loss: float = 0.001
+    moe_groups: int = 1  # data-local dispatch groups (§Perf iteration B)
+
+    # MLA (deepseek)
+    mla: bool = False
+    kv_lora_rank: int = 0
+    q_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+
+    # SSM (mamba-1)
+    ssm_state: int = 0
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    dt_rank: int = 0
+
+    # hybrid (recurrentgemma)
+    superblock: tuple = ()  # e.g. ("rec", "rec", "attn")
+    num_superblocks: int = 0
+    tail_blocks: tuple = ()
+    lru_width: int = 0
+    local_window: int = 0
+
+    # encoder-decoder
+    is_encdec: bool = False
+    encoder_layers: int = 0
+    decoder_layers: int = 0
+    max_source_len: int = 3072  # encoder memory length (audio frames)
+
+    # multimodal stub frontend
+    frontend: Optional[str] = None  # audio | vision
+    num_prefix_embeddings: int = 0  # patch/frame embeddings fed directly
+
+    # norm / misc
+    norm_eps: float = 1e-6
+    remat_policy: str = "dots"  # dots | nothing (full remat) | none (no remat)
+    seq_sharded_residuals: bool = False  # Megatron-SP residual stream
+    tie_embeddings: bool = False
+    emb_scale: bool = False  # gemma scales embeddings by sqrt(d)
+    dtype: str = "bfloat16"
+    remat: bool = True
+    scan_layers: bool = True
+
+    # MTP (deepseek-v3 multi-token prediction) — extra head depth
+    mtp_depth: int = 0
+
+    def padded_vocab(self, multiple: int = 256) -> int:
+        v = self.vocab_size
+        return ((v + multiple - 1) // multiple) * multiple
+
+    @property
+    def d_inner(self) -> int:  # mamba
+        return self.ssm_expand * self.d_model
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+# ----------------------------------------------------------------------------
+# registry
+# ----------------------------------------------------------------------------
+
+ARCHS = ["llama3_2_1b"]
+
+_ALIASES = {"llama3.2-1b": "llama3_2_1b"}
+
+
+def _module(arch: str):
+    mod_name = _ALIASES.get(arch, arch)
+    if mod_name not in ARCHS:
+        raise ValueError(f"arch {arch!r} is not ported yet (ported: {ARCHS}; "
+                         "the other families come with ROADMAP A10)")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(arch: str, **overrides) -> ModelConfig:
+    cfg = _module(arch).CONFIG
+    return cfg.replace(**overrides) if overrides else cfg
+
+
+def get_smoke_config(arch: str, **overrides) -> ModelConfig:
+    cfg = _module(arch).SMOKE_CONFIG
+    return cfg.replace(**overrides) if overrides else cfg

@@ -1,10 +1,10 @@
 """Build, load and launch the fused f-distance matvec CUDA kernel.
 
 The source, `fdist_matvec.cu`, sits beside this module. At first use it is
-compiled with nvcc for sm_90a into a shared library with a plain C entry
-point, loaded with ctypes. The library lands in `build/repro_torch_kernels/`
-at the repository root, named by a hash of the source and the flags, so an
-edited source is rebuilt and an unchanged one is compiled once per checkout.
+compiled by the port's one nvcc build step (`kernels/_nvcc.py`) for sm_90a
+into a shared library with a plain C entry point, loaded with ctypes, in
+`build/repro_torch_kernels/` at the repository root, named by a hash of the
+source and the flags.
 
 Nothing here runs at import: the CPU tests import this module on machines
 with neither nvcc nor a card. A failed build or a refused launch raises;
@@ -13,20 +13,13 @@ nothing falls back to the plain version.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import _nvcc
+
 SOURCE = Path(__file__).with_name("fdist_matvec.cu")
-# <repo>/build/repro_torch_kernels (this file is <repo>/src/repro_torch/...)
-BUILD_DIR = (Path(__file__).resolve().parents[4] / "build"
-             / "repro_torch_kernels")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 MODE_IDS = {"poly": 0, "exp": 1, "expq": 2, "rational": 3}
 TB = 64  # source rows per shared-memory stage (the .cu file's TB)
 TD_CHOICES = (4, 16, 64)  # d-tile widths the .cu file instantiates
@@ -40,42 +33,12 @@ _lib = None
 PTXAS_LOG: str = ""  # nvcc's -Xptxas -v report of this process's build
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME:
-        cand = Path(CUDA_HOME) / "bin" / "nvcc"
-        if cand.exists():
-            return str(cand)
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (set CUDA_HOME or put nvcc on PATH): the "
-            "fdist_matvec kernel is compiled from source at first use")
-    return found
-
-
 def build() -> Path:
     """Compile the kernel library if this source/flag pair has none yet;
     returns its path. Raises `subprocess.CalledProcessError` on a failed
     compile."""
     global PTXAS_LOG
-    src = SOURCE.read_bytes()
-    key = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"fdist_matvec_{key}.so"
-    log = lib.with_suffix(".ptxas.txt")
-    if lib.exists():
-        PTXAS_LOG = log.read_text() if log.exists() else ""
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # write under a private name, then rename: concurrent builders never
-    # load a half-written library
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True, check=True)
-    PTXAS_LOG = res.stdout + res.stderr
-    log.write_text(PTXAS_LOG)
-    os.replace(tmp, lib)
+    lib, PTXAS_LOG = _nvcc.build(SOURCE, "fdist_matvec")
     return lib
 
 

@@ -1,0 +1,260 @@
+"""Decoder-only LM of the port: the dense family with
+`attention_variant="topo"` (the paper's Topological Transformer LM).
+
+[norm -> topo attention, norm -> gated MLP] x num_layers, with layers in a
+plain Python loop (the reference's lax.scan is not copied). Parameter
+names follow the reference's pytree paths (`blocks0/attn/wq[l]` ->
+`blocks.{l}.attn.wq`), so `convert.py` is a renaming. The decode cache
+keeps the reference's layout: {"blocks0": {"S": (num_layers, B, H, R, m,
+hd), "z": (num_layers, B, H, R, m)}}. Other families and attention
+variants come with ROADMAP A10.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import nn
+
+from repro_torch.models import attention as A
+from repro_torch.models.layers import (Params, dense_init, dtype_of,
+                                       embed_init, gated_mlp, gated_mlp_init,
+                                       rms_norm)
+
+
+def check_supported(cfg) -> None:
+    if cfg.is_encdec or cfg.family != "dense" or cfg.mla or cfg.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
+            "A10); the port serves the dense family")
+    if cfg.attention_variant != "topo":
+        raise NotImplementedError(
+            f"attention_variant={cfg.attention_variant!r} is not ported yet "
+            "(ROADMAP A10); the port serves attention_variant='topo'")
+
+
+# ----------------------------------------------------------------------------
+# modules
+# ----------------------------------------------------------------------------
+
+
+class DecoderBlock(nn.Module):
+    """One dense topo block: attn_norm, attn, topo (the mask scalars),
+    mlp_norm, mlp."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.attn_norm = Params({"scale": (d,)}, dtype, device)
+        self.attn = A.TopoAttention(cfg, dtype, device)
+        self.topo = Params(A.topo_shapes(cfg), dtype, device)
+        self.mlp_norm = Params({"scale": (d,)}, dtype, device)
+        self.mlp = Params({"w_gate": (d, cfg.d_ff), "w_in": (d, cfg.d_ff),
+                           "w_out": (cfg.d_ff, d)}, dtype, device)
+
+
+class TopoLM(nn.Module):
+    """embed, blocks (a ModuleList of DecoderBlock), final_norm, and lm_head
+    unless the embeddings are tied. Parameters live in the config's dtype.
+    `forward(tokens)` is the cacheless prefill (last-position logits)."""
+
+    def __init__(self, cfg, device=None):
+        super().__init__()
+        (_, count, _), = stack_desc(cfg).segments
+        dtype = dtype_of(cfg)
+        V, d = cfg.padded_vocab(), cfg.d_model
+        self.cfg = cfg
+        self.embed = Params({"table": (V, d)}, dtype, device)
+        self.blocks = nn.ModuleList([DecoderBlock(cfg, dtype, device)
+                                     for _ in range(count)])
+        self.final_norm = Params({"scale": (d,)}, dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = Params({"kernel": (d, V)}, dtype, device)
+
+    def forward(self, tokens):
+        return forward_prefill(self.cfg, self, {"tokens": tokens})
+
+
+# ----------------------------------------------------------------------------
+# blocks
+# ----------------------------------------------------------------------------
+
+
+def _block_init(gen: torch.Generator, cfg, dtype) -> dict:
+    d = cfg.d_model
+    return {"attn_norm": {"scale": torch.zeros((d,), dtype=dtype,
+                                               device=gen.device)},
+            "attn": A.attn_init(gen, cfg, dtype),
+            "topo": A.topo_init(cfg, dtype, gen.device),
+            "mlp_norm": {"scale": torch.zeros((d,), dtype=dtype,
+                                              device=gen.device)},
+            "mlp": gated_mlp_init(gen, d, cfg.d_ff, dtype)}
+
+
+def _attn_train(cfg, p, x, positions):
+    h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
+    return A.topo_attention_train(cfg, p.attn, p.topo, h, positions)
+
+
+def _mlp(cfg, p, x):
+    h = rms_norm(x, p.mlp_norm.scale, cfg.norm_eps, plus_one=True)
+    return x + gated_mlp(p.mlp, h, cfg.mlp_act)
+
+
+def _block_train(cfg, p, x, positions):
+    return _mlp(cfg, p, x + _attn_train(cfg, p, x, positions))
+
+
+def _block_decode(cfg, p, x, pos, cache, S):
+    """x: (B, 1, d). Returns (x, new_cache)."""
+    h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
+    y, cache = A.topo_attention_decode(cfg, p.attn, p.topo, h, pos, cache,
+                                       L=S)
+    return _mlp(cfg, p, x + y), cache
+
+
+def _block_prefill(cfg, p, x, positions, lengths, cache, S,
+                   tree_mask=None):
+    """Whole-prompt forward (the math of `_block_train`) that also writes
+    the decode cache for positions [0, lengths[b]). x: (B, Lp, d) right-
+    padded; rows with lengths[b] == 0 leave their cache untouched."""
+    h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
+    y, cache = A.topo_attention_prefill(cfg, p.attn, p.topo, h, positions,
+                                        lengths, cache, L=S,
+                                        tree_mask=tree_mask)
+    return _mlp(cfg, p, x + y), cache
+
+
+def _block_cache_init(cfg, B, S, device=None):
+    return A.topo_decode_init(cfg, B, S, device=device)
+
+
+@dataclasses.dataclass(frozen=True)
+class StackDesc:
+    """(kind, count, scanned) segments, executed in order."""
+    segments: tuple
+
+
+def stack_desc(cfg) -> StackDesc:
+    check_supported(cfg)
+    return StackDesc((("attn_mlp", cfg.num_layers, cfg.scan_layers),))
+
+
+# ----------------------------------------------------------------------------
+# params
+# ----------------------------------------------------------------------------
+
+
+def init_state_dict(cfg, gen: torch.Generator) -> dict:
+    """Random weights (the reference's init recipe, drawn from `gen` on its
+    device) as a state dict of `TopoLM`."""
+    dtype = dtype_of(cfg)
+    sd = {"embed.table": embed_init(gen, cfg.padded_vocab(), cfg.d_model,
+                                    dtype)["table"]}
+    for layer in range(cfg.num_layers):
+        for part, leaves in _block_init(gen, cfg, dtype).items():
+            for name, t in leaves.items():
+                sd[f"blocks.{layer}.{part}.{name}"] = t
+    sd["final_norm.scale"] = torch.zeros((cfg.d_model,), dtype=dtype,
+                                         device=gen.device)
+    if not cfg.tie_embeddings:
+        sd["lm_head.kernel"] = dense_init(
+            gen, (cfg.d_model, cfg.padded_vocab()), dtype=dtype)
+    return sd
+
+
+def from_state_dict(cfg, sd: dict) -> TopoLM:
+    """A TopoLM holding exactly the tensors of `sd` (strict: every name of
+    the model, nothing else)."""
+    model = TopoLM(cfg, device="meta")
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model
+
+
+def init_params(cfg, gen: torch.Generator) -> TopoLM:
+    return from_state_dict(cfg, init_state_dict(cfg, gen))
+
+
+# ----------------------------------------------------------------------------
+# forward
+# ----------------------------------------------------------------------------
+
+
+def embed_tokens(cfg, model, tokens):
+    x = model.embed.table[tokens]
+    if cfg.emb_scale:
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return x
+
+
+def unembed(cfg, model, x):
+    if cfg.tie_embeddings:
+        return x @ model.embed.table.T
+    return x @ model.lm_head.kernel
+
+
+def _final(cfg, model, x):
+    return rms_norm(x, model.final_norm.scale, cfg.norm_eps, plus_one=True)
+
+
+def forward_prefill(cfg, model, batch):
+    """Prefill: logits for the last position (B, 1, V), no cache."""
+    tokens = batch["tokens"]
+    B, L = tokens.shape
+    x = embed_tokens(cfg, model, tokens)
+    positions = torch.arange(L, dtype=torch.int32,
+                             device=x.device)[None].expand(B, L)
+    for blk in model.blocks:
+        x = _block_train(cfg, blk, x, positions)
+    return unembed(cfg, model, _final(cfg, model, x)[:, -1:, :])
+
+
+def init_decode_cache(cfg, B: int, S: int, device=None) -> dict:
+    one = _block_cache_init(cfg, B, S, device)
+    n = cfg.num_layers
+    return {"blocks0": {k: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
+                                       device=t.device)
+                        for k, t in one.items()}}
+
+
+def _layer(cache, layer: int) -> dict:
+    return {k: t[layer] for k, t in cache["blocks0"].items()}
+
+
+def _stack(caches: list) -> dict:
+    return {"blocks0": {k: torch.stack([c[k] for c in caches])
+                        for k in caches[0]}}
+
+
+def forward_decode(cfg, model, cache, token, pos, S):
+    """token: (B, 1) int; pos: () or (B,) int. Returns (logits (B, 1, V),
+    new_cache)."""
+    x = embed_tokens(cfg, model, token)
+    new = []
+    for layer, blk in enumerate(model.blocks):
+        x, c = _block_decode(cfg, blk, x, pos, _layer(cache, layer), S)
+        new.append(c)
+    return unembed(cfg, model, _final(cfg, model, x)), _stack(new)
+
+
+def forward_prefill_into_cache(cfg, model, cache, tokens, lengths, S,
+                               tree_mask=None):
+    """Fused prefill: the whole (right-padded) prompt batch in one forward
+    pass that also writes each row's state into the decode cache.
+
+    tokens: (B, Lp) int, right-padded; lengths: (B,) int; rows with
+    lengths[b] == 0 keep their cache. Returns (logits (B, V) of each row's
+    last real token, new_cache)."""
+    B, Lp = tokens.shape
+    x = embed_tokens(cfg, model, tokens)
+    positions = torch.arange(Lp, dtype=torch.int32,
+                             device=x.device)[None].expand(B, Lp)
+    new = []
+    for layer, blk in enumerate(model.blocks):
+        x, c = _block_prefill(cfg, blk, x, positions, lengths,
+                              _layer(cache, layer), S, tree_mask=tree_mask)
+        new.append(c)
+    x = _final(cfg, model, x)
+    last = (lengths - 1).clamp(0, Lp - 1)
+    x_last = x[torch.arange(B, device=x.device), last][:, None, :]
+    return unembed(cfg, model, x_last)[:, 0], _stack(new)

@@ -1,7 +1,10 @@
 """The port on a CUDA card: the fdist_matvec kernel against its plain
-version, and `apply(backend="cuda")` against the dense oracle. These tests
-need a card (the kernel has no CPU mode) and skip without one; they import
-nothing of jax, so they run where only the port is installed:
+version and `apply(backend="cuda")` against the dense oracle; the topo
+sweep kernel against its plain sweep in both state modes, the fused
+forward against the plain one and the dense oracle, and the smoke topo-LM
+served on impl "cuda" against impl "torch". These tests need a card (the
+kernels have no CPU mode) and skip without one; they import nothing of
+jax, so they run where only the port is installed:
 
     PYTHONPATH=src python -m pytest tests/test_torch_cuda.py -q
 """
@@ -96,3 +99,137 @@ def test_apply_cuda_matches_dense_oracle(fn, cuda_device):
     want = BTFI(tree).integrate(fn, X)
     assert got.device.type == "cuda"
     assert _rel(got, want) < 1e-5
+
+
+# --- the topological linear-attention sweep kernel ---------------------------
+
+from repro_torch.kernels.topo_linear_attention import ops as topo_ops  # noqa: E402
+from repro_torch.kernels.topo_linear_attention.ref import (  # noqa: E402
+    topo_linear_attention_ref)
+
+
+def _sweep_inputs(rng, B, H, L, m, hd, C, R, device):
+    """|normal| features, normal values, and the mask pieces of
+    topo_ops._prepare for a degree-1 (decay, R = 0) or degree-2 (rank R)
+    exp mask drawn as tests/test_topo_attention.py draws them."""
+    def t(a):
+        return torch.tensor(a, dtype=torch.float32, device=device)
+
+    qf = t(np.abs(rng.normal(size=(B, H, L, m))))
+    kf = t(np.abs(rng.normal(size=(B, H, L, m))))
+    v = t(rng.normal(size=(B, H, L, hd)))
+    cs = rng.uniform(-0.5, 0.5, (H, 2 if R == 0 else 3))
+    cs[:, 0] = rng.uniform(1.5, 2.5, H)
+    spec = topo_ops.TopoSpec("exp", 1.0 / L, True, C, R or 16, 1e-6)
+    lg, alpha, beta, dmat, _ = topo_ops._prepare(spec, t(cs), L)
+    mode = (dict(log_gamma=lg) if R == 0 else
+            dict(alpha=alpha.contiguous(), beta=beta.contiguous()))
+    return qf, kf, v, dmat.contiguous(), mode
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [0, 16], ids=["decay", "rank16"])
+@pytest.mark.parametrize("B,H,L,m,hd,C", [
+    (1, 2, 40, 4, 8, 40), (2, 2, 200, 4, 8, 40), (1, 3, 96, 64, 64, 32),
+    (2, 2, 256, 64, 64, 128), (1, 2, 64, 16, 24, 16)])
+@pytest.mark.parametrize("variant", ["normalize", "unnormalized",
+                                     "residual"])
+def test_topo_sweep_kernel_matches_plain_version(B, H, L, m, hd, C, R,
+                                                 variant, cuda_device):
+    rng = np.random.default_rng(B * 1000 + L)
+    qf, kf, v, dmat, mode = _sweep_inputs(rng, B, H, L, m, hd, C, R,
+                                          cuda_device)
+    kw = dict(mode, normalize=variant != "unnormalized")
+    if variant == "residual":
+        kw["res_num"] = torch.tensor(rng.normal(size=(B, H, L, hd)),
+                                     dtype=torch.float32, device=cuda_device)
+        kw["res_den"] = torch.tensor(rng.uniform(1, 2, (B, H, L)),
+                                     dtype=torch.float32, device=cuda_device)
+    before = topo_ops.LAUNCHES
+    got = topo_ops.topo_attention_sweep(qf, kf, v, dmat, **kw)
+    torch.cuda.synchronize()
+    assert topo_ops.LAUNCHES == before + 1
+    num, den = topo_ops._sweep(qf, kf, v, dmat, mode.get("log_gamma"),
+                               mode.get("alpha"), mode.get("beta"))
+    want = topo_ops._emit(num, den, kw.get("res_num"), kw.get("res_den"),
+                          kw["normalize"], 1e-6)
+    if variant == "unnormalized":
+        assert _rel(got[0], want[0]) < 1e-4 and _rel(got[1], want[1]) < 1e-4
+    else:
+        assert got.shape == (B, H, L, hd) and _rel(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("g,degree", [("exp", 1), ("exp", 2),
+                                      ("identity", 2), ("exp", 3)])
+@pytest.mark.parametrize("L", [33, 200])
+def test_topo_linear_attention_kernel_path(causal, g, degree, L,
+                                           cuda_device):
+    """The whole fused forward on the card (one launch causal, two
+    bidirectional) against the plain sweep (1e-4) and the dense oracle
+    (1e-3), the bounds of tests/test_topo_attention.py."""
+    rng = np.random.default_rng(L + degree)
+    H, m, hd = 2, 8, 8
+    qf, kf = (torch.tensor(np.abs(rng.normal(size=(1, H, L, m))),
+                           dtype=torch.float32, device=cuda_device)
+              for _ in range(2))
+    v = torch.tensor(rng.normal(size=(1, H, L, hd)), dtype=torch.float32,
+                     device=cuda_device)
+    cs = rng.uniform(-0.5, 0.5, (H, degree + 1))
+    cs[:, 0] = rng.uniform(1.5, 2.5, H)
+    cs = torch.tensor(cs, dtype=torch.float32, device=cuda_device)
+    kw = dict(g=g, dist_scale=1.0 / L, causal=causal)
+    before = topo_ops.LAUNCHES
+    got = topo_ops.topo_linear_attention(qf, kf, v, cs, **kw)
+    assert topo_ops.LAUNCHES == before + (1 if causal else 2)
+    plain = topo_ops.topo_linear_attention(qf, kf, v, cs, use_kernel=False,
+                                           **kw)
+    ref = topo_linear_attention_ref(qf, kf, v, cs, **kw)
+    assert _rel(got, plain) < 1e-4
+    assert _rel(got, ref) < 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [1, 2], ids=["decay", "rank16"])
+def test_topo_lm_serving_kernel_matches_plain(degree, cuda_device):
+    """The smoke topo Llama served on the card: impl "cuda" (one kernel
+    launch per layer per prefill) against impl "torch" on the same weights,
+    float32, over mixed prompt lengths and 4 decode steps."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import api
+
+    S = 80
+    cfg = get_smoke_config("llama3_2_1b", attention_variant="topo",
+                           topo_attn_impl="cuda", topo_degree=degree,
+                           topo_dist_scale=1.0 / S, dtype="float32")
+    model = api.init_params(cfg, 3)
+    rng = np.random.default_rng(degree)
+    toks = rng.integers(0, cfg.vocab_size, (3, 70)).astype(np.int32)
+    lengths = np.array([70, 41, 0], np.int32)
+    out = {}
+    for impl in ("cuda", "torch"):
+        c = cfg.replace(topo_attn_impl=impl)
+        before = topo_ops.LAUNCHES
+        logits, cache = api.prefill_into_cache(c, model, api.init_cache(
+            c, 3, S), toks, lengths, S)
+        launched = topo_ops.LAUNCHES - before
+        pos = torch.tensor(lengths, device=cuda_device).long()
+        # both impls decode the greedy tokens of the "cuda" run
+        fed = out["cuda"][4] if impl == "torch" else [logits.argmax(-1)]
+        steps = []
+        for t in range(4):
+            lg, cache = api.decode_fn(c, model, cache, fed[t][:, None], pos,
+                                      S)
+            steps.append(lg)
+            if impl == "cuda":
+                fed.append(lg[:, 0].argmax(-1))
+            pos = pos + 1
+        out[impl] = (logits, steps, cache, launched, fed)
+    assert out["cuda"][3] == cfg.num_layers and out["torch"][3] == 0
+    assert _rel(out["cuda"][0][:2], out["torch"][0][:2]) < 1e-4
+    for a, b in zip(out["cuda"][1], out["torch"][1]):
+        assert _rel(a, b) < 1e-4
+    for k in ("S", "z"):
+        assert _rel(out["cuda"][2]["blocks0"][k],
+                    out["torch"][2]["blocks0"][k]) < 1e-5

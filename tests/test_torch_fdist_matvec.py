@@ -148,11 +148,13 @@ def _tries(path: Path) -> list:
             if isinstance(n, (ast.Try, ast.TryStar))]
 
 
-@pytest.mark.parametrize("name", ["ops.py", "kernel.py"])
+@pytest.mark.parametrize("name", [
+    "ops.py", "kernel.py", "../_nvcc.py", "../topo_linear_attention/ops.py",
+    "../topo_linear_attention/kernel.py"])
 def test_no_fallback_around_build_or_launch(name):
-    """A kernel that fails to build or launch raises: neither the wrapper
-    nor the loader has a try/except that could hand the call to the plain
-    version instead."""
+    """A kernel that fails to build or launch raises: neither the wrappers,
+    the loaders nor the shared nvcc build step has a try/except that could
+    hand the call to the plain version instead."""
     path = PKG / "kernels" / "fdist_matvec" / name
     assert _tries(path) == [], f"{name} has try blocks at {_tries(path)}"
 
