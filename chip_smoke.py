@@ -6,9 +6,9 @@ sm_90a) and nvcc:
 
     python3 chip_smoke.py [--out results.json]
 
-It builds the port's two CUDA kernels (fdist_matvec and the topological
-linear-attention sweep) from the repository's sources, in parallel, and
-drives two paths.
+It builds the port's four CUDA kernels (fdist_matvec, the topological
+linear-attention sweep, flash attention and causal linear attention) from
+the repository's sources, in parallel, and drives three paths.
 
 FTFI: it holds the fdist_matvec kernel against its plain PyTorch version
 on the card, drives `ftfi.build` (graph -> MST -> IT plan on the host) and
@@ -25,6 +25,16 @@ full-width Llama-3.2-1B with the paper's topological attention at mask
 degree 1 (decay mode) and 2 (rank mode), with `topo_attn_impl="cuda"`
 held against `"torch"` in float32; then times prefill, decode and the
 kernel in bf16 and traces one prefill.
+
+Dense LM: it holds the flash attention kernel (causal and not, f32 and
+bf16, the served shape and a ragged L) and the linear attention kernel
+(lg = 0 and per head, on num and den) against their plain versions on the
+card; serves the 4 requests of the full-width Llama-3.2-1B as published
+(rope, softmax attention, `attention_variant="full"`) and as a Performer
+(`"performer"`), with `attn_impl="cuda"` held against `"chunked"` in
+float32; then times prefill, decode and both kernels in bf16 (flash
+attention beside one `scaled_dot_product_attention` call) and traces one
+prefill and one decode step.
 
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
@@ -53,6 +63,7 @@ ROOT = Path(__file__).resolve().parent
 # and its operations over these
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense, in the tensor cores
 
 MODES = [("poly", (0.5, -0.2, 0.1)), ("exp", (-0.7, 1.3)),
          ("expq", (-0.05, -0.2, 0.1)), ("rational", (0.8,))]
@@ -83,9 +94,11 @@ def work(B, a, b, d, mode, k, v_bytes=4, out_bytes=4):
     return nbytes, B * a * b * (2 * d + _f_ops(mode, k))
 
 
-def bound(nbytes, ops):
-    """(least time on an H100 in ms, what bounds it) for this much work."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS_PER_S
+def bound(nbytes, ops, flops_per_s=FP32_FLOPS_PER_S):
+    """(least time on an H100 in ms, what bounds it) for this much work,
+    its operations at `flops_per_s` (fp32 outside the tensor cores unless
+    given)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -164,6 +177,8 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels.fdist_matvec import kernel as fdist_kernel
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.linear_attention import kernel as linear_kernel
     from repro_torch.kernels.topo_linear_attention import kernel as topo_kernel
 
     def one(mod):
@@ -172,7 +187,9 @@ def phase_build():
         mod.library()
         return lib, time.perf_counter() - t0
 
-    mods = {"fdist_matvec": fdist_kernel, "topo_sweep": topo_kernel}
+    mods = {"fdist_matvec": fdist_kernel, "topo_sweep": topo_kernel,
+            "flash_attention": flash_kernel,
+            "linear_attention": linear_kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as ex:
         futs = {name: ex.submit(one, mod) for name, mod in mods.items()}
@@ -702,13 +719,12 @@ def _prompts(cfg):
     return toks.astype(np.int32), lengths
 
 
-def _serve(cfg, model, toks, lengths, steps, device, feed=None):
+def _serve(cfg, model, toks, lengths, steps, device, ops, feed=None):
     """prefill_into_cache, then `steps` decode steps at per-slot positions:
     greedy, or the tokens of `feed` (another run's) when given. Returns
     (prefill logits, prefill cache, step logits, fed tokens, launches of
-    the topo kernel in the prefill)."""
+    the kernel that `ops` counts in the prefill, and in the decode)."""
     import torch
-    from repro_torch.kernels.topo_linear_attention import ops
     from repro_torch.models import api
 
     S = TOPO["S"]
@@ -722,6 +738,7 @@ def _serve(cfg, model, toks, lengths, steps, device, feed=None):
     pos = torch.as_tensor(lengths, device=device).long()
     tok = logits.argmax(-1)[:, None] if feed is None else feed[0]
     step_logits, fed = [], [tok]
+    before = ops.LAUNCHES
     for t in range(steps):
         lg, cache = api.decode_fn(cfg, model, cache, tok, pos, S,
                                   device=device)
@@ -730,7 +747,8 @@ def _serve(cfg, model, toks, lengths, steps, device, feed=None):
         fed.append(tok)
         pos = pos + 1
     torch.cuda.synchronize()
-    return logits, prefill_cache, step_logits, fed, launched
+    return (logits, prefill_cache, step_logits, fed, launched,
+            ops.LAUNCHES - before)
 
 
 def _check_served(cfg, logits, step_logits, fed):
@@ -748,86 +766,86 @@ def _check_served(cfg, logits, step_logits, fed):
         raise AssertionError("a greedy token fell outside the vocabulary")
 
 
-def phase_topo_gate(degree, device):
-    """4b gate: float32 (TF32 off), the same weights on impl "cuda" and
-    impl "torch": prefill logits, cache and the first decode steps agree;
-    decode vs prefill on the extended prompt is printed, not gated."""
+def phase_gate(label, cfg, plain_cfg, ops, device):
+    """4b/4c gate: float32 (TF32 off), the same weights served through the
+    kernel (`cfg`) and through its plain version (`plain_cfg`): prefill
+    logits, cache and the first decode steps agree; one kernel launch per
+    layer in the prefill, none in decode and none on the plain run; decode
+    vs prefill of the extended prompt is printed, not gated."""
     import torch
-    from repro_torch.kernels.topo_linear_attention import ops
     from repro_torch.models import api
 
-    cfg = _topo_cfg(degree, "cuda", "float32")
     model = api.init_params(cfg, TOPO["seed"], device=device)
     toks, lengths = _prompts(cfg)
     n = TOPO["gate_steps"]
-    got = _serve(cfg, model, toks, lengths, max(n, 2), device)
-    if got[4] != cfg.num_layers:
-        raise AssertionError(f"degree {degree} float32 prefill: {got[4]} "
-                             f"topo kernel launches for {cfg.num_layers} "
-                             "layers")
-    before = ops.LAUNCHES
-    want = _serve(cfg.replace(topo_attn_impl="torch"), model, toks, lengths,
-                  n, device, feed=got[3])
-    if ops.LAUNCHES != before:
-        raise AssertionError("impl 'torch' launched the topo kernel")
+    got = _serve(cfg, model, toks, lengths, max(n, 2), device, ops)
+    if got[4] != cfg.num_layers or got[5] != 0:
+        raise AssertionError(f"{label} float32: {got[4]} kernel launches in "
+                             f"the prefill for {cfg.num_layers} layers, "
+                             f"{got[5]} in decode")
+    want = _serve(plain_cfg, model, toks, lengths, n, device, ops,
+                  feed=got[3])
+    if want[4] or want[5]:
+        raise AssertionError(f"{label}: the plain run launched the kernel")
     _check_served(cfg, got[0], got[2], got[3])
     e_logits = rel_err(got[0], want[0])
     e_cache = max(rel_err(got[1]["blocks0"][k], want[1]["blocks0"][k])
-                  for k in ("S", "z"))
+                  for k in got[1]["blocks0"])
     e_steps = [rel_err(a, b) for a, b in zip(got[2][:n], want[2])]
     ok = (e_logits <= LOGIT_TOL and e_cache <= CACHE_TOL
           and max(e_steps) <= LOGIT_TOL)
     # decode vs prefill of the prompt extended by the fed tokens
     ext = np.zeros((len(lengths), TOPO["Lp"] + 2), np.int32)
     ext[:, :TOPO["Lp"]] = toks
-    fed = [t[:, 0].cpu().numpy() for t in got[3][:2]]
     rows = np.arange(len(lengths))
-    ext[rows, lengths] = fed[0]
-    ext[rows, lengths + 1] = fed[1]
+    for k in (0, 1):
+        ext[rows, lengths + k] = got[3][k][:, 0].cpu().numpy()
     e_dp = []
     for k in (1, 2):
         cache = api.init_cache(cfg, len(lengths), TOPO["S"], device=device)
         lg, _ = api.prefill_into_cache(cfg, model, cache, ext, lengths + k,
                                        TOPO["S"], device=device)
         e_dp.append(rel_err(got[2][k - 1][:, 0], lg))
-    print(f"[topo gate degree {degree}] float32, matmul.allow_tf32="
+    print(f"[{label} gate] float32, matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}, depth {cfg.num_layers} "
-          f"of {cfg.num_layers} layers, width {cfg.d_model}: cuda vs torch "
-          f"prefill logits {e_logits:.2e} (< {LOGIT_TOL}), cache S/z "
-          f"{e_cache:.2e} (< {CACHE_TOL}), decode steps 1-{n} "
-          f"{max(e_steps):.2e} (< {LOGIT_TOL}); {got[4]} launches in the "
-          f"prefill | not gated: decode vs prefill of the extended prompt "
-          f"{e_dp[0]:.2e}, {e_dp[1]:.2e}", flush=True)
+          f"of {cfg.num_layers} layers, width {cfg.d_model}: kernel vs plain "
+          f"prefill logits {e_logits:.2e} (< {LOGIT_TOL}), cache "
+          f"{'/'.join(got[1]['blocks0'])} {e_cache:.2e} (< {CACHE_TOL}), "
+          f"decode steps 1-{n} {max(e_steps):.2e} (< {LOGIT_TOL}); {got[4]} "
+          f"launches in the prefill, {got[5]} in decode | not gated: decode "
+          f"vs prefill of the extended prompt {e_dp[0]:.2e}, {e_dp[1]:.2e}",
+          flush=True)
     if not ok:
-        raise AssertionError(f"degree {degree}: cuda and torch disagree")
-    return {"degree": degree, "dtype": "float32", "layers": cfg.num_layers,
+        raise AssertionError(f"{label}: the kernel and plain paths disagree")
+    return {"label": label, "dtype": "float32", "layers": cfg.num_layers,
             "rel_err_prefill_logits": e_logits, "rel_err_cache": e_cache,
             "rel_err_decode": e_steps, "launches_per_prefill": got[4],
-            "decode_vs_prefill": e_dp}
+            "launches_in_decode": got[5], "decode_vs_prefill": e_dp}
 
 
-def phase_topo_serve(degree, device, card):
-    """4b main path + 5b times at the config's dtype (bf16): 4 requests,
-    prefill_into_cache then 32 greedy decode steps, with the kernel count
-    from 0 just before and read just after; then prefill and decode
-    times."""
+def phase_serve(label, cfg, ops, device, card):
+    """4b/4c main path + 5b/5c times at the config's dtype (bf16): 4
+    requests, prefill_into_cache then 32 greedy decode steps, with the
+    kernel count from 0 just before and read just after; then prefill and
+    decode times and the profiles of one prefill and one decode step."""
     import torch
-    from repro_torch.kernels.topo_linear_attention import ops
     from repro_torch.models import api
 
-    cfg = _topo_cfg(degree, "cuda")
     model = api.init_params(cfg, TOPO["seed"], device=device)
     toks, lengths = _prompts(cfg)
     ops.LAUNCHES = 0
+    by_mode = getattr(ops, "LAUNCHES_BY_MODE", {})
+    for mode in by_mode:
+        by_mode[mode] = 0
     t0 = time.perf_counter()
-    logits, cache, step_logits, fed, _ = _serve(cfg, model, toks, lengths,
-                                                TOPO["steps"], device)
+    logits, cache, step_logits, fed, _, _ = _serve(
+        cfg, model, toks, lengths, TOPO["steps"], device, ops)
     serve_s = time.perf_counter() - t0
     launches = ops.LAUNCHES
+    launches_by_mode = dict(by_mode)
     if launches != cfg.num_layers:
-        raise AssertionError(f"degree {degree}: {launches} topo kernel "
-                             f"launches on the main path, expected "
-                             f"{cfg.num_layers}")
+        raise AssertionError(f"{label}: {launches} kernel launches on the "
+                             f"main path, expected {cfg.num_layers}")
     _check_served(cfg, logits, step_logits, fed)
     S, B = TOPO["S"], len(lengths)
     pre_ms = host_ms(lambda: api.prefill_into_cache(
@@ -838,31 +856,32 @@ def phase_topo_serve(degree, device, card):
                                            device=device),
                      TOPO["decode_reps"])
     n_tok = int(lengths.sum())
-    out = {"degree": degree, "dtype": cfg.dtype, "launches": launches,
+    out = {"label": label, "dtype": cfg.dtype, "launches": launches,
+           "launches_by_mode": launches_by_mode,
            "serve_seconds": serve_s, "prefill_ms": pre_ms,
            "prefill_tokens_per_s": n_tok / (pre_ms / 1e3),
            "decode_ms_per_step": dec_ms,
            "decode_tokens_per_s": B / (dec_ms / 1e3),
            "tokens": torch.cat(fed, 1)[:, :8].cpu().tolist(),
            "params": api.param_count(model), "card": card}
-    print(f"[topo serve degree {degree}] {cfg.name} topo, {cfg.dtype}, "
+    print(f"[{label} serve] {cfg.name} {cfg.attention_variant}, {cfg.dtype}, "
           f"{cfg.num_layers} layers, {out['params']} params: 4 requests "
           f"(lengths {TOPO['lengths']}, S={S}), prefill + {TOPO['steps']} "
-          f"greedy steps in {serve_s:.2f} s, {launches} topo kernel "
-          f"launches | prefill {pre_ms:.1f} ms ({out['prefill_tokens_per_s']:.0f}"
-          f" tok/s), decode {dec_ms:.2f} ms/step ({out['decode_tokens_per_s']:.0f}"
-          f" tok/s) | {card}", flush=True)
-    out["profile_prefill"] = phase_topo_profile(
-        f"prefill degree {degree}", lambda: api.prefill_into_cache(
+          f"greedy steps in {serve_s:.2f} s, {launches} kernel launches | "
+          f"prefill {pre_ms:.1f} ms ({out['prefill_tokens_per_s']:.0f} "
+          f"tok/s), decode {dec_ms:.2f} ms/step "
+          f"({out['decode_tokens_per_s']:.0f} tok/s) | {card}", flush=True)
+    out["profile_prefill"] = phase_calls_profile(
+        f"{label} prefill", lambda: api.prefill_into_cache(
             cfg, model, api.init_cache(cfg, B, S, device=device), toks,
             lengths, S, device=device))
-    out["profile_decode"] = phase_topo_profile(
-        f"decode step degree {degree}", lambda: api.decode_fn(
+    out["profile_decode"] = phase_calls_profile(
+        f"{label} decode step", lambda: api.decode_fn(
             cfg, model, cache, tok, pos, S, device=device), calls=4)
     return out
 
 
-def phase_topo_profile(label, fn, calls=1):
+def phase_calls_profile(label, fn, calls=1):
     """torch.profiler over `calls` calls of fn(): device busy share of the
     window and the top device ops with their share of device time (per
     call)."""
@@ -890,7 +909,7 @@ def phase_topo_profile(label, fn, calls=1):
     out = {"wall_ms": wall_ms, "device_ms": dev_ms,
            "busy": dev_ms / wall_ms, "launches": sum(k["calls"] for k in ops_),
            "ops": ops_[:12]}
-    print(f"[topo profile {label}] wall {wall_ms:.2f} ms per call under the "
+    print(f"[profile {label}] wall {wall_ms:.2f} ms per call under the "
           f"profiler, device {dev_ms:.2f} ms, busy share {out['busy']:.2f}, "
           f"{out['launches']:.0f} device ops; top: " + "; ".join(
               f"{k['name'][:38]} {k['ms']:.2f} ms ({k['share']:.0%}) "
@@ -943,6 +962,236 @@ def phase_topo_times(served, card, device):
     return out
 
 
+# ----------------------------------------------------------------------------
+# slice 3: Llama-3.2-1B with full (rope + softmax) and Performer attention,
+# served with the flash attention and linear attention kernels
+# ----------------------------------------------------------------------------
+
+# llama3_2_1b at full width, as published (rope 500000, GQA 32/8, head_dim
+# 64), and its Performer variant (phi = relu); the requests of slice 2
+DENSE = {"variants": ("full", "performer"),
+         # (B, H, KV, L, hd): the served prefill's attention, and a ragged L
+         "flash_shapes": [(4, 32, 8, 4096, 64), (4, 32, 8, 1000, 64)],
+         # (B, H, L, m, hd): the served Performer prefill
+         "linear_shape": (4, 32, 4096, 64, 64)}
+FLASH_TOL = 2e-5  # tests/test_kernels.py::test_flash_attention, absolute
+# bf16: one bf16 rounding of each output value (the spacing at |o| is at
+# most 2^-7 |o|) on top of the float32 bound; on an H100 at the served shape
+# the worst absolute difference read 1.95e-3
+FLASH_BF16_ULP = 2.0 ** -7
+LINEAR_TOL = 1e-5  # tests/test_kernels.py::test_linear_attention, relative
+
+
+def bf16_roundings(got, want) -> float:
+    """max over elements of |got - want| / (2^-7 max(|got|, |want|) + the
+    float32 bound): at most 1 when the two differ by one bf16 rounding."""
+    import torch
+
+    got, want = got.float(), want.float()
+    room = FLASH_BF16_ULP * torch.maximum(got.abs(), want.abs()) + FLASH_TOL
+    return float(((got - want).abs() / room).max())
+
+
+def _dense_cfg(variant: str, impl: str = "cuda", dtype: str | None = None):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(TOPO["arch"], attention_variant=variant,
+                     attn_impl=impl)
+    return cfg.replace(dtype=dtype) if dtype else cfg
+
+
+def _kernel_ops(variant: str):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.linear_attention import ops as linear_ops
+
+    return flash_ops if variant == "full" else linear_ops
+
+
+def flash_work(B, H, KV, L, hd, causal, nbytes_el):
+    """(bytes, operations) of one call: q, k, v and out each moved once;
+    q k^T and P v over the (query, key) pairs the mask keeps (4 hd
+    operations a pair; the softmax's exps not counted)."""
+    pairs = L * (L + 1) // 2 if causal else L * L
+    nbytes = nbytes_el * (2 * B * H * L * hd + 2 * B * KV * L * hd)
+    return nbytes, B * H * pairs * 4 * hd
+
+
+def linear_work(B, H, L, m, hd, v_bytes):
+    """(bytes, operations) of one call: qf, kf (fp32), v, num and den (fp32)
+    each moved once; the function's least operations, which do not depend
+    on the kernel's chunk: those of a chunk of one row, per row the read of
+    the state S, z and its update (4 m (hd + 1)) and the diagonal pair
+    (2 m + 2 hd + 2)."""
+    nbytes = (4 * 2 * B * H * L * m + v_bytes * B * H * L * hd
+              + 4 * B * H * L * (hd + 1) + 4 * H)
+    return nbytes, B * H * L * (4 * m * (hd + 1) + 2 * m + 2 * hd + 2)
+
+
+def phase_attn_kernel_vs_plain(device):
+    """3c: the flash attention kernel against its plain version at the
+    served shape (causal and not, f32 and bf16) and at a ragged L, and
+    against the dense oracle at L <= 1024; the linear attention kernel
+    against its plain version at the served Performer shape, lg = 0 and
+    per-head lg in [-0.05, 0), f32 and bf16 v, on num and on den."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.linear_attention import ops as linear_ops
+
+    rng = np.random.default_rng(17)
+    rows, served = [], {}
+    for B, H, KV, L, hd in DENSE["flash_shapes"]:
+        base = [torch.tensor(rng.normal(size=(B, n, L, hd)),
+                             dtype=torch.float32, device=device)
+                for n in (H, KV, KV)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in base)
+            for causal in (True, False):
+                got = flash_ops.flash_attention(q, k, v, causal)
+                plain = flash_ops.flash_attention(q, k, v, causal,
+                                                  use_kernel=False)
+                torch.cuda.synchronize()
+                if got.shape != q.shape or got.dtype != dtype or not bool(
+                        torch.isfinite(got.float()).all()):
+                    raise AssertionError(f"flash kernel: bad output "
+                                         f"{tuple(got.shape)} {got.dtype}")
+                want = {"plain": plain}
+                if L <= 1024:
+                    G = H // KV
+                    want["ref"] = attention_ref(
+                        q, k.repeat_interleave(G, 1),
+                        v.repeat_interleave(G, 1), causal)
+                row = {"kernel": "flash_attention", "shape": (B, H, KV, L, hd),
+                       "dtype": str(dtype).split(".")[1], "causal": causal,
+                       "abs_err": float((got.float() - plain.float()).abs()
+                                        .max()), "abs_err_ref": None}
+                if "ref" in want:
+                    row["abs_err_ref"] = float(
+                        (got.float() - want["ref"].float()).abs().max())
+                if dtype == torch.float32:
+                    ok = all(float((got - w).abs().max()) <= FLASH_TOL
+                             for w in want.values())
+                else:  # held per value: at most one bf16 rounding apart
+                    row["bf16_roundings"] = max(bf16_roundings(got, w)
+                                                for w in want.values())
+                    ok = row["bf16_roundings"] <= 1.0
+                if not ok:
+                    raise AssertionError(f"flash kernel {row} (bound "
+                                         f"{FLASH_TOL} in float32, one bf16 "
+                                         "rounding in bfloat16)")
+                rows.append(row)
+                if L == DENSE["flash_shapes"][0][3]:
+                    served[("flash", row["dtype"], causal)] = (q, k, v)
+            del q, k, v
+    B, H, L, m, hd = DENSE["linear_shape"]
+    qf, kf = (torch.tensor(np.abs(rng.normal(size=(B, H, L, m))),
+                           dtype=torch.float32, device=device)
+              for _ in range(2))
+    v32 = torch.tensor(rng.normal(size=(B, H, L, hd)), dtype=torch.float32,
+                       device=device)
+    gammas = {"lg0": torch.zeros(H, device=device),
+              "lg_perhead": torch.tensor(-rng.uniform(1e-4, 0.05, H),
+                                         dtype=torch.float32, device=device)}
+    for name, lg in gammas.items():
+        for v in (v32, v32.to(torch.bfloat16)):
+            num, den = linear_ops.linear_attention(qf, kf, v, lg)
+            pnum, pden = linear_ops.linear_attention(qf, kf, v, lg,
+                                                     use_kernel=False)
+            torch.cuda.synchronize()
+            e_num, e_den = rel_err(num, pnum), rel_err(den, pden)
+            row = {"kernel": "linear_attention", "shape": (B, H, L, m, hd),
+                   "dtype": str(v.dtype).split(".")[1], "gamma": name,
+                   "rel_err_num": e_num, "rel_err_den": e_den,
+                   "abs_err": float((num - pnum).abs().max()),
+                   "den_min": float(pden.min())}
+            if not (e_num <= LINEAR_TOL and e_den <= LINEAR_TOL):
+                raise AssertionError(f"linear attention kernel {row} "
+                                     f"(bound {LINEAR_TOL})")
+            rows.append(row)
+            served[("linear", row["dtype"], name)] = (qf, kf, v, lg)
+    fl = [r for r in rows if r["kernel"] == "flash_attention"]
+    li = [r for r in rows if r["kernel"] == "linear_attention"]
+    f32, bf16 = (max(r["abs_err"] for r in fl if r["dtype"] == dt)
+                 for dt in ("float32", "bfloat16"))
+    roundings = max(r["bf16_roundings"] for r in fl
+                    if r["dtype"] == "bfloat16")
+    vs_ref = max(r["abs_err_ref"] for r in fl if r["abs_err_ref"] is not None
+                 and r["dtype"] == "float32")
+    print(f"[attn kernels vs plain] flash: {len(fl)} checks (shapes "
+          f"{DENSE['flash_shapes']}, causal and not, f32/bf16) | worst abs "
+          f"err f32 {f32:.2e} (< {FLASH_TOL}), vs the dense oracle at "
+          f"L <= 1024 {vs_ref:.2e}; bf16 {bf16:.2e} abs, {roundings:.3f} of "
+          "one bf16 rounding of the value (<= 1)"
+          f" | linear: {len(li)} checks at {DENSE['linear_shape']} (lg 0 and "
+          f"per head, f32/bf16 v) | worst rel err num "
+          f"{max(r['rel_err_num'] for r in li):.2e}, den "
+          f"{max(r['rel_err_den'] for r in li):.2e} (< {LINEAR_TOL})",
+          flush=True)
+    return rows, served
+
+
+def phase_attn_times(served, card):
+    """5c: each kernel's device time per launch at the served shape, beside
+    its bound, its plain version's time and, for flash attention, one
+    `scaled_dot_product_attention` call on the same inputs (a yardstick,
+    never on the path)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.linear_attention import kernel as linear_kernel
+    from repro_torch.kernels.linear_attention import ops as linear_ops
+
+    reps = TOPO["reps"]
+    out = {}
+    B, H, KV, L, hd = DENSE["flash_shapes"][0]
+    for dtype in ("bfloat16", "float32"):
+        for causal in (True, False):
+            q, k, v = served[("flash", dtype, causal)]
+            k_ms = device_ms(lambda: flash_ops.flash_attention(q, k, v,
+                                                               causal), reps)
+            p_ms = device_ms(lambda: flash_ops.flash_attention(
+                q, k, v, causal, use_kernel=False), 2)
+            l_ms = device_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal, enable_gqa=True), reps)
+            nbytes, ops_ = flash_work(B, H, KV, L, hd, causal,
+                                      q.element_size())
+            b_ms, b_by = bound(nbytes, ops_, BF16_FLOPS_PER_S
+                               if dtype == "bfloat16" else FP32_FLOPS_PER_S)
+            key = f"flash_{'causal' if causal else 'full'}_{dtype}"
+            out[key] = {"shape": (B, H, KV, L, hd), "dtype": dtype,
+                        "causal": causal, "ms": k_ms, "plain_ms": p_ms,
+                        "library_ms": l_ms, "bytes": nbytes, "ops": ops_,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "bound_fp32_ms": ops_ / FP32_FLOPS_PER_S * 1e3}
+            print(f"[attn times flash {'causal' if causal else 'full'} "
+                  f"{dtype}] B={B} H={H} KV={KV} L={L} hd={hd}: kernel "
+                  f"{k_ms:.3f} ms/launch, plain {p_ms:.3f} ms, sdpa "
+                  f"{l_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}; fp32 "
+                  f"operations {out[key]['bound_fp32_ms']:.3f} ms) | {card}",
+                  flush=True)
+    B, H, L, m, hd = DENSE["linear_shape"]
+    C = linear_kernel.CHUNK
+    for name in ("lg0", "lg_perhead"):
+        qf, kf, v, lg = served[("linear", "bfloat16", name)]
+        k_ms = device_ms(lambda: linear_ops.linear_attention(qf, kf, v, lg),
+                         reps)
+        p_ms = device_ms(lambda: linear_ops.linear_attention(
+            qf, kf, v, lg, use_kernel=False), 2)
+        nbytes, ops_ = linear_work(B, H, L, m, hd, v.element_size())
+        b_ms, b_by = bound(nbytes, ops_)
+        out[f"linear_{name}"] = {
+            "shape": (B, H, L, m, hd), "C": C, "td":
+                linear_kernel.TD, "v_dtype": "bfloat16",
+            "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
+            "bytes": nbytes, "ops": ops_, "bound_ms": b_ms,
+            "bound_by": b_by}
+        print(f"[attn times linear {name}] B={B} H={H} L={L} m={m} hd={hd} "
+              f"C={C}, bf16 v: kernel {k_ms:.3f} ms/launch, plain "
+              f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), library none "
+              f"| {card}", flush=True)
+    return out
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -951,6 +1200,7 @@ def run(cfg, device, out_path=None) -> dict:
     from repro_torch.graphs.meshes import icosphere, mesh_graph
     from repro_torch.graphs.mst import minimum_spanning_tree
     from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.kernels.topo_linear_attention import ops as topo_ops
 
     info = phase_device()
     build = phase_build()
@@ -1007,11 +1257,15 @@ def run(cfg, device, out_path=None) -> dict:
     topo_checks, served = phase_topo_kernel_vs_plain(device)
     gates = []
     for degree in TOPO["degrees"]:
-        gates.append(phase_topo_gate(degree, device))
+        gates.append(phase_gate(
+            f"topo degree {degree}", _topo_cfg(degree, "cuda", "float32"),
+            _topo_cfg(degree, "torch", "float32"), topo_ops, device))
         torch.cuda.empty_cache()
     serves = {}
     for degree in TOPO["degrees"]:  # each path counts from zero
-        serves[degree] = phase_topo_serve(degree, device, card)
+        serves[degree] = phase_serve(f"topo degree {degree}",
+                                     _topo_cfg(degree), topo_ops, device,
+                                     card)
         torch.cuda.empty_cache()
     topo_times = phase_topo_times(served, card, device)
     for degree in TOPO["degrees"]:
@@ -1035,11 +1289,74 @@ def run(cfg, device, out_path=None) -> dict:
                    f"C={t['C']}: one layer of the {TOPO['arch']} topo "
                    f"prefill at degree {degree}"),
         })
+    del served
+
+    # slice 3: Llama-3.2-1B with full and Performer attention, served
+    # through the flash attention and linear attention kernels
+    attn_checks, attn_served = phase_attn_kernel_vs_plain(device)
+    dense_gates = []
+    for variant in DENSE["variants"]:
+        dense_gates.append(phase_gate(
+            variant, _dense_cfg(variant, "cuda", "float32"),
+            _dense_cfg(variant, "chunked", "float32"), _kernel_ops(variant),
+            device))
+        torch.cuda.empty_cache()
+    dense_serves = {}
+    for variant in DENSE["variants"]:  # each path counts from zero
+        dense_serves[variant] = phase_serve(variant, _dense_cfg(variant),
+                                            _kernel_ops(variant), device,
+                                            card)
+        torch.cuda.empty_cache()
+    attn_times = phase_attn_times(attn_served, card)
+    del attn_served
+    B, H, KV, L, hd = DENSE["flash_shapes"][0]
+    for causal in (True, False):
+        mode = "causal" if causal else "full"
+        t = attn_times[f"flash_{mode}_bfloat16"]
+        errs = [r["abs_err"] for r in attn_checks
+                if r["kernel"] == "flash_attention" and r["causal"] == causal
+                and r["shape"] == (B, H, KV, L, hd)
+                and r["dtype"] == "float32"]
+        kernels.append({
+            "name": f"flash_attention[{mode}]", "route": "cuda",
+            "source": ("src/repro_torch/kernels/flash_attention/"
+                       "flash_attention.cu"),
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
+            # the wrapper counts each mode apart: the main path launches
+            # the kernel causal only
+            "launches": dense_serves["full"]["launches_by_mode"][mode],
+            "max_abs_err": max(errs), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "at": (f"one {'causal' if causal else 'non-causal'} launch, "
+                   f"bf16, B={B} H={H} KV={KV} L={L} hd={hd}: one layer of "
+                   f"the {TOPO['arch']} full-attention prefill"
+                   + ("" if causal else " (the same kernel and wrapper; the"
+                      " main path launches it causal only, so 0 launches)")),
+        })
+    B, H, L, m, hd = DENSE["linear_shape"]
+    t = attn_times["linear_lg0"]
+    kernels.append({
+        "name": "linear_attention", "route": "cuda",
+        "source": ("src/repro_torch/kernels/linear_attention/"
+                   "linear_attention.cu"),
+        "replaces": "src/repro/kernels/linear_attention/kernel.py:59",
+        "launches": dense_serves["performer"]["launches"],
+        "max_abs_err": max(r["abs_err"] for r in attn_checks
+                           if r["kernel"] == "linear_attention"),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "at": (f"one launch, lg = 0, bf16 v, B={B} H={H} L={L} m={m} "
+               f"hd={hd}, C={t['C']}: one layer of the {TOPO['arch']} "
+               "Performer prefill"),
+    })
     record = {"device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
               "topo_serve": serves, "topo_times": {
                   str(k): v for k, v in topo_times.items()},
+              "attn_kernel_checks": attn_checks, "dense_gates": dense_gates,
+              "dense_serve": dense_serves, "attn_times": attn_times,
               "kernels": kernels}
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)

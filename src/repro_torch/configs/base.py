@@ -25,7 +25,15 @@ class ModelConfig:
 
     # attention
     attention_variant: str = "full"  # full | performer | topo
-    attn_impl: str = "naive"  # naive (materialized scores) | chunked (flash)
+    # who executes full attention and causal linear attention:
+    #   naive   - full: the reference's dense `_sdpa` (materialized scores,
+    #             the oracle); performer / topo "fft": the plain chunked twin
+    #   chunked - full: the plain online-softmax twin of `_sdpa_chunked`;
+    #             performer / topo "fft": the plain chunked twin
+    #   cuda    - full: the flash attention CUDA kernel; performer / topo
+    #             "fft": the linear attention CUDA kernel (on CPU tensors
+    #             each kernel's wrapper runs its plain version)
+    attn_impl: str = "naive"
     performer_phi: str = "relu"  # relu | sq | quart | exp
     qkv_bias: bool = False
     rope_theta: float = 10000.0
@@ -38,8 +46,9 @@ class ModelConfig:
     topo_dist_scale: float = 1.0 / 256.0
     # sequence-mask attention impl: ref (dense O(L^2) oracle) | torch (the
     # plain chunked sweep, the reference's XLA twin) | cuda (the fused
-    # kernel, the reference's "pallas"); "fft" is not ported yet
-    # (ROADMAP A5/A10) and raises
+    # kernel, the reference's "pallas") | fft (the separable decay path at
+    # g=exp, degree <= 1, through causal linear attention and attn_impl;
+    # other masks are the Toeplitz-FFT path of ROADMAP A5 and raise)
     topo_attn_impl: str = "fft"
     # tree/grid Integrator backend override for the ViT path (None: follow
     # topo_attn_impl — pallas -> pallas, else plan)

@@ -1,0 +1,76 @@
+"""Build, load and launch the flash attention CUDA kernel.
+
+The source, `flash_attention.cu`, sits beside this module. At first use the
+port's one nvcc build step (`kernels/_nvcc.py`) compiles it for sm_90a into
+a shared library with a plain C entry point, loaded with ctypes.
+
+Nothing here runs at import: the CPU tests import this module on machines
+with neither nvcc nor a card. A failed build or a refused launch raises;
+nothing falls back to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _nvcc
+
+SOURCE = Path(__file__).with_name("flash_attention.cu")
+HD_CHOICES = (16, 32, 64, 128)  # head dims the .cu file instantiates
+BQ = 64  # query rows of a block (the .cu file's BQ)
+
+_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_void_p])
+
+_lib = None
+PTXAS_LOG: str = ""  # nvcc's -Xptxas -v report of this process's build
+
+
+def build() -> Path:
+    """Compile the kernel library if this source/flag pair has none yet;
+    returns its path. Raises `subprocess.CalledProcessError` on a failed
+    compile."""
+    global PTXAS_LOG
+    lib, PTXAS_LOG = _nvcc.build(SOURCE, "flash_attention")
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at the first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.flash_attention_launch.argtypes = _ARGTYPES
+        lib.flash_attention_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def flash_attention_cuda(q, k, v, causal: bool):
+    """Launch on CUDA tensors the caller has validated (`ops` does): q
+    (B, H, L, hd), k and v (B, KV, L, hd), one dtype (float32 or bfloat16),
+    any strides with a unit last stride, on one card. Returns
+    (B, H, L, hd) in q's dtype and memory layout. Launches on the current
+    stream and does not synchronize."""
+    B, H, L, hd = q.shape
+    G = H // k.shape[1]
+    out = torch.empty_like(q)
+    strides = (ctypes.c_longlong * 12)(
+        *[s for t in (q, k, v, out) for s in t.stride()[:3]])
+    lib = library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention_launch(
+            int(q.dtype == torch.bfloat16), hd, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(),
+            ctypes.cast(strides, ctypes.c_void_p),
+            B, H, G, L, 1.0 / math.sqrt(hd), int(bool(causal)), stream)
+    if err != 0:
+        raise RuntimeError(
+            f"flash attention launch failed: cudaError {err} (B={B}, H={H}, "
+            f"G={G}, L={L}, hd={hd}, dtype={q.dtype}, causal={causal})")
+    return out

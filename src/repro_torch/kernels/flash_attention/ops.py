@@ -1,0 +1,127 @@
+"""Softmax attention with online-softmax statistics (flash attention
+forward).
+
+  * `sdpa_chunked` is the plain version: the reference's `_sdpa_chunked`
+    (models/attention.py), a loop over KV blocks with running (max, sum,
+    acc) statistics in float32 that never holds the (Lq, Lk) logits. It
+    takes the model's (B, L, H, hd) / (B, L, KV, hd) layout with GQA,
+    `causal`, `window` and `softcap`; any Lk (a ragged last block is
+    simply shorter). It is the CPU path of the wrapper and the model's
+    `attn_impl="chunked"`.
+  * `flash_attention` is the kernel's wrapper, in the reference kernel's
+    (B, H, L, hd) layout with GQA k/v (B, KV, L, hd): a CUDA tensor
+    launches the kernel (kernel.py, built from flash_attention.cu) or the
+    call raises; a CPU tensor runs the plain version. `LAUNCHES` counts
+    kernel launches, and `LAUNCHES_BY_MODE` the causal and the non-causal
+    ("full") ones apart. The kernel has no backward yet (ROADMAP A8), so the
+    kernel path refuses inputs that require grad rather than cut the graph.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels.flash_attention import kernel
+from repro_torch.models.layers import softcap
+
+LAUNCHES = 0
+LAUNCHES_BY_MODE = {"causal": 0, "full": 0}
+NEG_INF = -1e30  # the reference's mask value (not -inf)
+
+
+def sdpa_chunked(q, k, v, causal: bool = True, window: int = 0,
+                 cap: float = 0.0, blk: int = 512):
+    """q: (B, Lq, H, hd); k: (B, Lk, KV, hd); v: (B, Lk, KV, vd). Returns
+    (B, Lq, H, vd) in q's dtype. Positions are aranges (query i at i, key
+    j at j), as at every call site of the reference."""
+    B, Lq, H, hd = q.shape
+    Lk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    vd = v.shape[-1]
+    dev = q.device
+    qg = (q.reshape(B, Lq, KV, G, hd).float()
+          / math.sqrt(hd)).permute(0, 2, 3, 1, 4)  # (B, KV, G, Lq, hd)
+    qpos = torch.arange(Lq, device=dev)
+    m = torch.full((B, KV, G, Lq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, KV, G, Lq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, KV, G, Lq, vd), dtype=torch.float32, device=dev)
+    for k0 in range(0, Lk, min(blk, Lk)):
+        kc = k[:, k0:k0 + blk].float().permute(0, 2, 3, 1)[:, :, None]
+        vc = v[:, k0:k0 + blk].float().permute(0, 2, 1, 3)[:, :, None]
+        s = softcap(qg @ kc, cap)  # (B, KV, G, Lq, n)
+        kpos = k0 + torch.arange(kc.shape[-1], device=dev)
+        mask = torch.ones((Lq, kc.shape[-1]), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (qpos[:, None] >= kpos[None, :])
+        if window and window > 0:
+            mask = mask & (qpos[:, None] - kpos[None, :] < window)
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + p @ vc
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    out = (acc / l[..., None]).permute(0, 3, 1, 2, 4)  # (B, Lq, KV, G, vd)
+    return out.reshape(B, Lq, H, vd).to(q.dtype)
+
+
+def _check(q, k, v, kernel_path: bool) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name} must be a torch.Tensor, got "
+                            f"{type(t).__name__}")
+        if t.device != q.device:
+            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (B, H, L, hd) and k, v (B, KV, L, hd); "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, L, hd = q.shape
+    KV = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, L, hd) or H % KV:
+        raise ValueError(f"k/v {tuple(k.shape)} do not match q "
+                         f"{tuple(q.shape)}: same B, L, hd and H a multiple "
+                         "of KV")
+    if not kernel_path:
+        return
+    if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype not in (
+            torch.float32, torch.bfloat16):
+        raise TypeError(f"q, k, v must share one dtype, float32 or bfloat16; "
+                        f"got {q.dtype}, {k.dtype}, {v.dtype}")
+    if hd not in kernel.HD_CHOICES:
+        raise ValueError(f"the flash attention kernel takes head_dim in "
+                         f"{kernel.HD_CHOICES}, got {hd}")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("q, k, v need a unit stride along head_dim")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "the flash attention kernel has no backward yet: it comes with "
+            "ROADMAP A8. Run under torch.no_grad(), or use the plain version "
+            "(use_kernel=False, attn_impl='chunked')")
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    use_kernel: bool | None = None):
+    """Softmax attention (the counterpart of `flash_attention_pallas`). q:
+    (B, H, L, hd); k, v: (B, KV, L, hd) with H a multiple of KV (GQA: query
+    head h reads k/v head h // (H // KV)); scale 1/sqrt(hd). Returns
+    (B, H, L, hd) in q's dtype.
+
+    use_kernel=None or True: the kernel path (the kernel on CUDA tensors,
+    the plain version on CPU tensors); False: the plain version."""
+    global LAUNCHES
+    kernel_path = use_kernel is not False
+    _check(q, k, v, kernel_path)
+    if not kernel_path or q.device.type == "cpu":
+        out = sdpa_chunked(q.transpose(1, 2), k.transpose(1, 2),
+                           v.transpose(1, 2), causal)
+        return out.transpose(1, 2)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for device {q.device}")
+    out = kernel.flash_attention_cuda(q, k, v, causal)
+    LAUNCHES += 1
+    LAUNCHES_BY_MODE["causal" if causal else "full"] += 1
+    return out

@@ -1,0 +1,84 @@
+"""Build, load and launch the causal linear-attention CUDA kernel.
+
+The source, `linear_attention.cu`, sits beside this module. At first use
+the port's one nvcc build step (`kernels/_nvcc.py`) compiles it for sm_90a
+into a shared library with a plain C entry point, loaded with ctypes.
+
+Nothing here runs at import: the CPU tests import this module on machines
+with neither nvcc nor a card. A failed build or a refused launch raises;
+nothing falls back to the plain version.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+
+import torch
+
+from repro_torch.kernels import _nvcc
+
+SOURCE = Path(__file__).with_name("linear_attention.cu")
+CHUNK = 64  # the .cu file's C
+TD = 64  # the .cu file's hd tile: columns of hd a block owns
+
+_ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+_lib = None
+PTXAS_LOG: str = ""  # nvcc's -Xptxas -v report of this process's build
+
+
+def build() -> Path:
+    """Compile the kernel library if this source/flag pair has none yet;
+    returns its path. Raises `subprocess.CalledProcessError` on a failed
+    compile."""
+    global PTXAS_LOG
+    lib, PTXAS_LOG = _nvcc.build(SOURCE, "linear_attention")
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built at the first call)."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.linear_attention_launch.argtypes = _ARGTYPES
+        lib.linear_attention_launch.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def smem_bytes(m: int) -> int:
+    """Dynamic shared memory of one block (the .cu file's layout): q and k,
+    P, the v tile, the state S and z, and the two decay rows. An m whose
+    block does not fit is refused at launch."""
+    C = CHUNK
+    return 4 * (2 * C * (m + 4) + C * (C + 4) + C * (TD + 4) + m * (TD + 4)
+                + m + 2 * C)
+
+
+def linear_attention_cuda(qf, kf, v, log_gamma):
+    """Launch on CUDA tensors the caller has validated (`ops` does): qf, kf
+    (B, H, L, m) float32, v (B, H, L, hd) float32 or bfloat16, log_gamma (H,)
+    float32 contiguous, any strides with a unit last stride, on one card.
+    Returns (num (B, H, L, hd), den (B, H, L)) in float32, in v's memory
+    layout. Launches on the current stream and does not synchronize."""
+    B, H, L, m = qf.shape
+    hd = v.shape[-1]
+    num = torch.empty_like(v, dtype=torch.float32)
+    den = torch.empty_like(num[..., 0])
+    strides = (ctypes.c_longlong * 15)(
+        *[s for t in (qf, kf, v, num, den) for s in t.stride()[:3]])
+    lib = library()
+    with torch.cuda.device(qf.device):
+        stream = torch.cuda.current_stream(qf.device).cuda_stream
+        err = lib.linear_attention_launch(
+            int(v.dtype == torch.bfloat16), qf.data_ptr(), kf.data_ptr(),
+            v.data_ptr(), log_gamma.data_ptr(), num.data_ptr(),
+            den.data_ptr(), ctypes.cast(strides, ctypes.c_void_p), B, H, L, m,
+            hd, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"linear attention launch failed: cudaError {err} (B={B}, H={H}, "
+            f"L={L}, m={m}, hd={hd}, smem={smem_bytes(m)})")
+    return num, den

@@ -1,2 +1,2 @@
-"""Models of the port: the Topological Transformer LM (dense family,
-attention_variant="topo") and its serving entry points (api.py)."""
+"""Models of the port: the dense decoder LM with full, Performer or
+topological attention, and its serving entry points (api.py)."""

@@ -1,6 +1,6 @@
 """Public model API of the port: init / prefill / decode entry points.
 
-Each takes the model (`lm.TopoLM`) in place of the reference's param
+Each takes the model (`lm.DecoderLM`) in place of the reference's param
 pytree, and `device=None`, which means the CUDA card (raising without
 one); the tests pass `device="cpu"`. Token inputs may be numpy arrays or
 tensors and are moved to the device; the model must already live there.
@@ -28,7 +28,7 @@ def _ints(x, dev):
     return torch.as_tensor(x, device=dev).long()
 
 
-def init_params(cfg, seed=0, device=None) -> lm.TopoLM:
+def init_params(cfg, seed=0, device=None) -> lm.DecoderLM:
     """Random weights from `seed` (an int, or a torch.Generator on the
     device) by the reference's init recipe."""
     lm.check_supported(cfg)

@@ -1,23 +1,38 @@
-"""Topological Performer attention (paper Sec 4.4 / Alg. 1): masked linear
-attention under the sequence mask f(|i-j|), f = g(sum_t a_t x^t).
+"""Attention variants of the port: full softmax (GQA), Performer (FAVOR+
+with a deterministic phi) and the paper's Topological Performer (Sec 4.4 /
+Alg. 1), each with train/prefill and O(1)-per-token decode.
 
-  - train/prefill: exact; `cfg.topo_attn_impl` picks the dense oracle
-    ("ref"), the plain chunked sweep ("torch", the reference's XLA twin) or
-    the fused CUDA sweep kernel ("cuda", the reference's "pallas");
-  - decode: O(1)-state cordial recurrences; a non-separable f uses the
-    Chebyshev rank-R separable expansion shared with the sweep.
+  - full: rope, then causal softmax attention; `cfg.attn_impl` picks the
+    dense `_sdpa` ("naive"), the plain online-softmax twin ("chunked") or
+    the flash attention CUDA kernel ("cuda"); decode attends over the KV
+    cache with `_sdpa`;
+  - performer: causal linear attention over phi features; "cuda" runs the
+    linear attention CUDA kernel, "naive" and "chunked" its plain twin;
+    decode carries the (S, z) state;
+  - topo: masked linear attention under the sequence mask f(|i-j|);
+    `cfg.topo_attn_impl` picks the dense oracle ("ref"), the plain chunked
+    sweep ("torch"), the fused sweep kernel ("cuda", the reference's
+    "pallas") or the separable decay path ("fft" at g = exp, degree <= 1,
+    through `causal_linear_attention` and so `cfg.attn_impl`); decode uses
+    O(1)-state cordial recurrences (a non-separable f through the Chebyshev
+    rank-R separable expansion shared with the sweep).
 
-Full/local/MLA/performer attention, rope and the Toeplitz-FFT path come
-with ROADMAP A10 (and A5); the forest tree-mask prefill with A11.
+Local and MLA attention come with ROADMAP A10, the Toeplitz-FFT path
+(topo "fft" at degree >= 2) with A5, the forest tree-mask prefill with A11.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
-from repro_torch.models.layers import Params, dense_init
+from repro_torch.kernels.flash_attention import ops as flash_ops
+from repro_torch.kernels.linear_attention import ops as linear_ops
+from repro_torch.models.layers import Params, apply_rope, dense_init, softcap
 
-IMPLS = ("ref", "torch", "cuda")
+IMPLS = ("ref", "torch", "cuda", "fft")  # cfg.topo_attn_impl
+ATTN_IMPLS = ("naive", "chunked", "cuda")  # cfg.attn_impl
 
 
 # ----------------------------------------------------------------------------
@@ -62,9 +77,9 @@ def topo_init(cfg, dtype=torch.float32, device=None) -> dict:
                                        device=device)}
 
 
-class TopoAttention(Params):
-    """The projections of one topo block: wq, wk, wv, wo (+ bq, bk, bv),
-    in the reference's (in, out) layout."""
+class Attention(Params):
+    """The projections of one attention block: wq, wk, wv, wo (+ bq, bk,
+    bv), in the reference's (in, out) layout."""
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         super().__init__(attn_shapes(cfg), dtype, device)
@@ -86,16 +101,18 @@ def _positions_vec(pos, B: int, device=None) -> torch.Tensor:
 
 
 def _project_qkv(cfg, p, x, positions, rope: bool = True):
-    if rope:
-        raise NotImplementedError("rope is not ported yet (ROADMAP A10); the "
-                                  "topo path projects with rope=False")
     B, L, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    return (q.reshape(B, L, H, hd), k.reshape(B, L, KV, hd),
-            v.reshape(B, L, KV, hd))
+    q = q.reshape(B, L, H, hd)
+    k = k.reshape(B, L, KV, hd)
+    v = v.reshape(B, L, KV, hd)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
 
 
 def _expand_kv(cfg, k, v):
@@ -124,6 +141,211 @@ def phi_features(x, kind: str):
 def linear_attention_output(num, den, eps: float = 1e-6):
     den = torch.where(den.abs() < eps, eps, den)
     return (num / den[..., None]).to(num.dtype)
+
+
+def _attn_impl(cfg) -> str:
+    if cfg.attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"cfg.attn_impl={cfg.attn_impl!r}: expected one of "
+                         f"{ATTN_IMPLS}")
+    return cfg.attn_impl
+
+
+# ----------------------------------------------------------------------------
+# full softmax attention (GQA)
+# ----------------------------------------------------------------------------
+
+
+def _sdpa(cfg, q, k, v, mask):
+    """Dense softmax attention. q: (B, Lq, H, hd); k, v: (B, Lk, KV, hd);
+    mask: (1|B, 1, Lq, Lk) bool. The weights are cast to v's dtype before
+    P v, as the reference does."""
+    B, Lq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Lq, KV, H // KV, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
+                          k.float()) / math.sqrt(hd)
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    logits = torch.where(mask[:, :, None], logits, flash_ops.NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    return out.reshape(B, Lq, H, hd)
+
+
+def _attend(cfg, q, k, v, causal: bool, window: int):
+    """Self-attention over a whole sequence whose positions are aranges (as
+    at every call site): q (B, L, H, hd), k/v (B, L, KV, hd) -> (B, L, H,
+    hd), executed as `cfg.attn_impl` says."""
+    impl = _attn_impl(cfg)
+    if impl == "chunked":
+        return flash_ops.sdpa_chunked(q, k, v, causal, window,
+                                      cfg.attn_logit_softcap)
+    if impl == "cuda":
+        if window or cfg.attn_logit_softcap:
+            raise NotImplementedError(
+                "the flash attention kernel has no local window and no logit "
+                "softcap (nor has the reference's kernel): local attention "
+                "comes with ROADMAP A10; use attn_impl 'chunked'")
+        out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                        v.transpose(1, 2), causal)
+        return out.transpose(1, 2)
+    L = q.shape[1]
+    idx = torch.arange(L, device=q.device)
+    mask = torch.ones((L, L), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (idx[:, None] >= idx[None, :])
+    if window and window > 0:
+        mask = mask & (idx[:, None] - idx[None, :] < window)
+    return _sdpa(cfg, q, k, v, mask[None, None])
+
+
+def full_attention_train(cfg, p, x, positions, causal: bool = True,
+                         window: int = 0, rope: bool = True):
+    """Self-attention over the whole of x (B, L, d). (The reference's
+    cross-attention branch, `kv_x`, comes with encdec, ROADMAP A10.)"""
+    B, L, _ = x.shape
+    q, k, v = _project_qkv(cfg, p, x, positions, rope=rope)
+    out = _attend(cfg, q, k, v, causal, window)
+    return out.reshape(B, L, -1) @ p.wo
+
+
+def full_attention_decode(cfg, p, x, pos, cache, window: int = 0,
+                          rope: bool = True):
+    """One-token decode. cache: {"k", "v"} (B, S, KV, hd); pos: () or (B,)
+    (per-slot positions: each row writes and masks its own cache row)."""
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.head_dim
+    pos_v = _positions_vec(pos, B, x.device)
+    q, k_new, v_new = _project_qkv(cfg, p, x, pos_v[:, None], rope=rope)
+    S = cache["k"].shape[1]
+    rows, at = torch.arange(B, device=x.device), pos_v.long()
+    k, v = cache["k"].clone(), cache["v"].clone()
+    k[rows, at] = k_new[:, 0].to(k.dtype)
+    v[rows, at] = v_new[:, 0].to(v.dtype)
+    idx = torch.arange(S, device=x.device)
+    mask = idx[None, None, :] <= pos_v[:, None, None]  # (B, 1, S)
+    if window and window > 0:
+        mask = mask & (idx[None, None, :] > pos_v[:, None, None] - window)
+    out = _sdpa(cfg, q, k, v, mask[:, None])
+    return out.reshape(B, 1, H * hd) @ p.wo, {"k": k, "v": v}
+
+
+def full_attention_prefill(cfg, p, x, positions, lengths, cache,
+                           window: int = 0, rope: bool = True):
+    """Whole-prompt prefill that writes K/V rows [0, Lp) into the decode
+    cache. x: (B, Lp, d); rows with lengths[b] == 0 keep their cache (they
+    belong to other live slots). Rows at or past lengths[b] may hold junk
+    keys: decode at position q rewrites row q before its causal mask can
+    see it. Returns (out (B, Lp, d), new_cache)."""
+    B, Lp, _ = x.shape
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions, rope=rope)
+    out = _attend(cfg, q, k_new, v_new, True, window)
+    out = out.reshape(B, Lp, -1) @ p.wo
+    valid = (lengths > 0)[:, None, None, None]
+    new = {}
+    for name, t in (("k", k_new), ("v", v_new)):
+        c = cache[name].clone()
+        c[:, :Lp] = torch.where(valid, t.to(c.dtype), c[:, :Lp])
+        new[name] = c
+    return out, new
+
+
+# ----------------------------------------------------------------------------
+# causal linear attention and the Performer
+# ----------------------------------------------------------------------------
+
+
+def causal_linear_attention(qf, kf, v, log_gamma=None,
+                            use_kernel: bool = False):
+    """Unmasked (or gamma-decayed) causal linear attention. qf/kf: (B, L, H,
+    m) nonneg; v: (B, L, H, hd); log_gamma: None, a scalar or (H,) log decay
+    (the mask gamma^(i-j), the separable g = exp, degree-1 topological
+    mask). Returns (num (B, L, H, hd), den (B, L, H)) in float32.
+
+    use_kernel: the linear attention kernel through its wrapper (on CPU
+    tensors the wrapper's plain version); else the plain twin of the
+    reference's chunked scan."""
+    if not use_kernel:
+        return linear_ops.causal_linear_attention(qf, kf, v, log_gamma)
+    H = qf.shape[2]
+    lg = torch.broadcast_to(torch.as_tensor(
+        0.0 if log_gamma is None else log_gamma, dtype=torch.float32,
+        device=qf.device), (H,)).contiguous()
+    num, den = linear_ops.linear_attention(
+        qf.transpose(1, 2), kf.transpose(1, 2), v.transpose(1, 2), lg)
+    return num.transpose(1, 2), den.transpose(1, 2)
+
+
+def performer_decode_init(cfg, B: int, dtype=torch.float32, device=None):
+    H, hd = cfg.num_heads, cfg.head_dim
+    return {"S": torch.zeros((B, H, hd, hd), dtype=dtype, device=device),
+            "z": torch.zeros((B, H, hd), dtype=dtype, device=device)}
+
+
+def _performer_fields(cfg, p, x, positions):
+    """phi(q), phi(k) (B, L, H, m) float32 and v (B, L, H, hd), GQA
+    expanded, no rope."""
+    q, k, v = _project_qkv(cfg, p, x, positions, rope=False)
+    k, v = _expand_kv(cfg, k, v)
+    return (phi_features(q, cfg.performer_phi),
+            phi_features(k, cfg.performer_phi), v)
+
+
+def _performer_attend(cfg, p, x, qf, kf, v, causal: bool):
+    B, L, _ = x.shape
+    if causal:
+        num, den = causal_linear_attention(
+            qf, kf, v, use_kernel=_attn_impl(cfg) == "cuda")
+    else:
+        kv = torch.einsum("blhm,blhv->bhmv", kf, v.float())
+        num = torch.einsum("blhm,bhmv->blhv", qf, kv)
+        den = torch.einsum("blhm,bhm->blh", qf, kf.sum(dim=1))
+    out = linear_attention_output(num, den)
+    return out.to(x.dtype).reshape(B, L, -1) @ p.wo
+
+
+def performer_attention_train(cfg, p, x, positions, causal: bool = True):
+    qf, kf, v = _performer_fields(cfg, p, x, positions)
+    return _performer_attend(cfg, p, x, qf, kf, v, causal)
+
+
+def performer_attention_decode(cfg, p, x, pos, cache):
+    B = x.shape[0]
+    H, hd = cfg.num_heads, cfg.head_dim
+    pos_v = _positions_vec(pos, B, x.device)
+    qf, kf, v = _performer_fields(cfg, p, x, pos_v[:, None])
+    qf, kf = qf[:, 0], kf[:, 0]
+    S = cache["S"] + kf[..., None] * v[:, 0].float()[..., None, :]
+    z = cache["z"] + kf
+    num = torch.einsum("bhm,bhmv->bhv", qf, S)
+    den = torch.einsum("bhm,bhm->bh", qf, z)
+    out = linear_attention_output(num, den).to(x.dtype).reshape(
+        B, 1, H * hd) @ p.wo
+    return out, {"S": S, "z": z}
+
+
+def performer_attention_prefill(cfg, p, x, positions, lengths, cache):
+    """Fused performer prefill: the train-path attention over the prompt
+    plus the closed-form linear-attention state of the prompt tokens,
+
+        S = sum_{j < len_b} kf_j (x) v_j,   z = sum_{j < len_b} kf_j,
+
+    set (not accumulated) into the cache so a reused slot never inherits a
+    previous request's state; rows with lengths[b] == 0 keep theirs."""
+    Lp = x.shape[1]
+    qf, kf, v = _performer_fields(cfg, p, x, positions)
+    out = _performer_attend(cfg, p, x, qf, kf, v, causal=True)
+    vmask = (torch.arange(Lp, device=x.device)[None, :]
+             < lengths[:, None]).float()  # (B, Lp)
+    kv = (kf * vmask[:, :, None, None]).permute(0, 2, 3, 1)  # (B, H, m, Lp)
+    S = kv @ v.float().permute(0, 2, 1, 3)  # (B, H, m, hd)
+    z = kv.sum(dim=-1)
+    valid = lengths > 0
+    return out, {
+        "S": torch.where(valid[:, None, None, None],
+                         S.to(cache["S"].dtype), cache["S"]),
+        "z": torch.where(valid[:, None, None],
+                         z.to(cache["z"].dtype), cache["z"]),
+    }
 
 
 # ----------------------------------------------------------------------------
@@ -156,40 +378,70 @@ def topo_logit_scale(cfg, p_topo):
     return torch.exp(ls).expand(cfg.num_heads)
 
 
+def _topo_separable_attention(cfg, qf, kf, v, coeffs, causal: bool):
+    """The reference's "fft" impl at g = exp, degree <= 1: the mask is
+    e^{a0} gamma^(i-j) (gamma^|i-j| bidirectional), a decayed causal linear
+    attention. The e^{a0} factor cancels in the normalization except where
+    the eps clamp of the denominator binds, so it is folded into kf, as
+    the other impls do. Bidirectional: forward + reversed - the diagonal
+    (counted twice). (B, L, H, .) in, (B, L, H, hd) float32 out."""
+    kf = kf * torch.exp(coeffs[:, 0])[None, None, :, None]
+    lg = (coeffs[:, 1] * cfg.topo_dist_scale if coeffs.shape[1] > 1
+          else torch.zeros(cfg.num_heads, device=qf.device))
+    use_kernel = _attn_impl(cfg) == "cuda"
+    num, den = causal_linear_attention(qf, kf, v, lg, use_kernel)
+    if not causal:
+        nb, db = causal_linear_attention(qf.flip(1), kf.flip(1), v.flip(1),
+                                         lg, use_kernel)
+        diag = torch.einsum("blhm,blhm->blh", qf, kf)
+        num = num + nb.flip(1) - diag[..., None] * v.float()
+        den = den + db.flip(1) - diag
+    return linear_attention_output(num, den)
+
+
 def topo_attention_train(cfg, p, p_topo, x, positions, causal: bool = True):
     """Masked linear attention (Alg. 1) with the sequence topological mask,
     over the whole of x (B, L, d). Impl (cfg.topo_attn_impl): "ref" the
     dense (L, L) oracle, "torch" the plain chunked sweep, "cuda" the fused
-    kernel (on CPU tensors its wrapper runs the plain sweep)."""
+    kernel (on CPU tensors its wrapper runs the plain sweep), "fft" the
+    separable decay path at g = exp, degree <= 1 (the Toeplitz-FFT path
+    for other masks is ROADMAP A5)."""
     B, L, _ = x.shape
     impl = cfg.topo_attn_impl
-    if impl == "fft":
-        raise NotImplementedError(
-            "topo_attn_impl='fft' (the Toeplitz-FFT path, core/toeplitz.py) is "
-            "not ported yet (ROADMAP A5/A10); use 'torch' or 'cuda'")
     if impl not in IMPLS:
         raise ValueError(f"cfg.topo_attn_impl={impl!r}: expected one of "
                          f"{IMPLS}")
+    separable = cfg.topo_g == "exp" and cfg.topo_degree <= 1
+    if impl == "fft" and not separable:
+        raise NotImplementedError(
+            "topo_attn_impl='fft' off the separable masks (g=exp, degree "
+            "<= 1) is the Toeplitz-FFT path (core/toeplitz.py), not ported "
+            "yet (ROADMAP A5); use 'torch' or 'cuda'")
     q, k, v = _project_qkv(cfg, p, x, positions, rope=False)
     k, v = _expand_kv(cfg, k, v)
     scale = topo_logit_scale(cfg, p_topo)  # (H,)
     qf = phi_features(q * scale[None, None, :, None], cfg.performer_phi)
     kf = phi_features(k, cfg.performer_phi)
     coeffs = topo_mask_coeffs(cfg, p_topo)  # (H, t+1)
-    args = (qf.permute(0, 2, 1, 3), kf.permute(0, 2, 1, 3),
-            v.permute(0, 2, 1, 3).float(), coeffs)
-    kw = dict(g=cfg.topo_g, dist_scale=cfg.topo_dist_scale, causal=causal)
-    if impl == "ref":
-        from repro_torch.kernels.topo_linear_attention.ref import (
-            topo_linear_attention_ref)
-        out = topo_linear_attention_ref(*args, **kw)
+    if impl == "fft":
+        out = _topo_separable_attention(cfg, qf, kf, v, coeffs, causal)
     else:
-        from repro_torch.kernels.topo_linear_attention.ops import (
-            topo_linear_attention)
-        out = topo_linear_attention(*args, use_kernel=impl == "cuda", **kw)
+        args = (qf.permute(0, 2, 1, 3), kf.permute(0, 2, 1, 3),
+                v.permute(0, 2, 1, 3).float(), coeffs)
+        kw = dict(g=cfg.topo_g, dist_scale=cfg.topo_dist_scale,
+                  causal=causal)
+        if impl == "ref":
+            from repro_torch.kernels.topo_linear_attention.ref import (
+                topo_linear_attention_ref)
+            out = topo_linear_attention_ref(*args, **kw)
+        else:
+            from repro_torch.kernels.topo_linear_attention.ops import (
+                topo_linear_attention)
+            out = topo_linear_attention(*args, use_kernel=impl == "cuda",
+                                        **kw)
+        out = out.permute(0, 2, 1, 3)
     H, hd = cfg.num_heads, cfg.head_dim
-    out = out.permute(0, 2, 1, 3).to(x.dtype).reshape(B, L, H * hd)
-    return out @ p.wo
+    return out.to(x.dtype).reshape(B, L, H * hd) @ p.wo
 
 
 # --- decode: cordial / Chebyshev-separable O(1) states -----------------------

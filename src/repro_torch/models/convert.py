@@ -1,6 +1,6 @@
 """Weights carried across from the reference: its param pytree (nested
 dicts of numpy arrays, layer-stacked leaves with a leading num_layers
-axis) to a `TopoLM` and back.
+axis) to a `DecoderLM` and back.
 
 The port's parameter names are the reference's pytree paths with the layer
 axis unstacked (`blocks0/attn/wq[l]` -> `blocks.{l}.attn.wq`) and its
@@ -44,9 +44,9 @@ def _flatten(tree: dict, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
-def from_reference(cfg, tree: dict, device=None) -> lm.TopoLM:
+def from_reference(cfg, tree: dict, device=None) -> lm.DecoderLM:
     """The reference's `lm.init_params(cfg, key)` tree (as numpy) -> a
-    TopoLM on `device`, loaded with load_state_dict(strict=True)."""
+    DecoderLM on `device`, loaded with load_state_dict(strict=True)."""
     dev = resolve_device(device)
     sd = {}
     for name, leaf in _flatten(tree):
@@ -59,7 +59,7 @@ def from_reference(cfg, tree: dict, device=None) -> lm.TopoLM:
     return lm.from_state_dict(cfg, sd)
 
 
-def to_reference(model: lm.TopoLM) -> dict:
+def to_reference(model: lm.DecoderLM) -> dict:
     """The counterpart of `from_reference`: the numpy param tree, with the
     block leaves stacked along a leading num_layers axis."""
     tree: dict = {}

@@ -1,8 +1,7 @@
 """Shared neural layers of the port: init helpers on an explicit
-`torch.Generator`, RMS norm and the gated MLP. Weights keep the
-reference's `(in, out)` layout (`x @ W`), so reference weights copy over
-unchanged. Rope, softcap and the loss come with ROADMAP A10 (the topo path
-projects without rope)."""
+`torch.Generator`, RMS norm, rope, the logit softcap and the gated MLP.
+Weights keep the reference's `(in, out)` layout (`x @ W`), so reference
+weights copy over unchanged. The loss comes with ROADMAP A10."""
 from __future__ import annotations
 
 import math
@@ -46,6 +45,31 @@ def rms_norm(x, scale, eps: float = 1e-6, plus_one: bool = False):
     y = xf * torch.rsqrt(var + eps)
     w = (1.0 + scale) if plus_one else scale  # in scale's dtype, as the reference
     return (y * w.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32)
+                            / head_dim))
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (..., L, H, hd), positions: broadcastable to (..., L). Angles and
+    the rotation in float32, then cast back to x's dtype (the reference's
+    order of operations)."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta).to(x.device)  # (hd/2,)
+    ang = positions[..., None].float() * freqs  # (..., L, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    cos = torch.cos(ang)[..., None, :]  # (..., L, 1, hd/2)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def softcap(logits, cap: float):
+    if cap and cap > 0:
+        return cap * torch.tanh(logits / cap)
+    return logits
 
 
 def gated_mlp_init(gen: torch.Generator, d_model: int, d_ff: int,

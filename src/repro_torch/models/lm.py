@@ -1,13 +1,18 @@
 """Decoder-only LM of the port: the dense family with
-`attention_variant="topo"` (the paper's Topological Transformer LM).
+`attention_variant` "full" (rope + softmax attention, the published
+architecture), "performer" (causal linear attention) or "topo" (the
+paper's Topological Transformer LM).
 
-[norm -> topo attention, norm -> gated MLP] x num_layers, with layers in a
+[norm -> attention, norm -> gated MLP] x num_layers, with layers in a
 plain Python loop (the reference's lax.scan is not copied). Parameter
 names follow the reference's pytree paths (`blocks0/attn/wq[l]` ->
 `blocks.{l}.attn.wq`), so `convert.py` is a renaming. The decode cache
-keeps the reference's layout: {"blocks0": {"S": (num_layers, B, H, R, m,
-hd), "z": (num_layers, B, H, R, m)}}. Other families and attention
-variants come with ROADMAP A10.
+keeps the reference's layout, stacked over layers under "blocks0": full
+{"k", "v": (num_layers, B, S, KV, hd)} in the model's dtype; performer
+{"S": (num_layers, B, H, hd, hd), "z": (num_layers, B, H, hd)}; topo
+{"S": (num_layers, B, H, R, m, hd), "z": (num_layers, B, H, R, m)}, both
+in float32. Other families, local attention and MLA come with ROADMAP
+A10.
 """
 from __future__ import annotations
 
@@ -22,15 +27,20 @@ from repro_torch.models.layers import (Params, dense_init, dtype_of,
                                        rms_norm)
 
 
+VARIANTS = ("full", "performer", "topo")
+
+
 def check_supported(cfg) -> None:
     if cfg.is_encdec or cfg.family != "dense" or cfg.mla or cfg.moe:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet (ROADMAP "
-            "A10); the port serves the dense family")
-    if cfg.attention_variant != "topo":
+            f"{cfg.name}: family {cfg.family!r}"
+            f"{' with MLA' if cfg.mla else ''}{' with MoE' if cfg.moe else ''}"
+            " is not ported yet (ROADMAP A10); the port serves the dense "
+            "family")
+    if cfg.attention_variant not in VARIANTS:
         raise NotImplementedError(
             f"attention_variant={cfg.attention_variant!r} is not ported yet "
-            "(ROADMAP A10); the port serves attention_variant='topo'")
+            f"(ROADMAP A10); the port serves {VARIANTS}")
 
 
 # ----------------------------------------------------------------------------
@@ -39,21 +49,22 @@ def check_supported(cfg) -> None:
 
 
 class DecoderBlock(nn.Module):
-    """One dense topo block: attn_norm, attn, topo (the mask scalars),
-    mlp_norm, mlp."""
+    """One dense block: attn_norm, attn, topo (the mask scalars, topo
+    variant only), mlp_norm, mlp."""
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         super().__init__()
         d = cfg.d_model
         self.attn_norm = Params({"scale": (d,)}, dtype, device)
-        self.attn = A.TopoAttention(cfg, dtype, device)
-        self.topo = Params(A.topo_shapes(cfg), dtype, device)
+        self.attn = A.Attention(cfg, dtype, device)
+        if cfg.attention_variant == "topo":
+            self.topo = Params(A.topo_shapes(cfg), dtype, device)
         self.mlp_norm = Params({"scale": (d,)}, dtype, device)
         self.mlp = Params({"w_gate": (d, cfg.d_ff), "w_in": (d, cfg.d_ff),
                            "w_out": (cfg.d_ff, d)}, dtype, device)
 
 
-class TopoLM(nn.Module):
+class DecoderLM(nn.Module):
     """embed, blocks (a ModuleList of DecoderBlock), final_norm, and lm_head
     unless the embeddings are tied. Parameters live in the config's dtype.
     `forward(tokens)` is the cacheless prefill (last-position logits)."""
@@ -82,18 +93,24 @@ class TopoLM(nn.Module):
 
 def _block_init(gen: torch.Generator, cfg, dtype) -> dict:
     d = cfg.d_model
-    return {"attn_norm": {"scale": torch.zeros((d,), dtype=dtype,
-                                               device=gen.device)},
-            "attn": A.attn_init(gen, cfg, dtype),
-            "topo": A.topo_init(cfg, dtype, gen.device),
-            "mlp_norm": {"scale": torch.zeros((d,), dtype=dtype,
-                                              device=gen.device)},
-            "mlp": gated_mlp_init(gen, d, cfg.d_ff, dtype)}
+    p = {"attn_norm": {"scale": torch.zeros((d,), dtype=dtype,
+                                            device=gen.device)},
+         "attn": A.attn_init(gen, cfg, dtype)}
+    if cfg.attention_variant == "topo":
+        p["topo"] = A.topo_init(cfg, dtype, gen.device)
+    p["mlp_norm"] = {"scale": torch.zeros((d,), dtype=dtype,
+                                          device=gen.device)}
+    p["mlp"] = gated_mlp_init(gen, d, cfg.d_ff, dtype)
+    return p
 
 
 def _attn_train(cfg, p, x, positions):
     h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
-    return A.topo_attention_train(cfg, p.attn, p.topo, h, positions)
+    if cfg.attention_variant == "topo":
+        return A.topo_attention_train(cfg, p.attn, p.topo, h, positions)
+    if cfg.attention_variant == "performer":
+        return A.performer_attention_train(cfg, p.attn, h, positions)
+    return A.full_attention_train(cfg, p.attn, h, positions)
 
 
 def _mlp(cfg, p, x):
@@ -108,8 +125,13 @@ def _block_train(cfg, p, x, positions):
 def _block_decode(cfg, p, x, pos, cache, S):
     """x: (B, 1, d). Returns (x, new_cache)."""
     h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
-    y, cache = A.topo_attention_decode(cfg, p.attn, p.topo, h, pos, cache,
-                                       L=S)
+    if cfg.attention_variant == "topo":
+        y, cache = A.topo_attention_decode(cfg, p.attn, p.topo, h, pos,
+                                           cache, L=S)
+    elif cfg.attention_variant == "performer":
+        y, cache = A.performer_attention_decode(cfg, p.attn, h, pos, cache)
+    else:
+        y, cache = A.full_attention_decode(cfg, p.attn, h, pos, cache)
     return _mlp(cfg, p, x + y), cache
 
 
@@ -119,14 +141,27 @@ def _block_prefill(cfg, p, x, positions, lengths, cache, S,
     the decode cache for positions [0, lengths[b]). x: (B, Lp, d) right-
     padded; rows with lengths[b] == 0 leave their cache untouched."""
     h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
-    y, cache = A.topo_attention_prefill(cfg, p.attn, p.topo, h, positions,
-                                        lengths, cache, L=S,
-                                        tree_mask=tree_mask)
+    if cfg.attention_variant == "topo":
+        y, cache = A.topo_attention_prefill(cfg, p.attn, p.topo, h,
+                                            positions, lengths, cache, L=S,
+                                            tree_mask=tree_mask)
+    elif cfg.attention_variant == "performer":
+        y, cache = A.performer_attention_prefill(cfg, p.attn, h, positions,
+                                                 lengths, cache)
+    else:
+        y, cache = A.full_attention_prefill(cfg, p.attn, h, positions,
+                                            lengths, cache)
     return _mlp(cfg, p, x + y), cache
 
 
 def _block_cache_init(cfg, B, S, device=None):
-    return A.topo_decode_init(cfg, B, S, device=device)
+    if cfg.attention_variant == "topo":
+        return A.topo_decode_init(cfg, B, S, device=device)
+    if cfg.attention_variant == "performer":
+        return A.performer_decode_init(cfg, B, device=device)
+    shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
+    return {name: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
+            for name in ("k", "v")}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -147,7 +182,7 @@ def stack_desc(cfg) -> StackDesc:
 
 def init_state_dict(cfg, gen: torch.Generator) -> dict:
     """Random weights (the reference's init recipe, drawn from `gen` on its
-    device) as a state dict of `TopoLM`."""
+    device) as a state dict of `DecoderLM`."""
     dtype = dtype_of(cfg)
     sd = {"embed.table": embed_init(gen, cfg.padded_vocab(), cfg.d_model,
                                     dtype)["table"]}
@@ -163,15 +198,15 @@ def init_state_dict(cfg, gen: torch.Generator) -> dict:
     return sd
 
 
-def from_state_dict(cfg, sd: dict) -> TopoLM:
-    """A TopoLM holding exactly the tensors of `sd` (strict: every name of
-    the model, nothing else)."""
-    model = TopoLM(cfg, device="meta")
+def from_state_dict(cfg, sd: dict) -> DecoderLM:
+    """A DecoderLM holding exactly the tensors of `sd` (strict: every name
+    of the model, nothing else)."""
+    model = DecoderLM(cfg, device="meta")
     model.load_state_dict(sd, strict=True, assign=True)
     return model
 
 
-def init_params(cfg, gen: torch.Generator) -> TopoLM:
+def init_params(cfg, gen: torch.Generator) -> DecoderLM:
     return from_state_dict(cfg, init_state_dict(cfg, gen))
 
 

@@ -2,7 +2,10 @@
 version and `apply(backend="cuda")` against the dense oracle; the topo
 sweep kernel against its plain sweep in both state modes, the fused
 forward against the plain one and the dense oracle, and the smoke topo-LM
-served on impl "cuda" against impl "torch". These tests need a card (the
+served on impl "cuda" against impl "torch"; the flash attention and
+linear attention kernels against their plain versions and dense oracles,
+and the smoke Llama with full and Performer attention served on
+attn_impl "cuda" against "chunked". These tests need a card (the
 kernels have no CPU mode) and skip without one; they import nothing of
 jax, so they run where only the port is installed:
 
@@ -233,3 +236,153 @@ def test_topo_lm_serving_kernel_matches_plain(degree, cuda_device):
     for k in ("S", "z"):
         assert _rel(out["cuda"][2]["blocks0"][k],
                     out["torch"][2]["blocks0"][k]) < 1e-5
+
+
+# --- flash attention (B5) and causal linear attention (B4) -------------------
+
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.kernels.linear_attention import ops as linear_ops  # noqa: E402
+from repro_torch.kernels.linear_attention.ref import (  # noqa: E402
+    linear_attention_ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,L,hd", [
+    (2, 2, 2, 128, 32), (1, 4, 1, 1000, 64), (2, 4, 2, 200, 16),
+    (1, 2, 2, 333, 128), (1, 8, 2, 64, 64), (1, 2, 1, 1, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_kernel_matches_plain_version(B, H, KV, L, hd, dtype, causal,
+                                            cuda_device):
+    """Against the plain version on the same inputs: 2e-5 absolute in
+    float32 (tests/test_kernels.py); in bfloat16 each value within one bf16
+    rounding (2^-7 of its magnitude) on top of that; against the dense
+    oracle as well."""
+    rng = np.random.default_rng(L + hd)
+    dt = getattr(torch, dtype)
+    q = torch.tensor(rng.normal(size=(B, H, L, hd)), dtype=dt,
+                     device=cuda_device)
+    k, v = (torch.tensor(rng.normal(size=(B, KV, L, hd)), dtype=dt,
+                         device=cuda_device) for _ in range(2))
+    before = flash_ops.LAUNCHES
+    got = flash_ops.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + 1
+    assert got.dtype == dt and got.shape == (B, H, L, hd)
+    plain = flash_ops.flash_attention(q, k, v, causal, use_kernel=False)
+    G = H // KV
+    ref = attention_ref(q, k.repeat_interleave(G, 1),
+                        v.repeat_interleave(G, 1), causal)
+    ulp = 0.0 if dtype == "float32" else 2.0 ** -7
+    for want in (plain, ref):
+        g, w = got.float(), want.float()
+        room = ulp * torch.maximum(g.abs(), w.abs()) + 2e-5
+        assert bool(((g - w).abs() <= room).all())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_the_model_layout_in_place(cuda_device):
+    """(B, L, H, hd) tensors passed as transposed views give the same
+    result as contiguous (B, H, L, hd) ones, written in q's layout."""
+    rng = np.random.default_rng(2)
+    q, k, v = (torch.tensor(rng.normal(size=(2, 96, n, 32)),
+                            dtype=torch.bfloat16, device=cuda_device)
+               for n in (4, 2, 2))
+    views = [t.transpose(1, 2) for t in (q, k, v)]
+    got = flash_ops.flash_attention(*views)
+    want = flash_ops.flash_attention(*(t.contiguous() for t in views))
+    assert got.stride() == views[0].stride() and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,L,m,hd", [
+    (2, 3, 128, 16, 32), (1, 2, 1000, 64, 64), (2, 2, 200, 8, 8),
+    (1, 2, 77, 64, 24), (1, 1, 1, 16, 16), (1, 2, 150, 32, 80),
+    (2, 2, 64, 64, 160)])
+@pytest.mark.parametrize("lg", [0.0, -0.05, "perhead"])
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16"])
+def test_linear_kernel_matches_plain_version(B, H, L, m, hd, lg, vdtype,
+                                             cuda_device):
+    """num and den each within 1e-5 relative to max of the plain version
+    and of the dense oracle (tests/test_kernels.py); hd = 80 and 160 take
+    two and three hd tiles, the last one ragged."""
+    rng = np.random.default_rng(L + m)
+    qf, kf = (torch.tensor(np.abs(rng.normal(size=(B, H, L, m))),
+                           dtype=torch.float32, device=cuda_device)
+              for _ in range(2))
+    v = torch.tensor(rng.normal(size=(B, H, L, hd)),
+                     dtype=getattr(torch, vdtype), device=cuda_device)
+    lgv = (torch.tensor(-rng.uniform(0, 0.05, H), dtype=torch.float32)
+           if lg == "perhead" else torch.full((H,), lg)).to(cuda_device)
+    before = linear_ops.LAUNCHES
+    num, den = linear_ops.linear_attention(qf, kf, v, lgv)
+    torch.cuda.synchronize()
+    assert linear_ops.LAUNCHES == before + 1
+    assert num.shape == (B, H, L, hd) and den.shape == (B, H, L)
+    for wn, wd in (linear_ops.linear_attention(qf, kf, v, lgv,
+                                               use_kernel=False),
+                   linear_attention_ref(qf, kf, v, lgv)):
+        assert _rel(num, wn) < 1e-5 and _rel(den, wd) < 1e-5
+
+
+@pytest.mark.cuda
+def test_linear_kernel_refuses_an_m_that_does_not_fit(cuda_device):
+    """A block holds q, k and the state in shared memory: m = 512 does not
+    fit, and the launch is refused; the next launch is not affected."""
+    v = torch.ones(1, 2, 8, 64, device=cuda_device)
+    lg = torch.zeros(2, device=cuda_device)
+    big = torch.ones(1, 2, 8, 512, device=cuda_device)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        linear_ops.linear_attention(big, big, v, lg)
+    small = torch.ones(1, 2, 8, 64, device=cuda_device)
+    num, den = linear_ops.linear_attention(small, small, v, lg)
+    torch.cuda.synchronize()
+    assert torch.equal(den[0, 0], 64.0 * torch.arange(1, 9, device=cuda_device,
+                                                      dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["full", "performer"])
+def test_dense_lm_serving_kernel_matches_plain(variant, cuda_device):
+    """The smoke Llama served on the card: attn_impl "cuda" (one kernel
+    launch per layer per prefill, none in decode) against "chunked" on the
+    same weights, float32, over mixed prompt lengths and 4 decode steps."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import api
+
+    ops_ = flash_ops if variant == "full" else linear_ops
+    S = 80
+    cfg = get_smoke_config("llama3_2_1b", attention_variant=variant,
+                           attn_impl="cuda", dtype="float32")
+    model = api.init_params(cfg, 3)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (3, 70)).astype(np.int32)
+    lengths = np.array([70, 41, 0], np.int32)
+    out = {}
+    for impl in ("cuda", "chunked"):
+        c = cfg.replace(attn_impl=impl)
+        before = ops_.LAUNCHES
+        logits, cache = api.prefill_into_cache(c, model, api.init_cache(
+            c, 3, S), toks, lengths, S)
+        launched = ops_.LAUNCHES - before
+        pos = torch.tensor(lengths, device=cuda_device).long()
+        fed = out["cuda"][4] if impl == "chunked" else [logits.argmax(-1)]
+        steps = []
+        before = ops_.LAUNCHES
+        for t in range(4):
+            lg, cache = api.decode_fn(c, model, cache, fed[t][:, None], pos,
+                                      S)
+            steps.append(lg)
+            if impl == "cuda":
+                fed.append(lg[:, 0].argmax(-1))
+            pos = pos + 1
+        assert ops_.LAUNCHES == before  # decode runs no kernel
+        out[impl] = (logits, steps, cache, launched, fed)
+    assert out["cuda"][3] == cfg.num_layers and out["chunked"][3] == 0
+    assert _rel(out["cuda"][0][:2], out["chunked"][0][:2]) < 1e-4
+    for a, b in zip(out["cuda"][1], out["chunked"][1]):
+        assert _rel(a, b) < 1e-4
+    for k in out["cuda"][2]["blocks0"]:
+        assert _rel(out["cuda"][2]["blocks0"][k],
+                    out["chunked"][2]["blocks0"][k]) < 1e-5

@@ -150,7 +150,9 @@ def _tries(path: Path) -> list:
 
 @pytest.mark.parametrize("name", [
     "ops.py", "kernel.py", "../_nvcc.py", "../topo_linear_attention/ops.py",
-    "../topo_linear_attention/kernel.py"])
+    "../topo_linear_attention/kernel.py", "../flash_attention/ops.py",
+    "../flash_attention/kernel.py", "../linear_attention/ops.py",
+    "../linear_attention/kernel.py"])
 def test_no_fallback_around_build_or_launch(name):
     """A kernel that fails to build or launch raises: neither the wrappers,
     the loaders nor the shared nvcc build step has a try/except that could

@@ -1,0 +1,221 @@
+"""Port of flash attention (kernel B5) and the pieces of full attention:
+the plain online-softmax version (`ops.sdpa_chunked`) and the kernel
+wrapper's CPU path against the reference's Pallas kernel (interpret mode),
+its dense oracle `attention_ref` and its XLA twin `_sdpa_chunked` (causal
+and not, GQA, ragged L, window, softcap); the port's `_sdpa`, rope and
+softcap against the reference's; the wrapper's refusals. The kernel itself
+is held against the plain version on a card by test_torch_cuda.py."""
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
+
+from repro.configs.base import get_smoke_config as ref_smoke  # noqa: E402
+from repro.kernels.flash_attention.kernel import (  # noqa: E402
+    flash_attention_pallas)
+from repro.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref as j_attention_ref)
+from repro.models import attention as JA  # noqa: E402
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.configs.base import get_smoke_config  # noqa: E402
+from repro_torch.kernels.flash_attention import kernel, ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.models import attention as TA  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+
+PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+TOL = 2e-5  # tests/test_kernels.py::test_flash_attention
+
+
+def _err(got, ref):
+    return float(np.max(np.abs(np.asarray(got, np.float64)
+                               - np.asarray(ref, np.float64))))
+
+
+def _qkv(rng, B, H, KV, L, hd):
+    """q (B, H, L, hd), k and v (B, KV, L, hd), float32 normals."""
+    return (rng.normal(size=(B, H, L, hd)).astype(np.float32),
+            rng.normal(size=(B, KV, L, hd)).astype(np.float32),
+            rng.normal(size=(B, KV, L, hd)).astype(np.float32))
+
+
+def _expand(a, G):
+    return np.repeat(a, G, axis=1)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("B,H,KV,L,hd", [
+    (2, 2, 2, 64, 16),     # G = 1
+    (1, 4, 1, 96, 32),     # G = 4
+    (1, 4, 1, 100, 16),    # G = 4, L not a multiple of the 64-row tile
+    (2, 2, 2, 37, 8)])     # ragged, narrow head
+def test_plain_version_matches_reference_kernel_and_oracle(causal, B, H, KV,
+                                                           L, hd):
+    q, k, v = _qkv(np.random.default_rng(L + hd), B, H, KV, L, hd)
+    G = H // KV
+    got = ops.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal, use_kernel=False)
+    assert got.shape == (B, H, L, hd) and got.dtype == torch.float32
+    kx, vx = _expand(k, G), _expand(v, G)
+    want_kernel = flash_attention_pallas(
+        jnp.asarray(q), jnp.asarray(kx), jnp.asarray(vx), causal=causal,
+        blk_q=L if L % 32 else 32, blk_k=L if L % 32 else 32, interpret=True)
+    want_ref = j_attention_ref(jnp.asarray(q), jnp.asarray(kx),
+                               jnp.asarray(vx), causal=causal)
+    assert _err(got, want_kernel) < TOL
+    assert _err(got, want_ref) < TOL
+    # the port's own oracle is the reference's
+    assert _err(attention_ref(torch.from_numpy(q), torch.from_numpy(kx),
+                              torch.from_numpy(vx), causal), want_ref) < TOL
+
+
+@pytest.mark.parametrize("causal,window,cap", [
+    (True, 0, 0.0), (False, 0, 0.0), (True, 5, 0.0), (True, 0, 3.0),
+    (False, 7, 2.0)])
+@pytest.mark.parametrize("L,blk", [(48, 16), (40, 512)])
+def test_sdpa_chunked_matches_reference_twin(causal, window, cap, L, blk):
+    """The model-layout twin with GQA, window and softcap, against the
+    reference's `_sdpa_chunked` (blocks that tile L: the reference's own
+    precondition)."""
+    B, H, KV, hd = 2, 4, 2, 16
+    rng = np.random.default_rng(L + window)
+    q, k, v = (a.transpose(0, 2, 1, 3) for a in _qkv(rng, B, H, KV, L, hd))
+    rcfg = ref_smoke("llama3_2_1b", attn_logit_softcap=cap)
+    want = JA._sdpa_chunked(rcfg, jnp.asarray(q), jnp.asarray(k),
+                            jnp.asarray(v), causal, window, blk=blk)
+    got = ops.sdpa_chunked(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), causal, window, cap, blk=blk)
+    assert got.shape == (B, L, H, hd)
+    assert _err(got, want) < TOL
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_dense_sdpa_matches_reference(dtype, causal):
+    """The port's `_sdpa` (attn_impl "naive"): float32 within 2e-5; bf16,
+    where both cast the weights to v's dtype before P v, within bf16's
+    rounding."""
+    B, H, KV, L, hd = 2, 4, 2, 24, 16
+    rng = np.random.default_rng(3)
+    q, k, v = (a.transpose(0, 2, 1, 3) for a in _qkv(rng, B, H, KV, L, hd))
+    idx = np.arange(L)
+    mask = (idx[:, None] >= idx[None, :] if causal
+            else np.ones((L, L), bool))[None, None]
+    rcfg = ref_smoke("llama3_2_1b")
+    jd = getattr(jnp, dtype)
+    want = JA._sdpa(rcfg, *(jnp.asarray(a, jd) for a in (q, k, v)),
+                    jnp.asarray(mask))
+    td = getattr(torch, dtype)
+    got = TA._sdpa(get_smoke_config("llama3_2_1b"),
+                   *(torch.from_numpy(a).to(td) for a in (q, k, v)),
+                   torch.from_numpy(mask))
+    assert got.dtype == td and got.shape == (B, L, H, hd)
+    tol = TOL if dtype == "float32" else 2e-2
+    assert _err(got.float(), np.asarray(want, np.float32)) < tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("theta", [10000.0, 500000.0])
+def test_rope_matches_reference(dtype, theta):
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(2, 9, 3, 16)).astype(np.float32)
+    pos = rng.integers(0, 4200, (2, 9)).astype(np.int32)
+    want = JL.apply_rope(jnp.asarray(x, getattr(jnp, dtype)),
+                         jnp.asarray(pos), theta)
+    got = TL.apply_rope(torch.from_numpy(x).to(getattr(torch, dtype)),
+                        torch.from_numpy(pos), theta)
+    assert got.dtype == getattr(torch, dtype)
+    np.testing.assert_allclose(TL.rope_freqs(16, theta).numpy(),
+                               np.asarray(JL.rope_freqs(16, theta)),
+                               rtol=1e-6)
+    # angles up to 4200 rad: float32 sin/cos of the two libraries differ by
+    # a few ulps of the angle
+    tol = 2e-3 if dtype == "float32" else 2e-2
+    assert _err(got.float(), np.asarray(want, np.float32)) < tol
+    small = pos % 64  # where the angle's rounding is small
+    want = JL.apply_rope(jnp.asarray(x), jnp.asarray(small), theta)
+    got = TL.apply_rope(torch.from_numpy(x), torch.from_numpy(small), theta)
+    assert _err(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("cap", [0.0, 5.0])
+def test_softcap_matches_reference(cap):
+    x = np.linspace(-30, 30, 61).astype(np.float32)
+    assert _err(TL.softcap(torch.from_numpy(x), cap),
+                JL.softcap(jnp.asarray(x), cap)) < 1e-5
+
+
+def test_wrapper_runs_the_plain_version_on_the_cpu():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(np.random.default_rng(0),
+                                                  1, 4, 2, 50, 16))
+    before = ops.LAUNCHES
+    got = ops.flash_attention(q, k, v, True)
+    plain = ops.flash_attention(q, k, v, True, use_kernel=False)
+    assert ops.LAUNCHES == before
+    assert torch.equal(got, plain)
+    # the model's (B, L, H, hd) tensors go in as transposed views
+    view = ops.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               k, v, True)
+    assert torch.equal(view, got)
+
+
+@pytest.mark.parametrize("bad", [
+    "rank", "heads", "length", "dtype_mix", "dtype_f16", "head_dim",
+    "stride"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q, k, v = (torch.from_numpy(a) for a in _qkv(np.random.default_rng(0),
+                                                  1, 4, 2, 32, 16))
+    if bad == "rank":
+        q = q[0]
+    elif bad == "heads":
+        k, v = k[:, :1].expand(1, 3, 32, 16), v[:, :1].expand(1, 3, 32, 16)
+    elif bad == "length":
+        k, v = k[:, :, :31], v[:, :, :31]
+    elif bad == "dtype_mix":
+        k = k.to(torch.bfloat16)
+    elif bad == "dtype_f16":
+        q, k, v = (t.half() for t in (q, k, v))
+    elif bad == "head_dim":
+        q, k, v = (t[..., :12] for t in (q, k, v))
+    else:
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises((ValueError, TypeError)):
+        ops.flash_attention(q, k, v)
+
+
+def test_kernel_path_refuses_inputs_that_require_grad():
+    q, k, v = (torch.from_numpy(a) for a in _qkv(np.random.default_rng(0),
+                                                  1, 2, 2, 16, 16))
+    q.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ops.flash_attention(q, k, v)
+    ops.flash_attention(q, k, v, use_kernel=False).sum().backward()
+    assert q.grad is not None
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+
+
+def test_model_kernel_path_refuses_window_and_softcap():
+    cfg = get_smoke_config("llama3_2_1b", attn_impl="cuda",
+                           attn_logit_softcap=5.0)
+    q = torch.zeros((1, 8, 4, 16))
+    k = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(NotImplementedError, match="A10"):
+        TA._attend(cfg, q, k, k, True, 0)
+    with pytest.raises(NotImplementedError, match="A10"):
+        TA._attend(cfg.replace(attn_logit_softcap=0.0), q, k, k, True, 4)
+    with pytest.raises(ValueError, match="attn_impl"):
+        TA._attend(cfg.replace(attn_impl="pallas"), q, k, k, True, 0)
+
+
+def test_flash_kernel_source_names_the_tpu_kernel_and_its_bound():
+    src = kernel.SOURCE.read_text()
+    assert "flash_attention_pallas" in src
+    assert "src/repro/kernels/flash_attention/kernel.py" in src
+    assert "Bound on an H100" in src
+    assert 'extern "C" int flash_attention_launch' in src
+    assert kernel.SOURCE.parent == PKG / "kernels" / "flash_attention"

@@ -163,7 +163,7 @@ def _cfgs(L, degree, perhead, gqa, impl):
 
 
 def _torch_attn(tcfg, p, p_topo):
-    attn = TA.TopoAttention(tcfg)
+    attn = TA.Attention(tcfg)
     topo = Params(TA.topo_shapes(tcfg))
     with torch.no_grad():
         for name, t in p.items():

@@ -184,16 +184,18 @@ def test_what_is_not_ported_raises_naming_the_roadmap():
     cfg = get_smoke_config("llama3_2_1b", **OVER)
     model = TA.init_params(cfg, 0, device="cpu")
     toks = np.zeros((1, 8), np.int32)
-    with pytest.raises(NotImplementedError, match="A5/A10"):  # impl "fft"
-        TA.prefill_fn(cfg, model, {"tokens": toks}, device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):  # "fft", degree 2
+        TA.prefill_fn(cfg.replace(topo_degree=2),
+                      TA.init_params(cfg.replace(topo_degree=2), 0,
+                                     device="cpu"),
+                      {"tokens": toks}, device="cpu")
     with pytest.raises(NotImplementedError, match="A11"):
         TLM.forward_prefill_into_cache(
             cfg.replace(topo_attn_impl="torch"), model,
             TA.init_cache(cfg, 1, 16, device="cpu"), torch.zeros(1, 8).long(),
             torch.tensor([8]), 16, tree_mask={})
     with pytest.raises(NotImplementedError, match="A10"):
-        TA.init_params(cfg.replace(attention_variant="full"), 0,
-                       device="cpu")
+        TA.init_params(cfg.replace(mla=True), 0, device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         TA.init_cache(cfg.replace(is_encdec=True), 1, 16, device="cpu")
     with pytest.raises(ValueError, match="not ported"):
@@ -280,4 +282,10 @@ def test_import_scan_covers_the_new_modules():
             "core/masks.py", "kernels/_nvcc.py",
             "kernels/topo_linear_attention/ops.py",
             "kernels/topo_linear_attention/kernel.py",
-            "kernels/topo_linear_attention/ref.py"} <= files
+            "kernels/topo_linear_attention/ref.py",
+            "kernels/flash_attention/ops.py",
+            "kernels/flash_attention/kernel.py",
+            "kernels/flash_attention/ref.py",
+            "kernels/linear_attention/ops.py",
+            "kernels/linear_attention/kernel.py",
+            "kernels/linear_attention/ref.py"} <= files
