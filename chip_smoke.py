@@ -6,9 +6,10 @@ sm_90a) and nvcc:
 
     python3 chip_smoke.py [--out results.json]
 
-It builds the port's four CUDA kernels (fdist_matvec, the topological
-linear-attention sweep, flash attention and causal linear attention) from
-the repository's sources, in parallel, and drives three paths.
+It builds the port's five CUDA kernels (fdist_matvec, the topological
+linear-attention sweep, flash attention, causal linear attention and the
+selective scan) from the repository's sources, in parallel, and drives
+four paths.
 
 FTFI: it holds the fdist_matvec kernel against its plain PyTorch version
 on the card, drives `ftfi.build` (graph -> MST -> IT plan on the host) and
@@ -35,6 +36,17 @@ card; serves the 4 requests of the full-width Llama-3.2-1B as published
 float32; then times prefill, decode and both kernels in bf16 (flash
 attention beside one `scaled_dot_product_attention` call) and traces one
 prefill and one decode step.
+
+SSM LM: it holds the selective scan kernel against its plain chunked
+version (the served shape with f32 and bf16 inputs, on y and h_final; a
+ragged L = 1000, din = 200 at N = 4 and 16 with an h0) and against the
+sequential oracle at small shapes; serves the 4 requests of the
+full-width Falcon-Mamba-7B (64 Mamba-1 blocks, d_model 4096, d_inner
+8192, N = 16), with `attn_impl="cuda"` held against `"chunked"` in
+float32 (64 launches per prefill, none in decode); then, in bf16, serves
+them again, times prefill, decode and the kernel (its bound with a third
+term, the exps on the special function units at the card's SM clock)
+and traces one prefill and one decode step.
 
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
@@ -64,6 +76,9 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense, in the tensor cores
+# exp2 results a clock on one SM's special function units (4 quadrants of
+# 4, sm_90: CUDA C++ Programming Guide, arithmetic instruction throughput)
+SFU_PER_CLOCK_PER_SM = 16
 
 MODES = [("poly", (0.5, -0.2, 0.1)), ("exp", (-0.7, 1.3)),
          ("expq", (-0.05, -0.2, 0.1)), ("rational", (0.8,))]
@@ -157,16 +172,22 @@ def phase_device():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    clock = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
     props = torch.cuda.get_device_properties(0)
     info = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi,
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "python": sys.version.split()[0], "sms": props.multi_processor_count,
+            "sm_clock_max_mhz": float(clock),
             "count": torch.cuda.device_count()}
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     info["allow_tf32"] = torch.backends.cuda.matmul.allow_tf32
     print(f"[device] {info['name']} | nvidia-smi: {smi} | torch "
-          f"{info['torch']} cuda {info['cuda']} | {info['sms']} SMs | "
+          f"{info['torch']} cuda {info['cuda']} | {info['sms']} SMs, max SM "
+          f"clock {info['sm_clock_max_mhz']:.0f} MHz | "
           f"matmul.allow_tf32={info['allow_tf32']}", flush=True)
     return info
 
@@ -179,6 +200,7 @@ def phase_build():
     from repro_torch.kernels.fdist_matvec import kernel as fdist_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.linear_attention import kernel as linear_kernel
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
     from repro_torch.kernels.topo_linear_attention import kernel as topo_kernel
 
     def one(mod):
@@ -189,7 +211,8 @@ def phase_build():
 
     mods = {"fdist_matvec": fdist_kernel, "topo_sweep": topo_kernel,
             "flash_attention": flash_kernel,
-            "linear_attention": linear_kernel}
+            "linear_attention": linear_kernel,
+            "selective_scan": scan_kernel}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as ex:
         futs = {name: ex.submit(one, mod) for name, mod in mods.items()}
@@ -791,6 +814,13 @@ def phase_gate(label, cfg, plain_cfg, ops, device):
     e_logits = rel_err(got[0], want[0])
     e_cache = max(rel_err(got[1]["blocks0"][k], want[1]["blocks0"][k])
                   for k in got[1]["blocks0"])
+    # the cache error of each layer, relative to the whole cache's max (the
+    # gated measure): how the difference grows with depth
+    top = {k: float(t.abs().max()) for k, t in want[1]["blocks0"].items()}
+    by_layer = [max(float((got[1]["blocks0"][k][i].double()
+                           - want[1]["blocks0"][k][i].double()).abs().max())
+                    / max(top[k], 1e-30) for k in top)
+                for i in range(cfg.num_layers)]
     e_steps = [rel_err(a, b) for a, b in zip(got[2][:n], want[2])]
     ok = (e_logits <= LOGIT_TOL and e_cache <= CACHE_TOL
           and max(e_steps) <= LOGIT_TOL)
@@ -813,13 +843,16 @@ def phase_gate(label, cfg, plain_cfg, ops, device):
           f"{'/'.join(got[1]['blocks0'])} {e_cache:.2e} (< {CACHE_TOL}), "
           f"decode steps 1-{n} {max(e_steps):.2e} (< {LOGIT_TOL}); {got[4]} "
           f"launches in the prefill, {got[5]} in decode | not gated: decode "
-          f"vs prefill of the extended prompt {e_dp[0]:.2e}, {e_dp[1]:.2e}",
-          flush=True)
+          f"vs prefill of the extended prompt {e_dp[0]:.2e}, {e_dp[1]:.2e}; "
+          f"cache error by depth: layer 0 {by_layer[0]:.1e}, layer "
+          f"{len(by_layer) // 2} {by_layer[len(by_layer) // 2]:.1e}, layer "
+          f"{len(by_layer) - 1} {by_layer[-1]:.1e}", flush=True)
     if not ok:
         raise AssertionError(f"{label}: the kernel and plain paths disagree")
     return {"label": label, "dtype": "float32", "layers": cfg.num_layers,
             "rel_err_prefill_logits": e_logits, "rel_err_cache": e_cache,
-            "rel_err_decode": e_steps, "launches_per_prefill": got[4],
+            "rel_err_decode": e_steps, "rel_err_cache_by_layer": by_layer,
+            "launches_per_prefill": got[4],
             "launches_in_decode": got[5], "decode_vs_prefill": e_dp}
 
 
@@ -864,7 +897,9 @@ def phase_serve(label, cfg, ops, device, card):
            "decode_tokens_per_s": B / (dec_ms / 1e3),
            "tokens": torch.cat(fed, 1)[:, :8].cpu().tolist(),
            "params": api.param_count(model), "card": card}
-    print(f"[{label} serve] {cfg.name} {cfg.attention_variant}, {cfg.dtype}, "
+    kind = (cfg.attention_variant if cfg.family == "dense"
+            else cfg.family)
+    print(f"[{label} serve] {cfg.name} {kind}, {cfg.dtype}, "
           f"{cfg.num_layers} layers, {out['params']} params: 4 requests "
           f"(lengths {TOPO['lengths']}, S={S}), prefill + {TOPO['steps']} "
           f"greedy steps in {serve_s:.2f} s, {launches} kernel launches | "
@@ -1192,6 +1227,170 @@ def phase_attn_times(served, card):
     return out
 
 
+# ----------------------------------------------------------------------------
+# slice 4: Falcon-Mamba-7B served with the selective scan kernel
+# ----------------------------------------------------------------------------
+
+# falcon_mamba_7b at full width (64 Mamba-1 blocks, d_model 4096, d_inner
+# 8192, N = 16, dt_rank 256, vocab 65,024), full depth; the requests of
+# slice 2
+SSM = {"arch": "falcon_mamba_7b",
+       # (Bt, L, din, N): the served prefill's scan
+       "served_shape": (4, 4096, 8192, 16),
+       # a ragged L and din, with an h0
+       "ragged_shapes": [(2, 1000, 200, 4), (2, 1000, 200, 16)],
+       # tests/test_kernels.py::test_selective_scan's (Bt, L, din, N)
+       "oracle_shapes": [(2, 64, 32, 8), (2, 128, 64, 16)]}
+SCAN_REL_TOL = 1e-5  # at the served shape, relative to max
+SCAN_ABS_TOL = 2e-5  # tests/test_kernels.py::test_selective_scan
+
+
+def _ssm_cfg(impl: str = "cuda", dtype: str | None = None):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(SSM["arch"], attn_impl=impl)
+    return cfg.replace(dtype=dtype) if dtype else cfg
+
+
+def scan_work(Bt, L, din, N, in_bytes):
+    """(bytes, fp32 operations, exps) of one scan from h0 = 0: u, dt, B, C
+    (in_bytes each), A, D read once, y and h_final (fp32) written once; per
+    state update dt A, the state's multiply-add and C h's (5 operations) and
+    one exp; per (b, t, d) dt u, D u and its add (3)."""
+    nbytes = (in_bytes * (2 * Bt * L * din + 2 * Bt * L * N)
+              + 4 * (din * N + din + Bt * L * din + Bt * din * N))
+    updates = Bt * L * din * N
+    return nbytes, 5 * updates + 3 * Bt * L * din, updates
+
+
+def scan_bound(nbytes, ops_, exps, sms, clock_mhz):
+    """(least time in ms, "bytes" or "operations", the binding term): the
+    larger of bytes over HBM, fp32 operations over the fp32 peak, and exps
+    over the special function units (SFU_PER_CLOCK_PER_SM a clock on each
+    of `sms` SMs at the card's maximum SM clock)."""
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
+             "fp32 operations": ops_ / FP32_FLOPS_PER_S,
+             "sfu exps": exps / (SFU_PER_CLOCK_PER_SM * sms
+                                 * clock_mhz * 1e6)}
+    term = max(terms, key=terms.get)
+    return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations",
+            term, {k: v * 1e3 for k, v in terms.items()})
+
+
+def _scan_inputs(rng, shape, dtype, device):
+    """u, dt, A, B, C, D drawn as tests/test_kernels.py draws them; u, dt,
+    B and C in `dtype`."""
+    import torch
+
+    Bt, L, din, N = shape
+
+    def t(a, dt=torch.float32):
+        return torch.tensor(a, dtype=torch.float32, device=device).to(dt)
+
+    return (t(rng.standard_normal((Bt, L, din), np.float32), dtype),
+            t(np.abs(rng.standard_normal((Bt, L, din), np.float32)) * 0.1,
+              dtype),
+            t(-np.abs(rng.standard_normal((din, N), np.float32)) - 0.1),
+            t(rng.standard_normal((Bt, L, N), np.float32), dtype),
+            t(rng.standard_normal((Bt, L, N), np.float32), dtype),
+            t(rng.standard_normal(din, np.float32)))
+
+
+def phase_scan_kernel_vs_plain(device):
+    """3d: the selective scan kernel against its plain chunked version at
+    the served shape (f32 and bf16 u, dt, B, C; y and h_final within
+    SCAN_REL_TOL of their max) and at a ragged L and din with an h0
+    (SCAN_ABS_TOL); against the sequential oracle at the ragged and the
+    test shapes (SCAN_ABS_TOL)."""
+    import torch
+    from repro_torch.kernels.selective_scan import ops
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+
+    rng = np.random.default_rng(19)
+    rows, served = [], {}
+    cases = [("served", SSM["served_shape"], dt, False)
+             for dt in (torch.float32, torch.bfloat16)]
+    cases += [("ragged", s, dt, True) for s in SSM["ragged_shapes"]
+              for dt in (torch.float32, torch.bfloat16)]
+    cases += [("test", s, torch.float32, False) for s in SSM["oracle_shapes"]]
+    for kind, shape, dtype, with_h0 in cases:
+        Bt, L, din, N = shape
+        args = _scan_inputs(rng, shape, dtype, device)
+        h0 = (torch.tensor(rng.standard_normal((Bt, din, N), np.float32),
+                           device=device) if with_h0 else None)
+        y, h = ops.scan(*args, h0=h0)
+        torch.cuda.synchronize()
+        if (y.shape != (Bt, L, din) or h.shape != (Bt, din, N)
+                or not bool(torch.isfinite(y).all())
+                or not bool(torch.isfinite(h).all())):
+            raise AssertionError(f"scan kernel {kind} {shape}: bad output "
+                                 f"{tuple(y.shape)}, {tuple(h.shape)}")
+        want = {}
+        if kind != "test":
+            want["plain"] = ops.scan(*args, h0=h0, use_kernel=False)
+        if kind != "served":
+            want["oracle"] = selective_scan_ref(*args, h0=h0)
+        row = {"kind": kind, "shape": shape,
+               "dtype": str(dtype).split(".")[1], "h0": with_h0}
+        for name, (wy, wh) in want.items():
+            row[f"abs_err_{name}"] = max(float((y - wy).abs().max()),
+                                         float((h - wh).abs().max()))
+            row[f"rel_err_{name}"] = max(rel_err(y, wy), rel_err(h, wh))
+            ok = (row[f"rel_err_{name}"] <= SCAN_REL_TOL if kind == "served"
+                  else row[f"abs_err_{name}"] <= SCAN_ABS_TOL)
+            if not ok:
+                raise AssertionError(f"selective scan kernel {row} (bound "
+                                     f"{SCAN_REL_TOL} relative at the served "
+                                     f"shape, {SCAN_ABS_TOL} absolute else)")
+        del want
+        rows.append(row)
+        if kind == "served":
+            served[row["dtype"]] = args
+        del y, h
+    srv = [r for r in rows if r["kind"] == "served"]
+    ragged = max(r["abs_err_plain"] for r in rows if r["kind"] == "ragged")
+    oracle = max(r["abs_err_oracle"] for r in rows if "abs_err_oracle" in r)
+    print(f"[scan kernel vs plain] {len(rows)} checks | served "
+          f"{SSM['served_shape']}: " + ", ".join(
+              f"{r['dtype']} rel err {r['rel_err_plain']:.2e} (abs "
+              f"{r['abs_err_plain']:.2e})" for r in srv)
+          + f" (< {SCAN_REL_TOL}) | ragged {SSM['ragged_shapes']} with h0: "
+          f"worst abs err {ragged:.2e} vs plain | vs the sequential oracle "
+          f"(ragged and {SSM['oracle_shapes']}): worst abs err {oracle:.2e} "
+          f"(< {SCAN_ABS_TOL})", flush=True)
+    return rows, served
+
+
+def phase_scan_times(served, info, card):
+    """5d: the scan kernel's device time per launch at the served shape,
+    f32 and bf16 inputs, beside its plain version's time and its bound
+    (bytes, fp32 operations, or the exps on the SFUs). No single PyTorch
+    call computes the scan, so there is no library time."""
+    from repro_torch.kernels.selective_scan import ops
+
+    Bt, L, din, N = SSM["served_shape"]
+    out = {}
+    for dtype, args in served.items():
+        k_ms = device_ms(lambda: ops.scan(*args), TOPO["reps"])
+        p_ms = device_ms(lambda: ops.scan(*args, use_kernel=False), 2)
+        nbytes, ops_, exps = scan_work(Bt, L, din, N,
+                                       args[0].element_size())
+        b_ms, b_by, term, terms = scan_bound(nbytes, ops_, exps, info["sms"],
+                                             info["sm_clock_max_mhz"])
+        out[dtype] = {"shape": (Bt, L, din, N), "dtype": dtype, "ms": k_ms,
+                      "plain_ms": p_ms, "library_ms": None, "bytes": nbytes,
+                      "ops": ops_, "exps": exps, "bound_ms": b_ms,
+                      "bound_by": b_by, "bound_term": term,
+                      "bound_terms_ms": terms}
+        print(f"[scan times {dtype}] Bt={Bt} L={L} din={din} N={N}: kernel "
+              f"{k_ms:.3f} ms/launch, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms ({term}; bytes {terms['bytes']:.3f}, fp32 "
+              f"operations {terms['fp32 operations']:.3f}, sfu exps "
+              f"{terms['sfu exps']:.3f} ms at {info['sm_clock_max_mhz']:.0f} "
+              f"MHz), library none | {card}", flush=True)
+    return out
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -1200,6 +1399,7 @@ def run(cfg, device, out_path=None) -> dict:
     from repro_torch.graphs.meshes import icosphere, mesh_graph
     from repro_torch.graphs.mst import minimum_spanning_tree
     from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.topo_linear_attention import ops as topo_ops
 
     info = phase_device()
@@ -1350,6 +1550,36 @@ def run(cfg, device, out_path=None) -> dict:
                f"hd={hd}, C={t['C']}: one layer of the {TOPO['arch']} "
                "Performer prefill"),
     })
+
+    # slice 4: Falcon-Mamba-7B served through the selective scan kernel
+    scan_checks, scan_served = phase_scan_kernel_vs_plain(device)
+    scan_times = phase_scan_times(scan_served, info, card)
+    del scan_served
+    torch.cuda.empty_cache()
+    # the float32 model (28 GB) is freed when its phase returns
+    ssm_gate = phase_gate("falcon-mamba", _ssm_cfg("cuda", "float32"),
+                          _ssm_cfg("chunked", "float32"), scan_ops, device)
+    torch.cuda.empty_cache()
+    ssm_serve = phase_serve("falcon-mamba", _ssm_cfg(), scan_ops, device,
+                            card)
+    torch.cuda.empty_cache()
+    Bt, L, din, N = SSM["served_shape"]
+    t = scan_times["bfloat16"]
+    kernels.append({
+        "name": "selective_scan", "route": "cuda",
+        "source": ("src/repro_torch/kernels/selective_scan/"
+                   "selective_scan.cu"),
+        "replaces": "src/repro/kernels/selective_scan/kernel.py:47",
+        "launches": ssm_serve["launches"],
+        "max_abs_err": max(r["abs_err_plain"] for r in scan_checks
+                           if r["kind"] == "served"),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": None,
+        "at": (f"one launch, bf16 u/dt/B/C, Bt={Bt} L={L} din={din} N={N}: "
+               f"one layer of the {SSM['arch']} prefill; bound by "
+               f"{t['bound_term']}; library none: no single PyTorch call "
+               "computes the scan"),
+    })
     record = {"device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
@@ -1357,6 +1587,8 @@ def run(cfg, device, out_path=None) -> dict:
                   str(k): v for k, v in topo_times.items()},
               "attn_kernel_checks": attn_checks, "dense_gates": dense_gates,
               "dense_serve": dense_serves, "attn_times": attn_times,
+              "scan_kernel_checks": scan_checks, "ssm_gate": ssm_gate,
+              "ssm_serve": ssm_serve, "scan_times": scan_times,
               "kernels": kernels}
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)

@@ -33,6 +33,11 @@ class ModelConfig:
     #   cuda    - full: the flash attention CUDA kernel; performer / topo
     #             "fft": the linear attention CUDA kernel (on CPU tensors
     #             each kernel's wrapper runs its plain version)
+    # and, in the ssm family, who runs the selective scan:
+    #   naive   - the sequential oracle (kernels/selective_scan/ref.py)
+    #   chunked - the plain chunked scan (an associative scan per chunk)
+    #   cuda    - the selective scan CUDA kernel (plain on CPU tensors)
+    # any other value raises
     attn_impl: str = "naive"
     performer_phi: str = "relu"  # relu | sq | quart | exp
     qkv_bias: bool = False
@@ -132,9 +137,10 @@ class ModelConfig:
 # registry
 # ----------------------------------------------------------------------------
 
-ARCHS = ["llama3_2_1b"]
+ARCHS = ["falcon_mamba_7b", "llama3_2_1b"]
 
-_ALIASES = {"llama3.2-1b": "llama3_2_1b"}
+_ALIASES = {"falcon-mamba-7b": "falcon_mamba_7b",
+            "llama3.2-1b": "llama3_2_1b"}
 
 
 def _module(arch: str):

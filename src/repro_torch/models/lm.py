@@ -1,18 +1,21 @@
 """Decoder-only LM of the port: the dense family with
 `attention_variant` "full" (rope + softmax attention, the published
 architecture), "performer" (causal linear attention) or "topo" (the
-paper's Topological Transformer LM).
+paper's Topological Transformer LM), and the ssm family (Mamba-1).
 
-[norm -> attention, norm -> gated MLP] x num_layers, with layers in a
-plain Python loop (the reference's lax.scan is not copied). Parameter
-names follow the reference's pytree paths (`blocks0/attn/wq[l]` ->
-`blocks.{l}.attn.wq`), so `convert.py` is a renaming. The decode cache
-keeps the reference's layout, stacked over layers under "blocks0": full
-{"k", "v": (num_layers, B, S, KV, hd)} in the model's dtype; performer
-{"S": (num_layers, B, H, hd, hd), "z": (num_layers, B, H, hd)}; topo
-{"S": (num_layers, B, H, R, m, hd), "z": (num_layers, B, H, R, m)}, both
-in float32. Other families, local attention and MLA come with ROADMAP
-A10.
+dense: [norm -> attention, norm -> gated MLP] x num_layers; ssm:
+[norm -> mamba] x num_layers, no MLP. Layers run in a plain Python loop
+(the reference's lax.scan is not copied). Parameter names follow the
+reference's pytree paths (`blocks0/attn/wq[l]` -> `blocks.{l}.attn.wq`,
+`blocks0/ssm/in_proj[l]` -> `blocks.{l}.ssm.in_proj`), so `convert.py` is
+a renaming. The decode cache keeps the reference's layout, stacked over
+layers under "blocks0": full {"k", "v": (num_layers, B, S, KV, hd)} in the
+model's dtype; performer {"S": (num_layers, B, H, hd, hd), "z":
+(num_layers, B, H, hd)}; topo {"S": (num_layers, B, H, R, m, hd), "z":
+(num_layers, B, H, R, m)}, both in float32; ssm {"conv": (num_layers, B,
+K-1, d_inner)} in the model's dtype and {"h": (num_layers, B, d_inner,
+N)} in float32. MoE, MLA, hybrid, encdec and local attention come with
+ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -22,22 +25,24 @@ import torch
 from torch import nn
 
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (Params, dense_init, dtype_of,
                                        embed_init, gated_mlp, gated_mlp_init,
                                        rms_norm)
 
 
 VARIANTS = ("full", "performer", "topo")
+FAMILIES = ("dense", "ssm")
 
 
 def check_supported(cfg) -> None:
-    if cfg.is_encdec or cfg.family != "dense" or cfg.mla or cfg.moe:
+    if (cfg.is_encdec or cfg.family not in FAMILIES or cfg.mla or cfg.moe):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r}"
             f"{' with MLA' if cfg.mla else ''}{' with MoE' if cfg.moe else ''}"
             " is not ported yet (ROADMAP A10); the port serves the dense "
-            "family")
-    if cfg.attention_variant not in VARIANTS:
+            "and ssm families")
+    if cfg.family == "dense" and cfg.attention_variant not in VARIANTS:
         raise NotImplementedError(
             f"attention_variant={cfg.attention_variant!r} is not ported yet "
             f"(ROADMAP A10); the port serves {VARIANTS}")
@@ -64,19 +69,32 @@ class DecoderBlock(nn.Module):
                            "w_out": (cfg.d_ff, d)}, dtype, device)
 
 
+class MambaBlock(nn.Module):
+    """One ssm block: norm, ssm (the Mamba mixer's parameters)."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None):
+        super().__init__()
+        self.norm = Params({"scale": (cfg.d_model,)}, dtype, device)
+        self.ssm = SSM.SSM(cfg, dtype, device)
+
+
+BLOCKS = {"attn_mlp": DecoderBlock, "mamba": MambaBlock}
+
+
 class DecoderLM(nn.Module):
-    """embed, blocks (a ModuleList of DecoderBlock), final_norm, and lm_head
-    unless the embeddings are tied. Parameters live in the config's dtype.
-    `forward(tokens)` is the cacheless prefill (last-position logits)."""
+    """embed, blocks (a ModuleList of DecoderBlock or MambaBlock),
+    final_norm, and lm_head unless the embeddings are tied. Parameters live
+    in the config's dtype. `forward(tokens)` is the cacheless prefill
+    (last-position logits)."""
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        (_, count, _), = stack_desc(cfg).segments
+        (kind, count, _), = stack_desc(cfg).segments
         dtype = dtype_of(cfg)
         V, d = cfg.padded_vocab(), cfg.d_model
         self.cfg = cfg
         self.embed = Params({"table": (V, d)}, dtype, device)
-        self.blocks = nn.ModuleList([DecoderBlock(cfg, dtype, device)
+        self.blocks = nn.ModuleList([BLOCKS[kind](cfg, dtype, device)
                                      for _ in range(count)])
         self.final_norm = Params({"scale": (d,)}, dtype, device)
         if not cfg.tie_embeddings:
@@ -91,8 +109,12 @@ class DecoderLM(nn.Module):
 # ----------------------------------------------------------------------------
 
 
-def _block_init(gen: torch.Generator, cfg, dtype) -> dict:
+def _block_init(gen: torch.Generator, cfg, kind: str, dtype) -> dict:
     d = cfg.d_model
+    if kind == "mamba":
+        return {"norm": {"scale": torch.zeros((d,), dtype=dtype,
+                                              device=gen.device)},
+                "ssm": SSM.ssm_init(gen, cfg, dtype)}
     p = {"attn_norm": {"scale": torch.zeros((d,), dtype=dtype,
                                             device=gen.device)},
          "attn": A.attn_init(gen, cfg, dtype)}
@@ -118,12 +140,22 @@ def _mlp(cfg, p, x):
     return x + gated_mlp(p.mlp, h, cfg.mlp_act)
 
 
-def _block_train(cfg, p, x, positions):
+def _mamba_in(cfg, p, x):
+    return rms_norm(x, p.norm.scale, cfg.norm_eps, plus_one=True)
+
+
+def _block_train(cfg, kind, p, x, positions):
+    if kind == "mamba":
+        return x + SSM.mamba_block_train(cfg, p.ssm, _mamba_in(cfg, p, x))
     return _mlp(cfg, p, x + _attn_train(cfg, p, x, positions))
 
 
-def _block_decode(cfg, p, x, pos, cache, S):
+def _block_decode(cfg, kind, p, x, pos, cache, S):
     """x: (B, 1, d). Returns (x, new_cache)."""
+    if kind == "mamba":
+        y, cache = SSM.mamba_block_decode(cfg, p.ssm, _mamba_in(cfg, p, x),
+                                          cache)
+        return x + y, cache
     h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
     if cfg.attention_variant == "topo":
         y, cache = A.topo_attention_decode(cfg, p.attn, p.topo, h, pos,
@@ -135,11 +167,15 @@ def _block_decode(cfg, p, x, pos, cache, S):
     return _mlp(cfg, p, x + y), cache
 
 
-def _block_prefill(cfg, p, x, positions, lengths, cache, S,
+def _block_prefill(cfg, kind, p, x, positions, lengths, cache, S,
                    tree_mask=None):
     """Whole-prompt forward (the math of `_block_train`) that also writes
     the decode cache for positions [0, lengths[b]). x: (B, Lp, d) right-
     padded; rows with lengths[b] == 0 leave their cache untouched."""
+    if kind == "mamba":
+        y, cache = SSM.mamba_block_prefill(cfg, p.ssm, _mamba_in(cfg, p, x),
+                                           lengths, cache)
+        return x + y, cache
     h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
     if cfg.attention_variant == "topo":
         y, cache = A.topo_attention_prefill(cfg, p.attn, p.topo, h,
@@ -154,7 +190,9 @@ def _block_prefill(cfg, p, x, positions, lengths, cache, S,
     return _mlp(cfg, p, x + y), cache
 
 
-def _block_cache_init(cfg, B, S, device=None):
+def _block_cache_init(cfg, kind, B, S, device=None):
+    if kind == "mamba":
+        return SSM.mamba_decode_init(cfg, B, dtype_of(cfg), device)
     if cfg.attention_variant == "topo":
         return A.topo_decode_init(cfg, B, S, device=device)
     if cfg.attention_variant == "performer":
@@ -172,7 +210,13 @@ class StackDesc:
 
 def stack_desc(cfg) -> StackDesc:
     check_supported(cfg)
-    return StackDesc((("attn_mlp", cfg.num_layers, cfg.scan_layers),))
+    kind = "mamba" if cfg.family == "ssm" else "attn_mlp"
+    return StackDesc(((kind, cfg.num_layers, cfg.scan_layers),))
+
+
+def _kind(cfg) -> str:
+    (kind, _, _), = stack_desc(cfg).segments
+    return kind
 
 
 # ----------------------------------------------------------------------------
@@ -184,10 +228,11 @@ def init_state_dict(cfg, gen: torch.Generator) -> dict:
     """Random weights (the reference's init recipe, drawn from `gen` on its
     device) as a state dict of `DecoderLM`."""
     dtype = dtype_of(cfg)
+    kind = _kind(cfg)
     sd = {"embed.table": embed_init(gen, cfg.padded_vocab(), cfg.d_model,
                                     dtype)["table"]}
     for layer in range(cfg.num_layers):
-        for part, leaves in _block_init(gen, cfg, dtype).items():
+        for part, leaves in _block_init(gen, cfg, kind, dtype).items():
             for name, t in leaves.items():
                 sd[f"blocks.{layer}.{part}.{name}"] = t
     sd["final_norm.scale"] = torch.zeros((cfg.d_model,), dtype=dtype,
@@ -239,13 +284,14 @@ def forward_prefill(cfg, model, batch):
     x = embed_tokens(cfg, model, tokens)
     positions = torch.arange(L, dtype=torch.int32,
                              device=x.device)[None].expand(B, L)
+    kind = _kind(cfg)
     for blk in model.blocks:
-        x = _block_train(cfg, blk, x, positions)
+        x = _block_train(cfg, kind, blk, x, positions)
     return unembed(cfg, model, _final(cfg, model, x)[:, -1:, :])
 
 
 def init_decode_cache(cfg, B: int, S: int, device=None) -> dict:
-    one = _block_cache_init(cfg, B, S, device)
+    one = _block_cache_init(cfg, _kind(cfg), B, S, device)
     n = cfg.num_layers
     return {"blocks0": {k: torch.zeros((n,) + tuple(t.shape), dtype=t.dtype,
                                        device=t.device)
@@ -265,9 +311,10 @@ def forward_decode(cfg, model, cache, token, pos, S):
     """token: (B, 1) int; pos: () or (B,) int. Returns (logits (B, 1, V),
     new_cache)."""
     x = embed_tokens(cfg, model, token)
+    kind = _kind(cfg)
     new = []
     for layer, blk in enumerate(model.blocks):
-        x, c = _block_decode(cfg, blk, x, pos, _layer(cache, layer), S)
+        x, c = _block_decode(cfg, kind, blk, x, pos, _layer(cache, layer), S)
         new.append(c)
     return unembed(cfg, model, _final(cfg, model, x)), _stack(new)
 
@@ -284,9 +331,10 @@ def forward_prefill_into_cache(cfg, model, cache, tokens, lengths, S,
     x = embed_tokens(cfg, model, tokens)
     positions = torch.arange(Lp, dtype=torch.int32,
                              device=x.device)[None].expand(B, Lp)
+    kind = _kind(cfg)
     new = []
     for layer, blk in enumerate(model.blocks):
-        x, c = _block_prefill(cfg, blk, x, positions, lengths,
+        x, c = _block_prefill(cfg, kind, blk, x, positions, lengths,
                               _layer(cache, layer), S, tree_mask=tree_mask)
         new.append(c)
     x = _final(cfg, model, x)

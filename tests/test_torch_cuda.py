@@ -5,7 +5,9 @@ forward against the plain one and the dense oracle, and the smoke topo-LM
 served on impl "cuda" against impl "torch"; the flash attention and
 linear attention kernels against their plain versions and dense oracles,
 and the smoke Llama with full and Performer attention served on
-attn_impl "cuda" against "chunked". These tests need a card (the
+attn_impl "cuda" against "chunked"; the selective scan kernel against its
+plain version and the sequential oracle, and the smoke Falcon-Mamba
+served on attn_impl "cuda" against "chunked". These tests need a card (the
 kernels have no CPU mode) and skip without one; they import nothing of
 jax, so they run where only the port is installed:
 
@@ -384,5 +386,115 @@ def test_dense_lm_serving_kernel_matches_plain(variant, cuda_device):
     for a, b in zip(out["cuda"][1], out["chunked"][1]):
         assert _rel(a, b) < 1e-4
     for k in out["cuda"][2]["blocks0"]:
+        assert _rel(out["cuda"][2]["blocks0"][k],
+                    out["chunked"][2]["blocks0"][k]) < 1e-5
+
+
+# --- the selective scan (B6) --------------------------------------------------
+
+from repro_torch.kernels.selective_scan import ops as scan_ops  # noqa: E402
+from repro_torch.kernels.selective_scan.ref import (  # noqa: E402
+    selective_scan_ref)
+
+
+def _scan_inputs(rng, Bt, L, din, N, dtype, device):
+    """Drawn as tests/test_kernels.py::test_selective_scan draws them; u,
+    dt, B and C in `dtype`."""
+    def t(a, dt=torch.float32):
+        return torch.tensor(a, dtype=dt, device=device)
+
+    dt_ = getattr(torch, dtype)
+    return (t(rng.normal(size=(Bt, L, din)), dt_),
+            t(np.abs(rng.normal(size=(Bt, L, din))) * 0.1, dt_),
+            t(-np.abs(rng.normal(size=(din, N))) - 0.1),
+            t(rng.normal(size=(Bt, L, N)), dt_),
+            t(rng.normal(size=(Bt, L, N)), dt_),
+            t(rng.normal(size=(din,))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bt,L,din,N", [
+    (2, 64, 32, 8), (2, 128, 64, 16), (1, 1000, 200, 4), (1, 1000, 200, 16),
+    (3, 33, 130, 16), (1, 1, 8, 8), (2, 300, 256, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
+def test_scan_kernel_matches_plain_version(Bt, L, din, N, dtype, with_h0,
+                                           cuda_device):
+    """y and h_final within 2e-5 absolute of the plain chunked scan and of
+    the sequential oracle on the same inputs (tests/test_kernels.py's
+    bound; bf16 inputs are upcast exactly by all three); ragged L and din,
+    the shapes of tests/test_kernels.py, one step."""
+    rng = np.random.default_rng(L + din + N)
+    args = _scan_inputs(rng, Bt, L, din, N, dtype, cuda_device)
+    h0 = (torch.tensor(rng.normal(size=(Bt, din, N)), dtype=torch.float32,
+                       device=cuda_device) if with_h0 else None)
+    before = scan_ops.LAUNCHES
+    y, h = scan_ops.scan(*args, h0=h0)
+    torch.cuda.synchronize()
+    assert scan_ops.LAUNCHES == before + 1
+    assert y.shape == (Bt, L, din) and h.shape == (Bt, din, N)
+    assert y.dtype == h.dtype == torch.float32
+    for wy, wh in (scan_ops.scan(*args, h0=h0, use_kernel=False),
+                   selective_scan_ref(*args, h0=h0)):
+        assert float((y - wy).abs().max()) < 2e-5
+        assert float((h - wh).abs().max()) < 2e-5
+
+
+@pytest.mark.cuda
+def test_scan_kernel_reads_strided_b_and_c_in_place(cuda_device):
+    """B and C as column slices of the model's x_proj output (row stride
+    dt_rank + 2N) give what contiguous copies give, bit for bit."""
+    rng = np.random.default_rng(4)
+    u, dt, A, _, _, D = _scan_inputs(rng, 2, 77, 96, 16, "bfloat16",
+                                     cuda_device)
+    proj = torch.tensor(rng.normal(size=(2, 77, 8 + 32)),
+                        dtype=torch.bfloat16, device=cuda_device)
+    Bv, Cv = proj[..., 8:24], proj[..., 24:]
+    got = scan_ops.scan(u, dt, A, Bv, Cv, D)
+    want = scan_ops.scan(u, dt, A, Bv.contiguous(), Cv.contiguous(), D)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_ssm_lm_serving_kernel_matches_plain(cuda_device):
+    """The smoke Falcon-Mamba served on the card: attn_impl "cuda" (one
+    kernel launch per layer per prefill, none in decode) against "chunked"
+    on the same weights, float32, over mixed prompt lengths (one empty
+    row) and 4 decode steps."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import api
+
+    S = 80
+    cfg = get_smoke_config("falcon_mamba_7b", attn_impl="cuda",
+                           dtype="float32")
+    model = api.init_params(cfg, 3)
+    rng = np.random.default_rng(6)
+    toks = rng.integers(0, cfg.vocab_size, (3, 70)).astype(np.int32)
+    lengths = np.array([70, 41, 0], np.int32)
+    out = {}
+    for impl in ("cuda", "chunked"):
+        c = cfg.replace(attn_impl=impl)
+        before = scan_ops.LAUNCHES
+        logits, cache = api.prefill_into_cache(c, model, api.init_cache(
+            c, 3, S), toks, lengths, S)
+        launched = scan_ops.LAUNCHES - before
+        pos = torch.tensor(lengths, device=cuda_device).long()
+        fed = out["cuda"][4] if impl == "chunked" else [logits.argmax(-1)]
+        steps = []
+        before = scan_ops.LAUNCHES
+        for t in range(4):
+            lg, cache = api.decode_fn(c, model, cache, fed[t][:, None], pos,
+                                      S)
+            steps.append(lg)
+            if impl == "cuda":
+                fed.append(lg[:, 0].argmax(-1))
+            pos = pos + 1
+        assert scan_ops.LAUNCHES == before  # decode runs no kernel
+        out[impl] = (logits, steps, cache, launched, fed)
+    assert out["cuda"][3] == cfg.num_layers and out["chunked"][3] == 0
+    assert _rel(out["cuda"][0][:2], out["chunked"][0][:2]) < 1e-4
+    for a, b in zip(out["cuda"][1], out["chunked"][1]):
+        assert _rel(a, b) < 1e-4
+    for k in ("conv", "h"):
         assert _rel(out["cuda"][2]["blocks0"][k],
                     out["chunked"][2]["blocks0"][k]) < 1e-5

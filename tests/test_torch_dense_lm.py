@@ -8,7 +8,8 @@ the Performer), on every `attn_impl` (naive: the dense oracle; chunked: the
 plain twins; cuda: the kernel path, whose wrappers run the plain versions
 on the CPU). Also the cacheless prefill, decode against the prefill of the
 extended prompt, the weight round trip in float32 and bfloat16, seeded
-init, and the package's independence from jax, triton and `repro`."""
+init, and the package's independence from jax, triton and `repro` (the
+smoke Falcon-Mamba of the ssm family included)."""
 import os
 import subprocess
 import sys
@@ -246,7 +247,7 @@ def test_kernel_path_refuses_grad_in_the_model(variant):
 
 def test_what_is_not_ported_raises_naming_the_roadmap():
     cfg = _cfg("full")
-    for bad in (dict(mla=True), dict(moe=True), dict(family="ssm"),
+    for bad in (dict(mla=True), dict(moe=True), dict(family="hybrid"),
                 dict(attention_variant="local")):
         with pytest.raises(NotImplementedError, match="A10"):
             TA.init_params(cfg.replace(**bad), 0, device="cpu")
@@ -277,8 +278,22 @@ for variant, impl in (("full", "cuda"), ("full", "chunked"),
                                   np.array([8, 5]), 20, device="cpu")
     assert bool(logits.isfinite().all()) and logits.shape == (2, 1, 512)
     convert.from_reference(cfg, convert.to_reference(model), device="cpu")
+for impl in ("cuda", "chunked"):
+    cfg = get_smoke_config("falcon_mamba_7b", attn_impl=impl,
+                           dtype="float32")
+    model = api.init_params(cfg, 0, device="cpu")
+    cache = api.init_cache(cfg, 2, 20, device="cpu")
+    logits, cache = api.prefill_into_cache(
+        cfg, model, cache, np.ones((2, 8), np.int32), np.array([8, 5]), 20,
+        device="cpu")
+    logits, cache = api.decode_fn(cfg, model, cache,
+                                  np.ones((2, 1), np.int32),
+                                  np.array([8, 5]), 20, device="cpu")
+    assert bool(logits.isfinite().all()) and logits.shape == (2, 1, 512)
+    convert.from_reference(cfg, convert.to_reference(model), device="cpu")
 import repro_torch.kernels.flash_attention.kernel
 import repro_torch.kernels.linear_attention.kernel
+import repro_torch.kernels.selective_scan.kernel
 assert not any(k.split(".")[0] in ("jax", "repro", "triton")
                for k, v in sys.modules.items() if v is not None)
 print("ok")
