@@ -8,15 +8,18 @@ sm_90a) and nvcc:
 
 It builds the port's five CUDA kernels (fdist_matvec, the topological
 linear-attention sweep, flash attention, causal linear attention and the
-selective scan) from the repository's sources, in parallel, and drives
-four paths.
+selective scan) from the repository's sources, in parallel, checks that
+the flash attention library's bf16 kernel runs on the tensor cores (HGMMA
+instructions in its SASS, `cuobjdump -sass`), and drives four paths.
 
 FTFI: it holds the fdist_matvec kernel against its plain PyTorch version
 on the card, drives `ftfi.build` (graph -> MST -> IT plan on the host) and
 `ftfi.apply` on the card at the sizes of benchmarks/bench_ftfi_runtime.py
 against the dense BTFI oracle, then times the kernel, its plain version
-and one `torch.bmm` of the materialized M V at the plan's bucket shapes,
-and traces one `apply` with torch.profiler.
+and one `torch.bmm` of the materialized M V at the plan's bucket shapes
+(the single-job launch beside one `torch.mm`), and traces one `apply`
+with torch.profiler. The kernel is listed twice, by d-tile: d = 4 (one
+thread a row) and d = 64 (the register-blocked tile).
 
 Topo-LM: it holds the sweep kernel against its plain version (decay and
 rank mode, causal and the bidirectional pair) at the served layer's shape
@@ -28,14 +31,15 @@ held against `"torch"` in float32; then times prefill, decode and the
 kernel in bf16 and traces one prefill.
 
 Dense LM: it holds the flash attention kernel (causal and not, f32 and
-bf16, the served shape and a ragged L) and the linear attention kernel
-(lg = 0 and per head, on num and den) against their plain versions on the
-card; serves the 4 requests of the full-width Llama-3.2-1B as published
-(rope, softmax attention, `attention_variant="full"`) and as a Performer
-(`"performer"`), with `attn_impl="cuda"` held against `"chunked"` in
-float32; then times prefill, decode and both kernels in bf16 (flash
-attention beside one `scaled_dot_product_attention` call) and traces one
-prefill and one decode step.
+bf16, the served shape and a ragged L, and bf16 with peaked logits, q x 4)
+and the linear attention kernel (lg = 0 and per head, on num and den)
+against their plain versions on the card; serves the 4 requests of the
+full-width Llama-3.2-1B as published (rope, softmax attention,
+`attention_variant="full"`) and as a Performer (`"performer"`), with
+`attn_impl="cuda"` held against `"chunked"` in float32; then times
+prefill, decode and both kernels in bf16 (flash attention beside one
+`scaled_dot_product_attention` call) and traces one prefill and one
+decode step.
 
 SSM LM: it holds the selective scan kernel against its plain chunked
 version (the served shape with f32 and bf16 inputs, on y and h_final; a
@@ -235,6 +239,23 @@ def phase_build():
     print(f"[build] {len(mods)} kernels in parallel, {wall:.1f} s wall",
           flush=True)
     out["wall_seconds"] = wall
+    # the bf16 flash kernel must run on the tensor cores: wgmma is HGMMA in
+    # the SASS
+    from repro_torch.kernels import _nvcc
+
+    cuobjdump = Path(_nvcc.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(ROOT / out["flash_attention"]["library"])],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hgmma = len(re.findall(r"\bHGMMA\.", sass))
+    out["flash_attention"]["hgmma_instructions"] = hgmma
+    print(f"[build flash_attention] {hgmma} HGMMA instructions in the SASS "
+          "(cuobjdump -sass)", flush=True)
+    if hgmma == 0:
+        raise AssertionError("the flash attention library has no HGMMA "
+                             "instruction: its bf16 kernel is off the tensor "
+                             "cores")
     return out
 
 
@@ -534,17 +555,22 @@ def phase_times(spec, params, dense, cfg, device, card):
     x1, y1 = params.cross_tgt_d[big][0], params.cross_src_d[big][0]
     v1 = torch.tensor(rng.normal(size=(y1.shape[0], 4)), dtype=torch.float32,
                       device=device)
+    M1 = f_eval(x1[:, None] + y1[None, :], coeffs, mode)
     single = {"a": x1.shape[0], "b": y1.shape[0], "d": 4,
               "ms": device_ms(lambda: ops.fdist_matvec(x1, y1, v1, coeffs,
                                                      mode), reps),
               "plain_ms": device_ms(lambda: fdist_matvec_ref(x1, y1, v1, coeffs,
-                                                           mode), reps)}
+                                                           mode), reps),
+              # the yardstick of B1's bmm: one mm on a precomputed M
+              "library_ms": device_ms(lambda: torch.mm(M1, v1), reps)}
+    del M1
     single["bound_ms"], single["bound_by"] = bound(
         *work(1, single["a"], single["b"], 4, mode, 2))
     out["single"] = single
     print(f"[times single job] a={single['a']} b={single['b']} d=4: kernel "
-          f"{single['ms']:.4f} ms, plain {single['plain_ms']:.4f} ms, bound "
-          f"{single['bound_ms']:.5f} ms | {card}", flush=True)
+          f"{single['ms']:.4f} ms, plain {single['plain_ms']:.4f} ms, mm "
+          f"{single['library_ms']:.4f} ms, bound {single['bound_ms']:.5f} ms "
+          f"| {card}", flush=True)
     return out
 
 
@@ -1118,6 +1144,29 @@ def phase_attn_kernel_vs_plain(device):
                 if L == DENSE["flash_shapes"][0][3]:
                     served[("flash", row["dtype"], causal)] = (q, k, v)
             del q, k, v
+    # peaked logits (q x 4) in bf16 at the served shape: the softmax's
+    # weights concentrate, where one bf16 rounding of P would show most
+    B, H, KV, L, hd = DENSE["flash_shapes"][0]
+    q = torch.tensor(rng.normal(size=(B, H, L, hd)) * 4.0,
+                     dtype=torch.bfloat16, device=device)
+    k, v = (torch.tensor(rng.normal(size=(B, KV, L, hd)),
+                         dtype=torch.bfloat16, device=device)
+            for _ in range(2))
+    for causal in (True, False):
+        got = flash_ops.flash_attention(q, k, v, causal)
+        plain = flash_ops.flash_attention(q, k, v, causal, use_kernel=False)
+        torch.cuda.synchronize()
+        row = {"kernel": "flash_attention", "shape": (B, H, KV, L, hd),
+               "dtype": "bfloat16", "causal": causal, "peaked": True,
+               "abs_err": float((got.float() - plain.float()).abs().max()),
+               "abs_err_ref": None,
+               "bf16_roundings": bf16_roundings(got, plain)}
+        if not (bool(torch.isfinite(got.float()).all())
+                and row["bf16_roundings"] <= 1.0):
+            raise AssertionError(f"flash kernel, peaked logits: {row} (bound "
+                                 "one bf16 rounding)")
+        rows.append(row)
+    del q, k, v
     B, H, L, m, hd = DENSE["linear_shape"]
     qf, kf = (torch.tensor(np.abs(rng.normal(size=(B, H, L, m))),
                            dtype=torch.float32, device=device)
@@ -1149,14 +1198,16 @@ def phase_attn_kernel_vs_plain(device):
     f32, bf16 = (max(r["abs_err"] for r in fl if r["dtype"] == dt)
                  for dt in ("float32", "bfloat16"))
     roundings = max(r["bf16_roundings"] for r in fl
-                    if r["dtype"] == "bfloat16")
+                    if r["dtype"] == "bfloat16" and not r.get("peaked"))
+    peaked = max(r["bf16_roundings"] for r in fl if r.get("peaked"))
     vs_ref = max(r["abs_err_ref"] for r in fl if r["abs_err_ref"] is not None
                  and r["dtype"] == "float32")
     print(f"[attn kernels vs plain] flash: {len(fl)} checks (shapes "
           f"{DENSE['flash_shapes']}, causal and not, f32/bf16) | worst abs "
           f"err f32 {f32:.2e} (< {FLASH_TOL}), vs the dense oracle at "
           f"L <= 1024 {vs_ref:.2e}; bf16 {bf16:.2e} abs, {roundings:.3f} of "
-          "one bf16 rounding of the value (<= 1)"
+          f"one bf16 rounding of the value (<= 1), peaked logits (q x 4) "
+          f"{peaked:.3f}"
           f" | linear: {len(li)} checks at {DENSE['linear_shape']} (lg 0 and "
           f"per head, f32/bf16 v) | worst rel err num "
           f"{max(r['rel_err_num'] for r in li):.2e}, den "
@@ -1398,6 +1449,7 @@ def run(cfg, device, out_path=None) -> dict:
     from repro_torch import ftfi
     from repro_torch.graphs.meshes import icosphere, mesh_graph
     from repro_torch.graphs.mst import minimum_spanning_tree
+    from repro_torch.kernels.fdist_matvec import kernel as fdist_kernel
     from repro_torch.kernels.fdist_matvec import ops
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.topo_linear_attention import ops as topo_ops
@@ -1416,6 +1468,7 @@ def run(cfg, device, out_path=None) -> dict:
     fams = families()
     # the main path: counts from zero, read right after
     ops.LAUNCHES = 0
+    ops.LAUNCHES_BY_TD.update({td: 0 for td in ops.LAUNCHES_BY_TD})
     spec, params, dense, rows_a = phase_tree(
         "synthetic", tree, fams, cfg["widths"], cfg, device,
         exact_torch={"Exponential", "Polynomial"})
@@ -1425,32 +1478,39 @@ def run(cfg, device, out_path=None) -> dict:
         exact_torch=set())
     del dense_mesh
     forest = phase_forest(cfg, device)
-    main_launches = ops.LAUNCHES
-    if main_launches == 0:
-        raise AssertionError("the main path launched no fdist_matvec kernel")
+    # by d-tile: 4, the one-row-a-thread form; 64, the register-blocked
+    # tile (d = 64 and the forest's block identity)
+    main_by_td = dict(ops.LAUNCHES_BY_TD)
+    for d in cfg["widths"]:
+        if main_by_td[fdist_kernel.tile_width(d)] == 0:
+            raise AssertionError(f"the main path launched no fdist_matvec "
+                                 f"kernel of d-tile {d}")
 
     card = info["nvidia_smi"]
     times = phase_times(spec, params, dense, cfg, device, card)
     times["profile"] = phase_profile(spec, params, device)
-    at_d4 = [r for r in times["buckets"] if r["d"] == cfg["widths"][0]]
-    # the least time for the work of all these launches together
-    b_ms, b_by = bound(sum(r["bytes"] for r in at_d4),
-                       sum(r["ops"] for r in at_d4))
-    bucket_errs = [r["abs_err"] for r in checks
-                   if r["kind"] == "bucket" and r["dtype"] == "float32"]
-    kernels = [{
-        "name": "fdist_matvec_batched", "route": "cuda",
-        "source": "src/repro_torch/kernels/fdist_matvec/fdist_matvec.cu",
-        "replaces": "src/repro/kernels/fdist_matvec/kernel.py:63",
-        "launches": main_launches,
-        "max_abs_err": max(bucket_errs),
-        "ms": sum(r["ms"] for r in at_d4),
-        "plain_ms": sum(r["plain_ms"] for r in at_d4),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": sum(r["library_ms"] for r in at_d4),
-        "at": (f"sum over the {len(at_d4)} cross buckets of the n="
-               f"{cfg['n']} synthetic MST plan, d={cfg['widths'][0]}, exp"),
-    }]
+    kernels = []
+    for d in cfg["widths"]:
+        at_d = [r for r in times["buckets"] if r["d"] == d]
+        # the least time for the work of all these launches together
+        b_ms, b_by = bound(sum(r["bytes"] for r in at_d),
+                           sum(r["ops"] for r in at_d))
+        kernels.append({
+            "name": f"fdist_matvec_batched[d={d}]", "route": "cuda",
+            "source": "src/repro_torch/kernels/fdist_matvec/fdist_matvec.cu",
+            "replaces": "src/repro/kernels/fdist_matvec/kernel.py:63",
+            "launches": main_by_td[fdist_kernel.tile_width(d)],
+            "max_abs_err": max(r["abs_err"] for r in checks
+                               if r["kind"] == "bucket" and r["d"] == d
+                               and r["dtype"] == "float32"),
+            "ms": sum(r["ms"] for r in at_d),
+            "plain_ms": sum(r["plain_ms"] for r in at_d),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": sum(r["library_ms"] for r in at_d),
+            "at": (f"sum over the {len(at_d)} cross buckets of the n="
+                   f"{cfg['n']} synthetic MST plan, d={d}, exp; launches: "
+                   f"those of d-tile {d} on the main path"),
+        })
     del spec, params, dense
 
     # slice 2: the topo-LM served through the topo sweep kernel
@@ -1516,7 +1576,7 @@ def run(cfg, device, out_path=None) -> dict:
         errs = [r["abs_err"] for r in attn_checks
                 if r["kernel"] == "flash_attention" and r["causal"] == causal
                 and r["shape"] == (B, H, KV, L, hd)
-                and r["dtype"] == "float32"]
+                and r["dtype"] == "bfloat16" and not r.get("peaked")]
         kernels.append({
             "name": f"flash_attention[{mode}]", "route": "cuda",
             "source": ("src/repro_torch/kernels/flash_attention/"

@@ -23,7 +23,10 @@ SOURCE = Path(__file__).with_name("fdist_matvec.cu")
 MODE_IDS = {"poly": 0, "exp": 1, "expq": 2, "rational": 3}
 TB = 64  # source rows per shared-memory stage (the .cu file's TB)
 TD_CHOICES = (4, 16, 64)  # d-tile widths the .cu file instantiates
-MAX_THREADS = 128  # rows per block (the .cu file's __launch_bounds__)
+MAX_THREADS = 128  # rows per block at td = 4, 16 (__launch_bounds__)
+# td = 64: a register-blocked tile of TILE_ROWS rows x 64 columns per block
+# of TILE_THREADS threads, 8 rows x 4 columns a thread (the .cu file's BI)
+TILE_ROWS, TILE_THREADS = 64, 128
 BLOCKS_PER_SM = 8  # split the source axis until the grid has this many
 
 _ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int]
@@ -57,15 +60,25 @@ def _cdiv(p: int, q: int) -> int:
     return -(-p // q)
 
 
+def tile_width(d: int) -> int:
+    """The d-tile width of the instantiation that serves a field of width
+    d: the narrowest that holds d, else the widest (then several tiles)."""
+    return next((t for t in TD_CHOICES if t >= d), TD_CHOICES[-1])
+
+
 def launch_config(B: int, a: int, b: int, d: int, num_sms: int) -> dict:
-    """Grid of one launch: one thread per output row (at most MAX_THREADS
-    rows per block), d in tiles of `td` columns, and the source axis cut
-    into `splits` chunks of `j_per_split` (a multiple of TB) when the
-    bucket alone would leave SMs idle. Every source index lies in exactly
-    one split."""
-    threads = min(MAX_THREADS, max(32, _cdiv(a, 32) * 32))
-    row_tiles = _cdiv(a, threads)
-    td = next((t for t in TD_CHOICES if t >= d), TD_CHOICES[-1])
+    """Grid of one launch: `rows` output rows per block (td = 4, 16: one
+    thread a row, at most MAX_THREADS; td = 64: the TILE_ROWS x 64 tile
+    of TILE_THREADS threads), d in tiles of `td` columns, and the source
+    axis cut into `splits` chunks of `j_per_split` (a multiple of TB) when
+    the bucket alone would leave SMs idle. Every (row, source) pair lies in
+    exactly one (block, split)."""
+    td = tile_width(d)
+    if td == 64:
+        threads, rows = TILE_THREADS, TILE_ROWS
+    else:
+        threads = rows = min(MAX_THREADS, max(32, _cdiv(a, 32) * 32))
+    row_tiles = _cdiv(a, rows)
     d_tiles = _cdiv(d, td)
     base = B * row_tiles * d_tiles
     splits = 1
@@ -74,8 +87,9 @@ def launch_config(B: int, a: int, b: int, d: int, num_sms: int) -> dict:
         splits = max(1, min(_cdiv(target, base), _cdiv(b, 2 * TB)))
     j_per_split = _cdiv(_cdiv(b, splits), TB) * TB
     splits = _cdiv(b, j_per_split)
-    return {"threads": threads, "row_tiles": row_tiles, "td": td,
-            "d_tiles": d_tiles, "splits": splits, "j_per_split": j_per_split}
+    return {"threads": threads, "rows": rows, "row_tiles": row_tiles,
+            "td": td, "d_tiles": d_tiles, "splits": splits,
+            "j_per_split": j_per_split}
 
 
 _SMS: dict = {}

@@ -4,7 +4,11 @@ A CUDA tensor goes to the hand-written kernel (`kernel.py`, built from
 `fdist_matvec.cu`); a CPU tensor goes to the plain PyTorch version
 (`ref.py`). The choice follows the device of the tensors alone: on a card
 the kernel launches or the call raises. `LAUNCHES` counts kernel launches,
-so a caller can show that its path went through the kernel.
+so a caller can show that its path went through the kernel, and
+`LAUNCHES_BY_TD` counts them by the kernel's d-tile width (4, 16 or 64).
+The kernel has no backward yet (ROADMAP A8), so the wrappers refuse inputs
+that require grad on every device, as the reference's `pallas_call` does,
+rather than cut the graph.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ _NUM_COEFFS = {"exp": 2, "expq": 3, "rational": 1}  # poly: any k >= 1
 MAX_COEFFS = 4096  # the coefficients are staged in 48 KB of shared memory
 
 LAUNCHES = 0
+LAUNCHES_BY_TD = {td: 0 for td in kernel.TD_CHOICES}
 
 
 def _check(x, y, v, coeffs, mode: str) -> None:
@@ -51,6 +56,12 @@ def _check(x, y, v, coeffs, mode: str) -> None:
     if (want is not None and k != want) or not 1 <= k <= MAX_COEFFS:
         raise ValueError(f"mode {mode!r} takes {want or '1..4096'} "
                          f"coefficients, got {k}")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, y, v, coeffs)):
+        raise NotImplementedError(
+            "the fdist_matvec kernel has no backward yet: it comes with "
+            "ROADMAP A8. Run under torch.no_grad(), or use "
+            "ftfi.apply(..., backend='torch')")
 
 
 def fdist_matvec_batched(x, y, v, coeffs, mode: str = "poly"):
@@ -69,6 +80,7 @@ def fdist_matvec_batched(x, y, v, coeffs, mode: str = "poly"):
         return torch.zeros((B, a, d), dtype=v.dtype, device=x.device)
     out = kernel.fdist_matvec_batched_cuda(x, y, v, coeffs, mode)
     LAUNCHES += 1
+    LAUNCHES_BY_TD[kernel.tile_width(d)] += 1
     return out
 
 

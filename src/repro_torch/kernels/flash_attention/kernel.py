@@ -2,7 +2,9 @@
 
 The source, `flash_attention.cu`, sits beside this module. At first use the
 port's one nvcc build step (`kernels/_nvcc.py`) compiles it for sm_90a into
-a shared library with a plain C entry point, loaded with ctypes.
+a shared library with a plain C entry point, loaded with ctypes. bf16
+inputs go to its wgmma kernel (tensor cores), float32 inputs to its fp32
+kernel (CUDA cores).
 
 Nothing here runs at import: the CPU tests import this module on machines
 with neither nvcc nor a card. A failed build or a refused launch raises;
@@ -53,9 +55,10 @@ def library() -> ctypes.CDLL:
 def flash_attention_cuda(q, k, v, causal: bool):
     """Launch on CUDA tensors the caller has validated (`ops` does): q
     (B, H, L, hd), k and v (B, KV, L, hd), one dtype (float32 or bfloat16),
-    any strides with a unit last stride, on one card. Returns
-    (B, H, L, hd) in q's dtype and memory layout. Launches on the current
-    stream and does not synchronize."""
+    any strides with a unit last stride (in bf16, 16-byte-aligned rows), on
+    one card. Returns (B, H, L, hd) in q's dtype and memory layout.
+    Launches on the current stream and does not synchronize (the bf16 path
+    encodes its three TMA tensor maps on the host first)."""
     B, H, L, hd = q.shape
     G = H // k.shape[1]
     out = torch.empty_like(q)

@@ -15,6 +15,8 @@ forward).
     kernel launches, and `LAUNCHES_BY_MODE` the causal and the non-causal
     ("full") ones apart. The kernel has no backward yet (ROADMAP A8), so the
     kernel path refuses inputs that require grad rather than cut the graph.
+    Its bf16 path (tensor cores, TMA copies) needs 16-byte-aligned rows: a
+    CUDA view without them is refused, never copied.
 """
 from __future__ import annotations
 
@@ -96,6 +98,13 @@ def _check(q, k, v, kernel_path: bool) -> None:
                          f"{kernel.HD_CHOICES}, got {hd}")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v need a unit stride along head_dim")
+    if q.device.type == "cuda" and q.dtype == torch.bfloat16 and any(
+            t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3])
+            for t in (q, k, v)):
+        raise ValueError(
+            "the bf16 flash attention kernel reads q, k, v through TMA "
+            "tensor maps: each needs a 16-byte-aligned start and strides "
+            "that are multiples of 8 elements (16-byte rows)")
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError(
             "the flash attention kernel has no backward yet: it comes with "

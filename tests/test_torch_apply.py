@@ -192,3 +192,25 @@ def test_no_device_means_the_card_and_never_the_cpu(monkeypatch):
     T.apply(spec, params, TC.Exponential(-0.5), X, backend="cuda",
             device="cpu")
     assert ops.LAUNCHES == before
+
+
+def test_apply_cuda_backend_refuses_fields_that_require_grad():
+    """backend "cuda" has no backward (ROADMAP A8): an X that requires grad
+    is refused, on the CPU as on the card, rather than integrated with its
+    cross-bucket part cut from the graph; under no_grad it runs, and
+    backend "torch" differentiates."""
+    tree = TG.random_tree(120, seed=2)
+    spec, params = T.build(tree, leaf_size=8, device="cpu")
+    fn = TC.Exponential(-0.5)
+    X = torch.tensor(np.random.default_rng(0).normal(size=(120, 3)),
+                     dtype=torch.float32, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A8"):
+        T.apply(spec, params, fn, X, backend="cuda", device="cpu")
+    with torch.no_grad():
+        got = T.apply(spec, params, fn, X, backend="cuda", device="cpu")
+        want = T.apply(spec, params, fn, X, backend="torch", device="cpu")
+    assert _rel(got, want) < 1e-5
+    Y = T.apply(spec, params, fn, X, backend="torch", device="cpu")
+    Y.sum().backward()
+    assert X.grad is not None and bool(torch.isfinite(X.grad).all())
+

@@ -106,6 +106,56 @@ def test_apply_cuda_matches_dense_oracle(fn, cuda_device):
     assert _rel(got, want) < 1e-5
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,a,b,d", [(3, 97, 600, 17), (2, 130, 700, 32),
+                                     (1, 200, 900, 64)])
+@pytest.mark.parametrize("mode,coeffs", MODES)
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16"])
+def test_tile_kernel_matches_plain_version(B, a, b, d, mode, coeffs, vdtype,
+                                           cuda_device):
+    """The register-blocked td = 64 tile (every d > 16) with its source axis
+    split over several blocks: within 3e-6 (fp32 v; 3e-2 bf16) of the plain
+    version and of the exact product, the bounds of test_kernels.py."""
+    from repro_torch.kernels.fdist_matvec import kernel as fdist_kernel
+
+    cfg = fdist_kernel.launch_config(B, a, b, d, fdist_kernel._num_sms(
+        cuda_device))
+    assert cfg["td"] == 64 and cfg["splits"] > 1
+    rng = np.random.default_rng(a + d)
+    x = torch.tensor(rng.uniform(0, 3, (B, a)), dtype=torch.float32,
+                     device=cuda_device)
+    y = torch.tensor(rng.uniform(0, 3, (B, b)), dtype=torch.float32,
+                     device=cuda_device)
+    v = torch.tensor(rng.normal(size=(B, b, d)), dtype=getattr(torch, vdtype),
+                     device=cuda_device)
+    cs = torch.tensor(coeffs, dtype=torch.float32, device=cuda_device)
+    before = ops.LAUNCHES_BY_TD[64]
+    got = ops.fdist_matvec_batched(x, y, v, cs, mode)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES_BY_TD[64] == before + 1
+    assert got.dtype == v.dtype and got.shape == (B, a, d)
+    tol = 3e-6 if vdtype == "float32" else 3e-2
+    assert _rel(got, _exact(x, y, v, cs, mode)) < tol
+    assert _rel(got, fdist_matvec_batched_ref(x, y, v, cs, mode)) < tol
+
+
+@pytest.mark.cuda
+def test_backward_through_apply_cuda_raises(cuda_device):
+    """The kernel has no backward (ROADMAP A8): an X that requires grad is
+    refused on the card, not integrated with its cross part detached."""
+    tree = random_tree(300, seed=4)
+    spec, params = ftfi.build(tree, leaf_size=16)
+    X = torch.tensor(np.random.default_rng(1).normal(size=(300, 4)),
+                     dtype=torch.float32, device=cuda_device,
+                     requires_grad=True)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ftfi.apply(spec, params, C.Exponential(-0.5), X, backend="cuda")
+    with torch.no_grad():
+        got = ftfi.apply(spec, params, C.Exponential(-0.5), X, backend="cuda")
+    want = BTFI(tree).integrate(C.Exponential(-0.5), X.detach())
+    assert _rel(got, want) < 1e-5
+
+
 # --- the topological linear-attention sweep kernel ---------------------------
 
 from repro_torch.kernels.topo_linear_attention import ops as topo_ops  # noqa: E402
@@ -281,6 +331,58 @@ def test_flash_kernel_matches_plain_version(B, H, KV, L, hd, dtype, causal,
         g, w = got.float(), want.float()
         room = ulp * torch.maximum(g.abs(), w.abs()) + 2e-5
         assert bool(((g - w).abs() <= room).all())
+
+
+def _bf16_roundings(got, want):
+    """chip_smoke.py's bf16 gate: at most 1 when got and want are one bf16
+    rounding (2^-7 of the larger magnitude) plus 2e-5 apart."""
+    g, w = got.float(), want.float()
+    return float(((g - w).abs()
+                  / (2.0 ** -7 * torch.maximum(g.abs(), w.abs()) + 2e-5))
+                 .max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,L,hd,peak", [
+    (1, 4, 1, 1000, 64, 4.0), (1, 2, 2, 333, 128, 4.0),
+    (1, 2, 1, 4096, 64, 1.0), (1, 2, 1, 4096, 64, 4.0)])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_bf16_kernel_long_and_peaked(B, H, KV, L, hd, peak, causal,
+                                           cuda_device):
+    """The tensor-core path at L = 4096 and with peaked logits (q x 4): each
+    value within one bf16 rounding + 2e-5 of the plain version, the gate
+    of chip_smoke.py unchanged."""
+    rng = np.random.default_rng(L + hd)
+    q = torch.tensor(rng.normal(size=(B, H, L, hd)) * peak,
+                     dtype=torch.bfloat16, device=cuda_device)
+    k, v = (torch.tensor(rng.normal(size=(B, KV, L, hd)),
+                         dtype=torch.bfloat16, device=cuda_device)
+            for _ in range(2))
+    got = flash_ops.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    plain = flash_ops.flash_attention(q, k, v, causal, use_kernel=False)
+    assert bool(torch.isfinite(got.float()).all())
+    assert _bf16_roundings(got, plain) <= 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["row_stride", "base"])
+def test_flash_bf16_kernel_refuses_unaligned_rows(bad, cuda_device):
+    """The bf16 kernel copies rows in 16-byte pieces: a view whose rows do
+    not start on 16 bytes is refused, not copied; float32 takes it."""
+    if bad == "row_stride":  # rows 68 elements apart
+        q = torch.zeros(1, 2, 32, 68, dtype=torch.bfloat16,
+                        device=cuda_device)[..., :64]
+    else:  # a base 2 bytes past an aligned one
+        q = torch.zeros(2 * 32 * 64 + 1, dtype=torch.bfloat16,
+                        device=cuda_device)[1:].view(1, 2, 32, 64)
+    k = v = torch.zeros(1, 1, 32, 64, dtype=torch.bfloat16,
+                        device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_ops.flash_attention(q, k, v)
+    out = flash_ops.flash_attention(q.float(), k.float(), v.float())
+    torch.cuda.synchronize()
+    assert bool((out == 0).all())
 
 
 @pytest.mark.cuda

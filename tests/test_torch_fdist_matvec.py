@@ -123,14 +123,61 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         ops.fdist_matvec_batched(x, y, v, cs, mode)
 
 
+@pytest.mark.parametrize("which", ["x", "y", "v", "coeffs"])
+def test_wrapper_refuses_inputs_that_require_grad(which):
+    """The kernel has no backward (ROADMAP A8): the wrapper refuses on every
+    device rather than return a result cut from the graph, as the
+    reference's pallas_call raises under jax.grad."""
+    x, y, v, cs = _ok_args()
+    args = {"x": x, "y": y, "v": v, "coeffs": cs}
+    args[which].requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="A8"):
+        ops.fdist_matvec_batched(args["x"], args["y"], args["v"],
+                                 args["coeffs"], "exp")
+    with pytest.raises(NotImplementedError, match="A8"):
+        ops.fdist_matvec(args["x"][0], args["y"][0], args["v"][0],
+                         args["coeffs"], "exp")
+    with torch.no_grad():
+        got = ops.fdist_matvec_batched(args["x"], args["y"], args["v"],
+                                       args["coeffs"], "exp")
+    assert torch.equal(got, fdist_matvec_batched_ref(x.detach(), y.detach(),
+                                                     v.detach(), cs.detach(),
+                                                     "exp"))
+
+
+def _coverage(B, a, b, d, cfg):
+    """How many (block, split) pairs of the grid visit each (job, row,
+    source, column), from the kernels' own index arithmetic."""
+    count = np.zeros((B, a, b, d), np.int32)
+    for x in range(B * cfg["row_tiles"]):
+        job, i0 = x // cfg["row_tiles"], (x % cfg["row_tiles"]) * cfg["rows"]
+        for y in range(cfg["d_tiles"]):
+            c0 = y * cfg["td"]
+            for z in range(cfg["splits"]):
+                j0 = z * cfg["j_per_split"]
+                count[job, i0:min(a, i0 + cfg["rows"]),
+                      j0:min(b, j0 + cfg["j_per_split"]),
+                      c0:min(d, c0 + cfg["td"])] += 1
+    return count
+
+
 @pytest.mark.parametrize("B,a,b,d", [
     (1, 1, 1, 1), (2, 5000, 5000, 4), (300, 3, 4, 4), (7, 130, 1000, 64),
-    (1, 4096, 4096, 65), (5, 31, 129, 16), (1, 100, 64, 8)])
+    (1, 4096, 4096, 65), (5, 31, 129, 16), (1, 100, 64, 8),
+    (2, 5000, 5000, 64), (3, 97, 33, 17), (3, 64, 257, 32),
+    (1, 700, 900, 130), (40, 33, 2, 64), (1, 100, 2000, 20)])
 def test_launch_config_covers_every_index(B, a, b, d):
     cfg = kernel.launch_config(B, a, b, d, num_sms=132)
     assert cfg["threads"] % 32 == 0 and cfg["threads"] <= kernel.MAX_THREADS
-    assert cfg["row_tiles"] * cfg["threads"] >= a
-    assert (cfg["row_tiles"] - 1) * cfg["threads"] < a
+    assert cfg["td"] == kernel.tile_width(d)
+    if cfg["td"] == 64:  # the register-blocked tile, 8 x 4 outputs a thread
+        assert (cfg["rows"], cfg["threads"]) == (kernel.TILE_ROWS,
+                                                 kernel.TILE_THREADS)
+        assert cfg["rows"] * 64 == 32 * cfg["threads"]
+    else:  # one thread a row
+        assert cfg["rows"] == cfg["threads"]
+    assert cfg["row_tiles"] * cfg["rows"] >= a
+    assert (cfg["row_tiles"] - 1) * cfg["rows"] < a
     assert cfg["td"] in kernel.TD_CHOICES and cfg["td"] * cfg["d_tiles"] >= d
     assert (cfg["d_tiles"] - 1) * cfg["td"] < d
     assert cfg["j_per_split"] % kernel.TB == 0
@@ -140,6 +187,8 @@ def test_launch_config_covers_every_index(B, a, b, d):
     if cfg["splits"] > 1:  # splitting only where the grid leaves SMs idle
         base = B * cfg["row_tiles"] * cfg["d_tiles"]
         assert base < kernel.BLOCKS_PER_SM * 132
+    if B * a * b * d <= 5e6:  # every (row, source) pair in one (block, split)
+        assert (_coverage(B, a, b, d, cfg) == 1).all()
 
 
 def _tries(path: Path) -> list:
@@ -167,3 +216,7 @@ def test_kernel_source_names_the_tpu_kernel_and_its_bound():
     assert "src/repro/kernels/fdist_matvec/kernel.py" in src
     assert "Bound on an H100" in src
     assert 'extern "C" int fdist_matvec_launch' in src
+    # the td = 64 redesign: a register-blocked tile with M built once per
+    # block; td = 4 and 16 keep one thread a row
+    assert "fdist_tile_kernel" in src and "register-blocked" in src
+    assert "constexpr int BI = 64;" in src and kernel.TILE_ROWS == 64

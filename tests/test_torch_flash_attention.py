@@ -212,6 +212,89 @@ def test_model_kernel_path_refuses_window_and_softcap():
         TA._attend(cfg.replace(attn_impl="pallas"), q, k, k, True, 0)
 
 
+def _bf16_roundings(got, want):
+    """chip_smoke.py's bf16 gate: max |got - want| over one bf16 rounding of
+    the larger magnitude (2^-7 of it) plus the float32 bound; at most 1."""
+    got, want = got.float(), want.float()
+    room = 2.0 ** -7 * torch.maximum(got.abs(), want.abs()) + TOL
+    return float(((got - want).abs() / room).max())
+
+
+def _wgmma_bf16_emulation(q, k, v, causal, split_p=True):
+    """The bf16 kernel's arithmetic (flash_attention.cu, flash_wgmma_kernel)
+    in PyTorch on the CPU: per 64-key tile, S = q k^T summed in fp32 by
+    16-deep steps, times scale * log2(e) in fp32; the online softmax in
+    fp32 with exp2 (running max, correction, l the fp32 sum of the fp32
+    P); P split into bf16 hi + lo (or rounded once, split_p=False), each
+    times the bf16 v with fp32 sums; the output rounded to bf16."""
+    B, H, L, hd = q.shape
+    G = H // k.shape[1]
+    qf = q.float()
+    kf = k.repeat_interleave(G, 1).float()
+    vf = v.repeat_interleave(G, 1).float()
+    scale_log2 = torch.tensor(1.0 / np.sqrt(hd), dtype=torch.float32) * \
+        torch.tensor(np.log2(np.e), dtype=torch.float32)
+    m = torch.full((B, H, L), -1e30)
+    l = torch.zeros((B, H, L))
+    o = torch.zeros((B, H, L, hd))
+    rows = torch.arange(L)
+    for k0 in range(0, L, 64):
+        kt, vt = kf[:, :, k0:k0 + 64], vf[:, :, k0:k0 + 64]
+        s = torch.zeros((B, H, L, kt.shape[2]))
+        for d0 in range(0, hd, 16):
+            s = s + qf[..., d0:d0 + 16] @ kt[..., d0:d0 + 16].transpose(-1, -2)
+        s = s * scale_log2
+        if causal:
+            keys = k0 + torch.arange(kt.shape[2])
+            s = torch.where(keys[None, :] > rows[:, None], -1e30, s)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        hi = p.to(torch.bfloat16).float()
+        pv = hi @ vt
+        if split_p:
+            pv = pv + (p - hi).to(torch.bfloat16).float() @ vt
+        o = o * corr[..., None] + pv
+        m = m_new
+    l = torch.where(l == 0.0, 1.0, l)
+    return (o / l[..., None]).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("peak", [1.0, 4.0], ids=["normal", "peaked"])
+@pytest.mark.parametrize("B,H,KV,L,hd", [
+    (1, 4, 1, 100, 16),    # GQA, L not a multiple of the 64-key tile
+    (2, 2, 2, 37, 64),     # ragged, one partial tile
+    (1, 2, 2, 128, 32),
+    (1, 2, 1, 200, 64)])   # GQA, ragged, four tiles
+def test_bf16_tensor_core_arithmetic_keeps_the_bf16_gate(causal, peak, B, H,
+                                                         KV, L, hd):
+    """The design of the bf16 kernel, emulated on the CPU, stays within one
+    bf16 rounding (+ 2e-5) of the plain version, peaked logits (q x 4)
+    included: the numerics are settled before the card sees them."""
+    q, k, v = _qkv(np.random.default_rng(L + hd), B, H, KV, L, hd)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in (q * peak, k,
+                                                                 v))
+    got = _wgmma_bf16_emulation(q, k, v, causal)
+    want = ops.flash_attention(q, k, v, causal, use_kernel=False)
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert _bf16_roundings(got, want) <= 1.0
+
+
+def test_one_bf16_rounding_of_p_would_break_the_gate():
+    """Why the kernel splits P: rounded once to bf16 before P v, the same
+    emulation lands many bf16 roundings from the plain version."""
+    q, k, v = _qkv(np.random.default_rng(5), 1, 2, 1, 200, 64)
+    q, k, v = (torch.from_numpy(a).to(torch.bfloat16) for a in (q * 4.0, k,
+                                                                 v))
+    want = ops.flash_attention(q, k, v, True, use_kernel=False)
+    split = _bf16_roundings(_wgmma_bf16_emulation(q, k, v, True), want)
+    single = _bf16_roundings(
+        _wgmma_bf16_emulation(q, k, v, True, split_p=False), want)
+    assert split <= 1.0 < 4.0 < single
+
+
 def test_flash_kernel_source_names_the_tpu_kernel_and_its_bound():
     src = kernel.SOURCE.read_text()
     assert "flash_attention_pallas" in src
@@ -219,3 +302,11 @@ def test_flash_kernel_source_names_the_tpu_kernel_and_its_bound():
     assert "Bound on an H100" in src
     assert 'extern "C" int flash_attention_launch' in src
     assert kernel.SOURCE.parent == PKG / "kernels" / "flash_attention"
+    # the bf16 path: tensor cores through wgmma, P split in two, a ring of
+    # TMA stages on mbarriers; its bound and the fp32 one
+    note = src[:src.index("#include")]
+    for word in ("wgmma", "P_hi", "P_lo", "mbarrier", "TMA",
+                 "0.278 ms", "4.104 ms"):
+        assert word in note, word
+    assert "later PR" not in note
+    assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src
