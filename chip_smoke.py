@@ -9,8 +9,9 @@ sm_90a) and nvcc:
 It builds the port's five CUDA kernels (fdist_matvec, the topological
 linear-attention sweep, flash attention, causal linear attention and the
 selective scan) from the repository's sources, in parallel, checks that
-the flash attention library's bf16 kernel runs on the tensor cores (HGMMA
-instructions in its SASS, `cuobjdump -sass`), and drives four paths.
+the flash attention library's bf16 kernel and the topo sweep library run
+on the tensor cores (HGMMA and HMMA instructions in their SASS,
+`cuobjdump -sass`), and drives four paths.
 
 FTFI: it holds the fdist_matvec kernel against its plain PyTorch version
 on the card, drives `ftfi.build` (graph -> MST -> IT plan on the host) and
@@ -28,7 +29,8 @@ into the cache, then 32 greedy decode steps at per-slot positions) of the
 full-width Llama-3.2-1B with the paper's topological attention at mask
 degree 1 (decay mode) and 2 (rank mode), with `topo_attn_impl="cuda"`
 held against `"torch"` in float32; then times prefill, decode and the
-kernel in bf16 and traces one prefill.
+kernel in bf16 (beside two bounds: fp32 outside the tensor cores, and the
+3xTF32 products on them) and traces one prefill.
 
 Dense LM: it holds the flash attention kernel (causal and not, f32 and
 bf16, the served shape and a ragged L, and bf16 with peaked logits, q x 4)
@@ -80,6 +82,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense, in the tensor cores
+TF32_FLOPS_PER_S = 495e12  # dense, in the tensor cores; 3xTF32 takes three
 # exp2 results a clock on one SM's special function units (4 quadrants of
 # 4, sm_90: CUDA C++ Programming Guide, arithmetic instruction throughput)
 SFU_PER_CLOCK_PER_SM = 16
@@ -239,23 +242,24 @@ def phase_build():
     print(f"[build] {len(mods)} kernels in parallel, {wall:.1f} s wall",
           flush=True)
     out["wall_seconds"] = wall
-    # the bf16 flash kernel must run on the tensor cores: wgmma is HGMMA in
-    # the SASS
+    # the bf16 flash kernel (wgmma: HGMMA in the SASS) and the topo sweep's
+    # tensor-core kernel (mma.sync: HMMA) must run on the tensor cores
     from repro_torch.kernels import _nvcc
 
     cuobjdump = Path(_nvcc.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(ROOT / out["flash_attention"]["library"])],
-                          capture_output=True, text=True, check=True,
-                          timeout=300).stdout
-    hgmma = len(re.findall(r"\bHGMMA\.", sass))
-    out["flash_attention"]["hgmma_instructions"] = hgmma
-    print(f"[build flash_attention] {hgmma} HGMMA instructions in the SASS "
-          "(cuobjdump -sass)", flush=True)
-    if hgmma == 0:
-        raise AssertionError("the flash attention library has no HGMMA "
-                             "instruction: its bf16 kernel is off the tensor "
-                             "cores")
+    for name, op in (("flash_attention", "HGMMA"), ("topo_sweep", "HMMA")):
+        sass = subprocess.run([str(cuobjdump), "-sass",
+                               str(ROOT / out[name]["library"])],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        count = len(re.findall(rf"\b{op}\.", sass))
+        out[name][f"{op.lower()}_instructions"] = count
+        print(f"[build {name}] {count} {op} instructions in the SASS "
+              "(cuobjdump -sass)", flush=True)
+        if count == 0:
+            raise AssertionError(f"the {name} library has no {op} "
+                                 "instruction: its kernel is off the tensor "
+                                 "cores")
     return out
 
 
@@ -980,8 +984,11 @@ def phase_calls_profile(label, fn, calls=1):
 
 def phase_topo_times(served, card, device):
     """5b: the sweep kernel's device time per launch at the served shape,
-    for each mode, beside its bound and its plain version's time; the
-    dense oracle at L = 1024 for scale."""
+    for each mode, beside two bounds and its plain version's time; the
+    dense oracle at L = 1024 for scale. The bounds: the work's bytes over
+    HBM against its operations at fp32 outside the tensor cores (what a
+    kernel of fp32 FMAs could reach), and against three TF32 products per
+    fp32 product on the tensor cores (the 3xTF32 kernel's own bound)."""
     import torch
     from repro_torch.kernels.topo_linear_attention import ops
     from repro_torch.kernels.topo_linear_attention.ref import (
@@ -998,14 +1005,18 @@ def phase_topo_times(served, card, device):
             qp, kp, vp, dmat, mode.get("log_gamma"), mode.get("alpha"),
             mode.get("beta")), None, None, True, 1e-6), reps)
         nbytes, ops_ = topo_work(B, H, L, m, hd, C, R)
-        b_ms, b_by = bound(nbytes, ops_)
+        b_ms, b_by = bound(nbytes, ops_, TF32_FLOPS_PER_S / 3)
+        f_ms, f_by = bound(nbytes, ops_)
         name = "decay" if R == 0 else f"rank{R}"
         out[degree] = {"mode": name, "shape": shape, "C": C, "R": R,
                        "ms": k_ms, "plain_ms": p_ms, "bytes": nbytes,
-                       "ops": ops_, "bound_ms": b_ms, "bound_by": b_by}
+                       "ops": ops_, "bound_ms": b_ms, "bound_by": b_by,
+                       "bound_fp32_ms": f_ms, "bound_fp32_by": f_by}
         print(f"[topo times {name}] B={B} H={H} L={L} m={m} hd={hd} C={C}: "
               f"kernel {k_ms:.3f} ms/launch, plain {p_ms:.3f} ms, bound "
-              f"{b_ms:.3f} ms ({b_by}), library none | {card}", flush=True)
+              f"3xTF32 {b_ms:.3f} ms ({b_by}; {b_ms / k_ms:.0%} of it "
+              f"reached), bound fp32 FMA {f_ms:.3f} ms ({f_by}), library "
+              f"none | {card}", flush=True)
     rng = np.random.default_rng(3)
     B, H, _, m, hd = TOPO["sweep_shapes"][0]
     L = 1024
@@ -1544,10 +1555,11 @@ def run(cfg, device, out_path=None) -> dict:
             "max_abs_err": max(errs),
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "bound_fp32_ms": t["bound_fp32_ms"], "library_ms": None,
             "at": (f"one causal launch, B={B} H={H} L={L} m={m} hd={hd} "
                    f"C={t['C']}: one layer of the {TOPO['arch']} topo "
-                   f"prefill at degree {degree}"),
+                   f"prefill at degree {degree}; bound_ms: 3xTF32 on the "
+                   "tensor cores, bound_fp32_ms: fp32 outside them"),
         })
     del served
 

@@ -30,24 +30,37 @@
 //
 // Design. The TPU grid (Bt, din / blk_d, L / chunk) walks L in order with
 // the (blk_d, N) state in VMEM. Here one thread owns one (b, d) with its
-// h[N] and A[d, :] in registers (N a template parameter: 4, 8 or 16), a
-// block 128 channels of one batch row, and a loop over L inside the block
-// takes the place of the sequential grid axis. The block walks L in
+// h[N] and A[d, :] log2(e) in registers (N a template parameter: 4, 8 or
+// 16), a block 128 channels of one batch row, and a loop over L inside the
+// block takes the place of the sequential grid axis. The block walks L in
 // chunks of TL = 16 steps: u and dt are read coalesced (neighbouring
 // threads read neighbouring d) into registers one chunk ahead, and B_t,
 // C_t (TL x N) are staged in a double-buffered shared-memory tile, read as
-// broadcasts; the next chunk's loads are in flight while this chunk
+// float4 broadcasts; the next chunk's loads are in flight while this chunk
 // computes. A tail past L reads u = dt = B = C = 0: exp(0) = 1 and the
 // state passes through it unchanged, as the model's dt = 0 padding does.
-// Threads past din compute on a clamped channel and store nothing. The
-// exponential is expf (not __expf), so the fp32 bound holds over thousands
-// of steps.
+// Threads past din compute on a clamped channel and store nothing.
 //
-// At the served shape this is 4 x 8192 = 32,768 threads, 256 blocks, about
-// 8 warps an SM: low occupancy, so the kernel runs at the latency of its
-// own arithmetic rather than at the SFU bound. Splitting N over lanes and
-// packing several channels into a warp's shuffles (more threads in
-// flight, the y sum by shuffles) is a later PR's work.
+// The arithmetic of one step, per state: dA = 2^(dt a2 + 1) / 2 with
+// a2 = A log2(e) (one FFMA, one MUFU.EX2, one FMUL), h = fma(du, B, dA h),
+// and y = C . h summed over n in order, plus D u. chip_scan_variants.py
+// measures the alternatives at the served shape (an H100 80GB HBM3 at
+// 700 W, bf16 inputs): expf, about eight instructions around the same
+// MUFU.EX2, sets the launch's time with one thread a channel (1.52-1.54 ms
+// against 1.06 ms for this exp); MUFU.EX2 of dt a2 unshifted is biased
+// low where its result lies in [0.5, 1), where every decay lies, and the
+// recurrence integrates that to 2.2e-5 from the sequential oracle at the
+// card tests' shapes (bound 2e-5; 4.8e-6 for this exp, whose result lies in
+// [1, 2), and 5.7e-6 for expf). N split over 4 lanes a channel (4x the
+// warps an SM, y summed by shuffles) was slower at every exp.
+//
+// The served float32 gate of chip_smoke.py phase 4d (64 layers, cache
+// <= 1e-5 against the plain chunked scan) reads within 10% of its limit
+// with any accurate arithmetic: the kernel and the plain scan each sit
+// about 1e-6 (h, relative to its max) from a float64 scan of the model's
+// own inputs, and depth amplifies their difference. With this exp, the
+// fma order fma(du, B, dA h) reads 9.61e-6 there and fma(dA, h, du B)
+// 1.05e-5, the two equally close to float64; the kernel takes the first.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,11 +69,27 @@ namespace {
 
 constexpr int THREADS = 128;  // channels of one batch row a block owns
 constexpr int TL = 16;        // time steps staged at once
+constexpr float LOG2E = 1.4426950408889634f;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+// 2^x by one MUFU.EX2 (ex2.approx.ftz.f32)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// exp(dt A) from a2 = A log2(e): 2^(dt a2 + 1) / 2, the shift by one in
+// the same FFMA as the product. MUFU.EX2 returns values slightly low where
+// its result lies in [0.5, 1), which is where every decay of the scan lies;
+// shifted by one it works in [1, 2).
+__device__ __forceinline__ float decay(float dt, float a2) {
+  return 0.5f * ex2(fmaf(dt, a2, 1.0f));
+}
+
 template <typename T>
 __device__ __forceinline__ T zero();
 template <>
@@ -84,8 +113,8 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
             const float* __restrict__ h0, float* __restrict__ y,
             float* __restrict__ h_final, Strides st, int L, int din) {
   constexpr int PER = (TL * N + THREADS - 1) / THREADS;  // B/C loads a thread
-  __shared__ float bs[2][TL][N];
-  __shared__ float cs[2][TL][N];
+  __shared__ __align__(16) float bs[2][TL][N];
+  __shared__ __align__(16) float cs[2][TL][N];
 
   const int tid = threadIdx.x;
   const int d = blockIdx.x * THREADS + tid;
@@ -96,7 +125,7 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   float a[N], h[N];
 #pragma unroll
   for (int n = 0; n < N; ++n) {
-    a[n] = A[(long long)dd * N + n];
+    a[n] = A[(long long)dd * N + n] * LOG2E;
     h[n] = h0 != nullptr ? h0[((long long)b * din + dd) * N + n] : 0.f;
   }
   const float Dd = D[dd];
@@ -153,10 +182,18 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
       const float du = dtv * uv;
       float acc = 0.f;
 #pragma unroll
-      for (int n = 0; n < N; ++n) {
-        const float dA = expf(dtv * a[n]);
-        h[n] = dA * h[n] + du * bs[buf][j][n];
-        acc += h[n] * cs[buf][j][n];
+      for (int n4 = 0; n4 < N; n4 += 4) {  // B_t, C_t: float4 broadcasts
+        const float4 b4 = *reinterpret_cast<const float4*>(&bs[buf][j][n4]);
+        const float4 c4 = *reinterpret_cast<const float4*>(&cs[buf][j][n4]);
+        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+        const float cv[4] = {c4.x, c4.y, c4.z, c4.w};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int n = n4 + i;
+          const float dA = decay(dtv, a[n]);
+          h[n] = fmaf(du, bv[i], dA * h[n]);  // the order phase 4d holds
+          acc += h[n] * cv[i];
+        }
       }
       if (live && t0 + j < L) yg[(long long)(t0 + j) * din] = acc + uv * Dd;
     }

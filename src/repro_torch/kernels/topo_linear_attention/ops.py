@@ -245,7 +245,9 @@ def topo_attention_sweep(qf, kf, v, dmat, *, log_gamma=None, alpha=None,
                          normalize: bool = True, eps: float = 1e-6):
     """One fused causal sweep (the counterpart of
     `topo_attention_sweep_pallas`). qf/kf: (B, H, L, m); v: (B, H, L, hd);
-    dmat: (H, C, C) exact within-chunk mask tile; `log_gamma` (H,) [decay
+    dmat: (H, C, C) exact within-chunk mask tile, which vanishes above its
+    diagonal (the causal tile `_prepare` makes; the kernel reads only the
+    tiles on and below it); `log_gamma` (H,) [decay
     mode] XOR `alpha`+`beta` (H, L, R) [rank mode]; optional res_num
     (B, H, L, hd) / res_den (B, H, L) added before normalization. All
     float32 and contiguous; L a multiple of C.

@@ -14,68 +14,86 @@
 //          table (L x R), written through the beta table.
 // Then out = (num + res_num) / where(|den + res_den| < eps, eps, ...), or
 // the unnormalized (num, den) pair (the first sweep of a bidirectional
-// pair). Everything is fp32, as the reference kernel is.
+// pair). Inputs and outputs are fp32, as the reference kernel's are.
 //
 // Replaces the TPU kernel `topo_attention_sweep_pallas` in
 // src/repro/kernels/topo_linear_attention/kernel.py (bodies _decay_kernel,
 // _rank_kernel, _emit).
 //
 // Bound on an H100, reckoned from the code (not measured) for the served
-// shape B = 4, H = 32, L = 4096, m = hd = 64, C = 128, one causal launch:
-// per (b, h, chunk) q k^T and P v over the full C x C tile are
-// 2*C*C*m + 2*C*C*hd = 4.2 M fp32 operations; decay mode adds 2*C*m*hd for
-// the read and again for the write (6.3 M in all, 25.8 GFLOP, 0.39 ms at
-// 67 TFLOP/s outside the tensor cores), rank mode with R = 16 adds
-// 2*C*R*m*hd twice (38 M, 155 GFLOP, 2.3 ms). The bytes (q, k, v, out,
-// 537 MB) take 0.16 ms at 3.35 TB/s, so both modes are bound by operations.
-// The causal mask needs only the lower half of the tile; chip_smoke.py's
-// bound counts that half (0.26 ms decay, 2.2 ms rank), this kernel computes
-// the whole tile.
+// shape B = 4, H = 32, L = 4096, m = hd = 64, C = 128, one causal launch,
+// counting the causal half of q k^T and P v (chip_smoke.py's topo_work):
+// decay mode 17.5 GFLOP, rank mode (R = 16) 148 GFLOP; 0.54-0.56 GB of
+// q, k, v, the tables and the output (0.161 / 0.166 ms at 3.35 TB/s). At
+// 67 TFLOP/s of fp32 outside the tensor cores that is 0.261 / 2.215 ms,
+// bound by operations. This kernel runs the products on the tensor cores
+// as 3xTF32 (three TF32 products per fp32 product, 495 TFLOP/s): 0.161 ms
+// in decay mode, bound by bytes, and 0.899 ms in rank mode, bound by
+// operations.
 //
-// Design. The Pallas grid is (B, H, chunks) with the chunk axis sequential
-// and the state in VMEM. Here one block owns one (b, h, tile of TD columns
-// of hd) and loops over the chunks itself, with the state in shared memory.
-// The state's columns and num split cleanly over hd tiles; P and den do not
-// depend on hd, so each tile block recomputes them (one block writes den).
-// Rank mode's full state at R = 16, m = hd = 64 is 256 KiB, above the 227 KB
-// a block may have, so TD = 16 there (64 KiB of state, 226 KB in all); decay
-// mode takes TD = 64 and one tile. Per chunk:
-//   1. stage q and k transposed (m x C, rows padded to C + 1 floats), the v
-//      tile and the alpha/beta rows in shared memory;
-//   2. P: a 16 x 16 thread grid, 8 x 8 outputs a thread, stored transposed;
-//   3. num/den from P, then the read of the state as it stood before this
-//      chunk (the order of the reference, kernel.py:91-97 and :123-128); in
-//      rank mode the read is split over 4 groups of R/4 moments, 8 x 4
-//      outputs a thread, and the groups' partials summed through the room
-//      of P;
-//   4. emit;
-//   5. update the state: each thread owns up to 8 rows x 8 columns of it
-//      (in the served rank mode one mm and 8 consecutive moments).
-// The state and v rows are read as 16-byte loads, which the whole warp
-// shares. The block runs 8 warps on an SM (its shared memory allows one
-// block), so the phases are bound by shared-memory loads and latency, not
-// by the FMA rate. No tensor cores: TF32 would miss the 1e-4 bound against
-// the plain version; wgmma and TMA are left for a later PR.
+// One kernel, topo_sweep_tc_kernel, takes every shape with C <= 128,
+// m <= 64 and (rank mode) R <= 16, which includes every served one; kernel.py
+// refuses the rest, and rows that are not 16-byte aligned, with a ValueError.
+// A C that is not a multiple of 8 and an m or hd that is not a multiple of 4
+// are zero-filled in shared memory: the staged k, v and beta rows past C and
+// columns past m or the hd tile stay 0, so the mma tiles that cover them add
+// nothing.
+// Route: mma.sync m16n8k8 with tf32 inputs and fp32 sums, not wgmma. The
+// accumulator of q k^T becomes the A operand of P v in registers (the keys
+// 2t, 2t + 1 of a lane are its k-indices t, t + 4, and v's rows are read in
+// that order), and every operand is split into tf32 hi + lo in registers as
+// it is loaded; with wgmma (whose tf32 operands must both be K-major in
+// shared memory) P, v and the state would be staged twice more, hi and lo,
+// in a block whose shared memory rank mode already fills.
+//   * 3xTF32. Each fp32 operand x is split into x_hi = rna_tf32(x) (the
+//     rounding done on the bits) and x_lo = x - x_hi (exact; the tensor
+//     cores read its top 19 bits, so it is truncated to tf32 there), and
+//     each product is a_lo b_hi + a_hi b_lo + a_hi b_hi in fp32, about
+//     2^-20 relative: one TF32 pass misses the 1e-4 bound against the plain
+//     version (tests/test_torch_topo_attention.py emulates both).
+//   * One block owns one (b, h, tile of TD columns of hd) and loops over
+//     the chunks; warp w owns rows 16w .. 16w + 15 of a chunk. Per chunk:
+//     1. q k^T by 8-key tiles up to the diagonal only (the tiles above it
+//        are not computed: dmat vanishes there), times dmat; its row sums;
+//        P v. P never leaves the warp's registers.
+//     2. The write: dS = (beta * k)^T v and dz = k^T beta into fresh
+//        accumulators (warp w: one n-tile of the hd tile, the moments
+//        w / (TD / 8) + (8 / (TD / 8)) i, every m-tile). z is kept as an
+//        (m x R) matrix k^T beta, so the den comes from products too (q z
+//        per moment, then alpha).
+//     3. The read of the state as it stood before the chunk, from its
+//        split copy (hi and lo) in shared memory: num += sum_r alpha_r
+//        (q S_r), den += sum_r alpha_r (q z_r).
+//     4. Emit; 5. S <- gC S + dS, z <- gC z + dz in fp32, from and into the
+//        state's split copy, kept in the order of the B fragments of step 3
+//        (one 16-byte load a fragment, hi and lo; hi + lo is S exactly).
+//        The tensor cores round each mma's fp32 sum toward zero, so no sum
+//        stays in their accumulators longer than one chunk: a state
+//        accumulated there over the whole sequence read 1.32e-5 in the
+//        cache of chip_smoke.py's float32 gate at degree 1 (limit 1e-5; an
+//        H100 80GB HBM3 at 700 W), and the CPU emulation shows the drift
+//        growing with L.
+//   * Copies overlap compute: the k, v, alpha and beta rows are staged with
+//     cp.async, a whole chunk ahead into a second buffer where shared memory
+//     allows (decay mode), else into the single buffer as soon as step 2
+//     is done with it, in flight during steps 3-5 (rank mode); each warp
+//     loads its q rows of the next chunk into registers (fp32, split at each
+//     use) after step 3, in flight during steps 4-5.
+//   * Decay mode keeps the sequential loop over chunks: TD = 64, one block
+//     per (b, h), 128 blocks of 8 warps on the 132 SMs, each with 8 to 32
+//     independent accumulators a warp in flight, so every SM but four has a
+//     tensor pipe fed by 8 warps; a chunk-parallel form would add a second
+//     pass and 64 MB of scratch for what the idle four SMs leave.
+//   * Rank mode: the state (R*m x hd = 1024 x 64 at the served shape) is
+//     too large for one block's registers and shared memory, so TD = 16,
+//     four blocks per (b, h), 64 fp32 state registers a thread and 128 KiB
+//     of its split copy; each of the four recomputes q k^T (432 of its 5,072
+//     m16n8k8 steps a chunk, 8.5%).
 
+#include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int THREADS = 256;
-
-// 8 consecutive floats from shared memory, 32-byte aligned, as two 16-byte
-// loads (a broadcast when the whole warp reads the same row)
-__device__ __forceinline__ void load8(const float* p, float (&o)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-  o[4] = b.x; o[5] = b.y; o[6] = b.z; o[7] = b.w;
-}
-
-__device__ __forceinline__ void store8(float* p, const float (&o)[8]) {
-  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-  *reinterpret_cast<float4*>(p + 4) = make_float4(o[4], o[5], o[6], o[7]);
-}
 
 struct SweepArgs {
   const float* q;        // (B, H, L, m)
@@ -94,384 +112,562 @@ struct SweepArgs {
   int normalize;
 };
 
-// TD: columns of hd per block, 16, 32 or 64. Output tile (C x TD): thread
-// (rg, cg) owns rows rg + NRG * x (x < TD / 16) and columns cg*8 .. cg*8+7.
+constexpr int THREADS = 256;  // 8 warps; warp w owns rows 16w .. 16w + 15
+
+// the A fragment of one m16n8k8 step, each value split into tf32 hi + lo
+struct Frag {
+  uint32_t hi[4], lo[4];
+};
+// the B fragment, split: (b0, b1) hi and lo
+struct BFrag {
+  uint32_t h0, h1, l0, l1;
+};
+
+// x rounded to tf32 (10 explicit mantissa bits), to nearest with ties away
+// from zero: cvt.rna.tf32.f32, done on the bits
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = hi + lo: hi = tf32(x), lo = x - hi exactly (fp32). lo is handed to
+// the tensor cores as it is, and they read a tf32 operand's top 19 bits:
+// lo truncated, x = hi + lo_tf32 + O(2^-21 |x|)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32(x);
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ BFrag bsplit(float x0, float x1) {
+  BFrag f;
+  split(x0, f.h0, f.l0);
+  split(x1, f.h1, f.l1);
+  return f;
+}
+
+__device__ __forceinline__ Frag fsplit(float a0, float a1, float a2,
+                                       float a3) {
+  Frag f;
+  split(a0, f.hi[0], f.lo[0]);
+  split(a1, f.hi[1], f.lo[1]);
+  split(a2, f.hi[2], f.lo[2]);
+  split(a3, f.hi[3], f.lo[3]);
+  return f;
+}
+
+// d += a b on the tensor cores: one m16n8k8 product of tf32 values, fp32 sums
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: d += a_lo b_hi + a_hi b_lo + a_hi b_hi, the small terms first.
+// Pass p of it; the loops below run pass 0 over every accumulator of a step,
+// then pass 1, then pass 2, so that dependent products lie far apart
+__device__ __forceinline__ void mma_pass(int p, float (&d)[4], const Frag& a,
+                                         const BFrag& b) {
+  if (p == 0) mma(d, a.lo, b.h0, b.h1);
+  else if (p == 1) mma(d, a.hi, b.l0, b.l1);
+  else mma(d, a.hi, b.h0, b.h1);
+}
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag& a,
+                                     const BFrag& b) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p) mma_pass(p, d, a, b);
+}
+
+// The split state is kept in the order of the B fragments that read it: an
+// 8 x 8 block (k-step, n-tile) of a matrix is 32 float4s, lane (g, t)'s
+// (hi(b0), hi(b1), lo(b0), lo(b1)) with b0 at (row t, column g) and b1 at
+// (row t + 4, column g), so that each read is one conflict-free 16-byte
+// load. The B fragment of block `blk` for this lane:
+__device__ __forceinline__ BFrag frag_load(const float* f, int blk, int lane) {
+  const float4 v = *reinterpret_cast<const float4*>(f + (blk * 32 + lane) * 4);
+  return BFrag{__float_as_uint(v.x), __float_as_uint(v.y), __float_as_uint(v.z),
+               __float_as_uint(v.w)};
+}
+
+// The element at (row r8, column c8) of block `blk`: its hi at e, its lo at
+// e + 2. lo = x - hi is stored in full (the tensor cores truncate it as they
+// read it), so hi + lo is x exactly.
+__device__ __forceinline__ int frag_at(int blk, int r8, int c8) {
+  return (blk * 32 + 4 * c8 + (r8 & 3)) * 4 + (r8 >> 2);
+}
+
+// x <- g x + d at that element, in fp32 (one rounding), and split again
+__device__ __forceinline__ void frag_update(float* f, int blk, int r8, int c8,
+                                            float g, float d) {
+  const int e = frag_at(blk, r8, c8);
+  uint32_t hi, lo;
+  split(fmaf(g, f[e] + f[e + 2], d), hi, lo);
+  f[e] = __uint_as_float(hi);
+  f[e + 2] = __uint_as_float(lo);
+}
+
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// TD: columns of hd per block, 16 (rank mode, R <= 16) or 64 (decay mode).
+// nbuf: 1 or 2 staging buffers for the k, v and beta rows (kernel.py picks
+// 2 where they fit in shared memory). Requires C <= 128, m <= 64, R <= 16,
+// 16-byte aligned q, k, v and res_num, and a dmat that vanishes above its
+// diagonal (only its lower tiles are read).
 template <int TD>
 __global__ void __launch_bounds__(THREADS, 1)
-topo_sweep_kernel(const SweepArgs a) {
-  constexpr int NCG = TD / 8;          // column groups of 8
-  constexpr int NRG = THREADS / NCG;   // row groups
-  constexpr int RPT = TD / 16;         // output rows per thread (128 / NRG)
-  constexpr int UPT = 8;               // state rows per thread (at most)
+topo_sweep_tc_kernel(const SweepArgs a, const int nbuf) {
+  constexpr int NT = TD / 8;              // n-tiles of the hd tile
+  constexpr int NG = 8 / NT;              // moment groups of the write
+  constexpr int NRW = TD == 16 ? 4 : 1;   // moments one warp writes, at most
   extern __shared__ __align__(16) float smem[];
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int C = a.C, m = a.m, hd = a.hd, R = a.R, L = a.L;
+  const int C = a.C, m = a.m, hd = a.hd, L = a.L;
   const bool decay = a.lg != nullptr;
-  const int LDQ = C + 1;   // odd row length: conflict-free column walks
-  const int RM = R * m;
+  const int R = decay ? 1 : a.R;
+  const int KQ = (m + 7) / 8;       // k-steps over m
+  const int M16 = (m + 15) & ~15;   // state rows of one moment
+  const int MT = M16 / 16;          // their m-tiles
+  const int R8 = (R + 7) & ~7;      // columns of the z state
+  const int NZ = R8 / 8;
+  const int PQ = M16 + 4, PV = TD + 4, PB = R + 1;  // padded row lengths
+  const int RS = R * M16;
+  const int KM = M16 / 8;           // 8-row blocks of one moment
+  const int CS = (C + 7) & ~7;       // staged rows of a chunk (past C: 0)
+  const int NC8 = CS / 8;
+  const int t0 = tile * TD;
+  const int wv = min(TD, hd - t0);  // live columns of this tile
 
-  // the state and v tiles first: their rows (TD floats) stay 32-byte
-  // aligned for load8/store8
-  float* ss = smem;              // RM x TD   state tile
-  float* vs = ss + RM * TD;      // C x TD    v tile
-  float* zs = vs + C * TD;       // RM        normalizer state
-  float* as = zs + RM;           // C x R     alpha rows of this chunk
-  float* bs = as + C * R;        // C x R     beta rows of this chunk
-  float* ds = bs + C * R;        // C         clamped den of this chunk
-  float* qs = ds + C;            // m x LDQ   q transposed
-  float* ks = qs + m * LDQ;      // m x LDQ   k transposed
-  float* pt = ks + m * LDQ;      // C x LDQ   P transposed: pt[j][i]
+  float* sf = smem;                     // 2 RS TD   the state S, split, by
+                                        //           8 x 8 block (r, k, n-tile)
+  float* zf = sf + 2 * RS * TD;         // 2 M16 R8  the state z, split, by
+                                        //           block (k, n-tile)
+  float* kbuf = zf + 2 * M16 * R8;      // nbuf x CS x PQ  k rows
+  float* vbuf = kbuf + nbuf * CS * PQ;  // nbuf x CS x PV  v rows of the tile
+  float* bbuf = vbuf + nbuf * CS * PV;  // nbuf x CS x PB  beta rows
+  float* abuf = bbuf + nbuf * CS * PB;  // 2 x CS x PB     alpha rows
 
-  const long bh = (long)b * a.H + h;
+  const long long bh = (long long)b * a.H + h;
   const float* qg = a.q + bh * L * m;
   const float* kg = a.k + bh * L * m;
-  const float* vg = a.v + bh * L * hd;
-  const float* dm = a.dmat + (long)h * C * C;
-  const int t0 = tile * TD;
+  const float* vg = a.v + bh * L * hd + t0;
+  const float* dm = a.dmat + (long long)h * C * C;
   const float lg = decay ? a.lg[h] : 0.0f;
   const float gC = decay ? expf(lg * (float)C) : 1.0f;
 
-  for (int e = tid; e < RM * TD; e += THREADS) ss[e] = 0.0f;
-  for (int e = tid; e < RM; e += THREADS) zs[e] = 0.0f;
+  // the state starts at 0, and the pad rows and columns of the staged
+  // chunks stay 0
+  const int total = 2 * RS * TD + 2 * M16 * R8 + nbuf * CS * (PQ + PV + PB)
+                    + 2 * CS * PB;
+  for (int e = tid; e < total; e += THREADS) smem[e] = 0.0f;
+  __syncthreads();
   if (decay) {  // R == 1: the decays by local position, the same each chunk
     for (int i = tid; i < C; i += THREADS) {
-      as[i] = expf(lg * (float)i);
-      bs[i] = expf(lg * (float)(C - i));
+      abuf[i * PB] = expf(lg * (float)i);
+      bbuf[i * PB] = expf(lg * (float)(C - i));
     }
   }
 
-  const int tx = tid % 16, ty = tid / 16;   // P micro-tile grid
-  const int rg = tid % NRG, cg = tid / NRG; // output / state tiles
-
-  // The state rows this thread updates (r = ur, mm = um, row urm; ur < 0
-  // for none). Where the rows fill the threads exactly (m divides NRG and
-  // R*m = UPT*NRG, the served rank mode) a thread takes one mm and UPT
-  // consecutive r, so a step of the update reads one k and UPT betas as two
-  // 16-byte loads; otherwise it takes rows rg + NRG * u.
-  const bool consec = NRG % m == 0 && R % UPT == 0 && RM == UPT * NRG;
-  int ur[UPT], um[UPT], urm[UPT];
-#pragma unroll
-  for (int u = 0; u < UPT; ++u) {
-    const int rm = consec ? ((rg / m) * UPT + u) * m + rg % m : rg + NRG * u;
-    ur[u] = rm < RM ? rm / m : -1;
-    um[u] = rm < RM ? rm - (rm / m) * m : 0;
-    urm[u] = rm;
-  }
-  // rank mode at TD = 16 splits the read of the state over 4 groups of
-  // R / 4 moments (64 threads each, 8 rows x 4 columns a thread) and sums
-  // the groups' partials through shared memory
-  const bool split = TD == 16 && R % 4 == 0;
-
-  const int nC = L / C;
-  for (int c = 0; c < nC; ++c) {
-    const long p0 = (long)c * C;
-    __syncthreads();  // the previous chunk is done with the staged tiles
-    // 1. stage
-    for (int e = tid; e < C * m; e += THREADS) {
-      const int i = e / m, mm = e - i * m;
-      qs[mm * LDQ + i] = qg[p0 * m + e];
-      ks[mm * LDQ + i] = kg[p0 * m + e];
+  // chunk c's k, v (and alpha, beta) rows into its buffers, one group
+  auto issue = [&](int c) {
+    const long long p0 = (long long)c * C;
+    const int kb = c % nbuf;
+    float* kd = kbuf + kb * CS * PQ;
+    float* vd = vbuf + kb * CS * PV;
+    if (m % 4 == 0) {  // 16-byte rows; else one float at a time
+      const int m4 = m / 4;
+      for (int e = tid; e < C * m4; e += THREADS) {
+        const int j = e / m4, q = e - j * m4;
+        cp16(kd + j * PQ + 4 * q, kg + (p0 + j) * m + 4 * q);
+      }
+    } else {
+      for (int e = tid; e < C * m; e += THREADS) {
+        const int j = e / m, q = e - j * m;
+        cp4(kd + j * PQ + q, kg + (p0 + j) * m + q);
+      }
     }
-    for (int e = tid; e < C * TD; e += THREADS) {
-      const int j = e / TD, t = e - j * TD;
-      vs[e] = (t0 + t < hd) ? vg[(p0 + j) * hd + t0 + t] : 0.0f;
+    if (hd % 4 == 0) {
+      const int v4 = wv / 4;
+      for (int e = tid; e < C * v4; e += THREADS) {
+        const int j = e / v4, q = e - j * v4;
+        cp16(vd + j * PV + 4 * q, vg + (p0 + j) * hd + 4 * q);
+      }
+    } else {
+      for (int e = tid; e < C * wv; e += THREADS) {
+        const int j = e / wv, q = e - j * wv;
+        cp4(vd + j * PV + q, vg + (p0 + j) * hd + q);
+      }
     }
     if (!decay) {
-      const float* ag = a.alpha + ((long)h * L + p0) * R;
-      const float* bg = a.beta + ((long)h * L + p0) * R;
+      float* bd = bbuf + kb * CS * PB;
+      float* ad = abuf + (c & 1) * CS * PB;
+      const float* bs = a.beta + ((long long)h * L + p0) * R;
+      const float* as = a.alpha + ((long long)h * L + p0) * R;
       for (int e = tid; e < C * R; e += THREADS) {
-        as[e] = ag[e];
-        bs[e] = bg[e];
+        const int j = e / R, r = e - j * R;
+        cp4(bd + j * PB + r, bs + e);
+        cp4(ad + j * PB + r, as + e);
       }
     }
-    __syncthreads();
+    cp_commit();
+  };
 
-    // 2. P[i][j] = (q_i . k_j) * dmat[i][j], i = ty + 16x, j = tx + 16y
-    {
-      float acc[8][8];
+  // chunk c's q rows of this warp, in the A-fragment order, into registers
+  // (fp32; each use splits them)
+  const int i0 = 16 * warp;
+  const bool rows = i0 < C;
+  float qn[32];
+  auto load_q = [&](int c) {
+    const float* qr = qg + ((long long)c * C + i0 + g) * m;
+    const bool r0 = rows && i0 + g < C, r1 = rows && i0 + g + 8 < C;
 #pragma unroll
-      for (int x = 0; x < 8; ++x)
-#pragma unroll
-        for (int y = 0; y < 8; ++y) acc[x][y] = 0.0f;
-#pragma unroll 4
-      for (int mm = 0; mm < m; ++mm) {
-        float qv[8], kv[8];
-#pragma unroll
-        for (int x = 0; x < 8; ++x) {
-          const int i = ty + 16 * x;
-          qv[x] = i < C ? qs[mm * LDQ + i] : 0.0f;
-          const int j = tx + 16 * x;
-          kv[x] = j < C ? ks[mm * LDQ + j] : 0.0f;
-        }
-#pragma unroll
-        for (int x = 0; x < 8; ++x)
-#pragma unroll
-          for (int y = 0; y < 8; ++y) acc[x][y] = fmaf(qv[x], kv[y], acc[x][y]);
-      }
-#pragma unroll
-      for (int x = 0; x < 8; ++x) {
-        const int i = ty + 16 * x;
-#pragma unroll
-        for (int y = 0; y < 8; ++y) {
-          const int j = tx + 16 * y;
-          if (i < C && j < C) pt[j * LDQ + i] = acc[x][y] * dm[i * C + j];
-        }
-      }
+    for (int k = 0; k < 8; ++k) {
+      const int c0 = 8 * k + t, c1 = c0 + 4;
+      qn[4 * k + 0] = r0 && c0 < m ? __ldg(qr + c0) : 0.0f;
+      qn[4 * k + 1] = r1 && c0 < m ? __ldg(qr + 8 * m + c0) : 0.0f;
+      qn[4 * k + 2] = r0 && c1 < m ? __ldg(qr + c1) : 0.0f;
+      qn[4 * k + 3] = r1 && c1 < m ? __ldg(qr + 8 * m + c1) : 0.0f;
     }
-    __syncthreads();
+  };
 
-    // 3a. within the chunk: num = P v, den = rowsum(P)
-    float num[RPT][8], den[RPT];
+  // the write: warp w owns n-tile wn of the hd tile and the moments
+  // wg + NG i (all m-tiles); each chunk's dS goes into fresh accumulators
+  // (48 products long), and S itself is updated in fp32 from its split copy,
+  // so that the tensor cores' rounding toward zero of each mma's sum never
+  // builds up along the sequence
+  const int wn = warp % NT, wg = warp / NT;
+  float sacc[NRW][4][4];
+  // ... and z = sum_j beta_j k_j^T as an (M16 x R8) matrix: one tile a warp
+  const bool zw = warp < MT * NZ;
+  const int zmt = zw ? warp / NZ : 0, znt = zw ? warp % NZ : 0;
+  float zacc[4];
+
+  issue(0);
+  load_q(0);
+  const int nC = L / C;
+  for (int c = 0; c < nC; ++c) {
+    const long long p0 = (long long)c * C;
+    const int kb = c % nbuf;
+    const float* ks = kbuf + kb * CS * PQ;
+    const float* vs = vbuf + kb * CS * PV;
+    const float* bs = bbuf + (decay ? 0 : kb) * CS * PB;
+    const float* as = abuf + (decay ? 0 : (c & 1)) * CS * PB;
+    cp_wait_all();
+    __syncthreads();  // chunk c is staged; the split state of chunk c-1 too
+    if (nbuf == 2 && c + 1 < nC) issue(c + 1);  // a whole chunk ahead
+
+    // 1. within the chunk: P = (q k^T) * dmat by 8-key tiles up to the
+    //    diagonal, four at a time; its row sums; num = P v
+    float num[NT][4];
 #pragma unroll
-    for (int x = 0; x < RPT; ++x) {
-      den[x] = 0.0f;
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-      for (int y = 0; y < 8; ++y) num[x][y] = 0.0f;
-    }
-#pragma unroll 4
-    for (int j = 0; j < C; ++j) {
-      float vv[8];
-      load8(vs + j * TD + cg * 8, vv);
+      for (int e = 0; e < 4; ++e) num[nt][e] = 0.0f;
+    float dsum0 = 0.0f, dsum1 = 0.0f;  // rows g, g + 8 (this lane's part)
+    if (rows) {
+      const int nkt = min(2 * warp + 2, NC8);
+      for (int kt0 = 0; kt0 < nkt; kt0 += 4) {
+        float s[4][4];
+        float2 d0[4], d1[4];
 #pragma unroll
-      for (int x = 0; x < RPT; ++x) {
-        const int i = rg + NRG * x;
-        const float p = i < C ? pt[j * LDQ + i] : 0.0f;
-        den[x] += p;
+        for (int u = 0; u < 4; ++u) {
+          const int kt = kt0 + u;
 #pragma unroll
-        for (int y = 0; y < 8; ++y) num[x][y] = fmaf(p, vv[y], num[x][y]);
-      }
-    }
-    // 3b. across chunks: read the state as it stood before this chunk
-    if (split) {
-      const int kq = tid / 64, tc = tid % 4, tr = (tid % 64) / 4;
-      const int rq = R / 4;
-      float np[8][4], dp[8];
-#pragma unroll
-      for (int x = 0; x < 8; ++x) {
-        dp[x] = 0.0f;
-#pragma unroll
-        for (int y = 0; y < 4; ++y) np[x][y] = 0.0f;
-      }
-      for (int r = kq * rq; r < (kq + 1) * rq; ++r) {
-        float acc[8][4], dacc[8];
-#pragma unroll
-        for (int x = 0; x < 8; ++x) {
-          dacc[x] = 0.0f;
-#pragma unroll
-          for (int y = 0; y < 4; ++y) acc[x][y] = 0.0f;
+          for (int e = 0; e < 4; ++e) s[u][e] = 0.0f;
+          // dmat at rows i0 + g (+ 8), keys j, j + 1: 0 past C
+          const int j = 8 * kt + 2 * t;
+          const bool ok = kt < nkt && j < C, ok1 = kt < nkt && j + 1 < C;
+          const float* dr = dm + (i0 + g) * C + j;
+          const bool ra = i0 + g < C, rb = i0 + g + 8 < C;
+          d0[u] = make_float2(ra && ok ? dr[0] : 0.0f,
+                              ra && ok1 ? dr[1] : 0.0f);
+          d1[u] = make_float2(rb && ok ? dr[8 * C] : 0.0f,
+                              rb && ok1 ? dr[8 * C + 1] : 0.0f);
         }
-#pragma unroll 2
-        for (int mm = 0; mm < m; ++mm) {
-          const float4 s4 = *reinterpret_cast<const float4*>(
-              ss + (r * m + mm) * TD + tc * 4);
-          const float z = zs[r * m + mm];
 #pragma unroll
-          for (int x = 0; x < 8; ++x) {
-            const int i = tr + 16 * x;
-            const float qv = i < C ? qs[mm * LDQ + i] : 0.0f;
-            dacc[x] = fmaf(qv, z, dacc[x]);
-            acc[x][0] = fmaf(qv, s4.x, acc[x][0]);
-            acc[x][1] = fmaf(qv, s4.y, acc[x][1]);
-            acc[x][2] = fmaf(qv, s4.z, acc[x][2]);
-            acc[x][3] = fmaf(qv, s4.w, acc[x][3]);
+        for (int k = 0; k < 8; ++k) {
+          if (k < KQ) {
+            const Frag qf = fsplit(qn[4 * k], qn[4 * k + 1], qn[4 * k + 2],
+                                   qn[4 * k + 3]);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              if (kt0 + u < nkt) {
+                const float* kr = ks + (8 * (kt0 + u) + g) * PQ + 8 * k + t;
+                mma3(s[u], qf, bsplit(kr[0], kr[4]));
+              }
+            }
           }
         }
 #pragma unroll
-        for (int x = 0; x < 8; ++x) {
-          const int i = tr + 16 * x;
-          const float al = i < C ? as[i * R + r] : 0.0f;
-          dp[x] = fmaf(al, dacc[x], dp[x]);
+        for (int u = 0; u < 4; ++u) {
+          const int kt = kt0 + u;
+          if (kt < nkt) {
+            const float p0v = s[u][0] * d0[u].x, p1v = s[u][1] * d0[u].y;
+            const float p2v = s[u][2] * d1[u].x, p3v = s[u][3] * d1[u].y;
+            dsum0 += p0v + p1v;
+            dsum1 += p2v + p3v;
+            // the accumulator is the A fragment of P v with the keys of
+            // this lane, 2t and 2t + 1, as its k-indices t and t + 4
+            const Frag pf = fsplit(p0v, p2v, p1v, p3v);
+            const float* vr = vs + (8 * kt + 2 * t) * PV + g;
 #pragma unroll
-          for (int y = 0; y < 4; ++y) np[x][y] = fmaf(al, acc[x][y], np[x][y]);
-        }
-      }
-      // the partials go where P was: (4, C, TD) sums, then (4, C) dens
-      float* red = pt + ((4 - ((pt - smem) & 3)) & 3);  // 16-byte aligned
-      __syncthreads();  // every thread is done reading P
-#pragma unroll
-      for (int x = 0; x < 8; ++x) {
-        const int i = tr + 16 * x;
-        if (i < C) {
-          *reinterpret_cast<float4*>(red + (kq * C + i) * TD + tc * 4) =
-              make_float4(np[x][0], np[x][1], np[x][2], np[x][3]);
-          if (tc == 0) red[4 * C * TD + kq * C + i] = dp[x];
-        }
-      }
-      __syncthreads();
-#pragma unroll
-      for (int x = 0; x < RPT; ++x) {
-        const int i = rg + NRG * x;
-        if (i < C) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            float part[8];
-            load8(red + (k * C + i) * TD + cg * 8, part);
-#pragma unroll
-            for (int y = 0; y < 8; ++y) num[x][y] += part[y];
-            den[x] += red[4 * C * TD + k * C + i];
+            for (int nt = 0; nt < NT; ++nt)
+              mma3(num[nt], pf, bsplit(vr[8 * nt], vr[PV + 8 * nt]));
           }
-        }
-      }
-    } else {  // the den is needed by the warps of column group 0 alone
-      for (int r = 0; r < R; ++r) {
-        float acc[RPT][8], dacc[RPT];
-#pragma unroll
-        for (int x = 0; x < RPT; ++x) {
-          dacc[x] = 0.0f;
-#pragma unroll
-          for (int y = 0; y < 8; ++y) acc[x][y] = 0.0f;
-        }
-#pragma unroll 4
-        for (int mm = 0; mm < m; ++mm) {
-          float sv[8];
-          load8(ss + (r * m + mm) * TD + cg * 8, sv);
-          const float z = cg == 0 ? zs[r * m + mm] : 0.0f;
-#pragma unroll
-          for (int x = 0; x < RPT; ++x) {
-            const int i = rg + NRG * x;
-            const float qv = i < C ? qs[mm * LDQ + i] : 0.0f;
-            dacc[x] = fmaf(qv, z, dacc[x]);
-#pragma unroll
-            for (int y = 0; y < 8; ++y) acc[x][y] = fmaf(qv, sv[y], acc[x][y]);
-          }
-        }
-#pragma unroll
-        for (int x = 0; x < RPT; ++x) {
-          const int i = rg + NRG * x;
-          const float al = i < C ? as[i * R + r] : 0.0f;
-          den[x] = fmaf(al, dacc[x], den[x]);
-#pragma unroll
-          for (int y = 0; y < 8; ++y)
-            num[x][y] = fmaf(al, acc[x][y], num[x][y]);
         }
       }
     }
 
-    // 4. emit
-    if (cg == 0) {
+    // 2. the write: dS = (beta * k)^T v, dz = k^T beta (step 5 adds them)
 #pragma unroll
-      for (int x = 0; x < RPT; ++x) {
-        const int i = rg + NRG * x;
-        if (i < C) {
-          float d = den[x];
-          if (a.res_den) d += a.res_den[bh * L + p0 + i];
-          if (a.normalize) {
-            d = fabsf(d) < a.eps ? a.eps : d;
-          } else if (tile == 0) {
-            a.den_out[bh * L + p0 + i] = d;
-          }
-          ds[i] = d;
+    for (int i = 0; i < NRW; ++i)
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[i][mt][e] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) zacc[e] = 0.0f;
+    for (int k8 = 0; k8 < NC8; ++k8) {
+      const int j = 8 * k8 + 2 * t;  // this lane's keys j, j + 1
+      const float* kr = ks + j * PQ + g;
+      Frag af[4];  // k^T by m-tile: rows mm, k-indices t, t + 4 = keys j, j + 1
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        if (mt < MT)
+          af[mt] = fsplit(kr[16 * mt], kr[16 * mt + 8], kr[PQ + 16 * mt],
+                          kr[PQ + 16 * mt + 8]);
+      const float v0 = vs[j * PV + 8 * wn + g];
+      const float v1 = vs[(j + 1) * PV + 8 * wn + g];
+#pragma unroll
+      for (int i = 0; i < NRW; ++i) {
+        const int r = wg + NG * i;
+        if (r < R) {  // B: beta_r * v
+          const BFrag bf =
+              bsplit(bs[j * PB + r] * v0, bs[(j + 1) * PB + r] * v1);
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int mt = 0; mt < 4; ++mt)
+              if (mt < MT) mma_pass(p, sacc[i][mt], af[mt], bf);
         }
       }
-    }
-    __syncthreads();  // ds is ready; every read of ss/zs above is done
+      if (zw) {
+        const int r = 8 * znt + g;
+        const BFrag zb = bsplit(r < R ? bs[j * PB + r] : 0.0f,
+                                r < R ? bs[(j + 1) * PB + r] : 0.0f);
 #pragma unroll
-    for (int x = 0; x < RPT; ++x) {
-      const int i = rg + NRG * x;
-      if (i >= C) continue;
-      const long row = (bh * L + p0 + i) * hd;
-#pragma unroll
-      for (int y = 0; y < 8; ++y) {
-        const int col = t0 + cg * 8 + y;
-        if (col < hd) {
-          float n = num[x][y];
-          if (a.res_num) n += a.res_num[row + col];
-          a.out[row + col] = a.normalize ? n / ds[i] : n;
-        }
+        for (int mt = 0; mt < 4; ++mt)
+          if (mt == zmt) mma3(zacc, af[mt], zb);
       }
     }
+    __syncthreads();  // every warp is done with this chunk's k, v, beta rows
+    if (nbuf == 1 && c + 1 < nC) issue(c + 1);  // in flight from here on
 
-    // 5. update the state with this chunk: S (+)= (beta * k)^T v
-    {
-      float acc[UPT][8], zacc[UPT];
+    // 3. the read of the state as it stood before this chunk:
+    //    num += sum_r alpha_r (q S_r), den += sum_r alpha_r (q z_r)
+    if (rows) {
+      const bool ra = i0 + g < C, rb = i0 + g + 8 < C;
+      const float* ar0 = as + (i0 + g) * PB;
+      const float* ar1 = ar0 + 8 * PB;
+      for (int r0 = 0; r0 < R; r0 += NG) {
+        float acc[NG][NT][4];
 #pragma unroll
-      for (int u = 0; u < UPT; ++u) {
-        zacc[u] = 0.0f;
+        for (int u = 0; u < NG; ++u)
 #pragma unroll
-        for (int y = 0; y < 8; ++y) acc[u][y] = 0.0f;
-      }
-      if (consec) {
-#pragma unroll 2
-        for (int j = 0; j < C; ++j) {
-          float vv[8], bb[UPT];
-          load8(vs + j * TD + cg * 8, vv);
-          load8(bs + j * R + ur[0], bb);
-          const float kk = ks[um[0] * LDQ + j];
+          for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-          for (int u = 0; u < UPT; ++u) {
-            const float kb = bb[u] * kk;
-            zacc[u] += kb;
+            for (int e = 0; e < 4; ++e) acc[u][nt][e] = 0.0f;
 #pragma unroll
-            for (int y = 0; y < 8; ++y) acc[u][y] = fmaf(kb, vv[y], acc[u][y]);
+        for (int k = 0; k < 8; ++k) {
+          if (k < KQ) {
+            const Frag qf = fsplit(qn[4 * k], qn[4 * k + 1], qn[4 * k + 2],
+                                   qn[4 * k + 3]);
+#pragma unroll
+            for (int u = 0; u < NG; ++u) {
+              if (r0 + u < R) {
+                BFrag bf[NT];
+#pragma unroll
+                for (int nt = 0; nt < NT; ++nt)
+                  bf[nt] = frag_load(sf, ((r0 + u) * KM + k) * NT + nt, lane);
+#pragma unroll
+                for (int p = 0; p < 3; ++p)
+#pragma unroll
+                  for (int nt = 0; nt < NT; ++nt)
+                    mma_pass(p, acc[u][nt], qf, bf[nt]);
+              }
+            }
           }
         }
-      } else {
-#pragma unroll 4
-        for (int j = 0; j < C; ++j) {
-          float vv[8];
-          load8(vs + j * TD + cg * 8, vv);
 #pragma unroll
-          for (int u = 0; u < UPT; ++u) {
-            if (ur[u] >= 0) {
-              const float kb = bs[j * R + ur[u]] * ks[um[u] * LDQ + j];
-              zacc[u] += kb;
+        for (int u = 0; u < NG; ++u) {
+          if (r0 + u < R) {
+            const float al0 = ra ? ar0[r0 + u] : 0.0f;
+            const float al1 = rb ? ar1[r0 + u] : 0.0f;
 #pragma unroll
-              for (int y = 0; y < 8; ++y)
-                acc[u][y] = fmaf(kb, vv[y], acc[u][y]);
+            for (int nt = 0; nt < NT; ++nt) {
+              num[nt][0] = fmaf(al0, acc[u][nt][0], num[nt][0]);
+              num[nt][1] = fmaf(al0, acc[u][nt][1], num[nt][1]);
+              num[nt][2] = fmaf(al1, acc[u][nt][2], num[nt][2]);
+              num[nt][3] = fmaf(al1, acc[u][nt][3], num[nt][3]);
             }
           }
         }
       }
+      float qz[2][4] = {{0.0f, 0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f, 0.0f}};
 #pragma unroll
-      for (int u = 0; u < UPT; ++u) {
-        if (ur[u] >= 0) {
-          const int rm = urm[u];
-          float* srow = ss + rm * TD + cg * 8;
-          float sv[8];
-          load8(srow, sv);
+      for (int k = 0; k < 8; ++k) {
+        if (k < KQ) {
+          const Frag qf = fsplit(qn[4 * k], qn[4 * k + 1], qn[4 * k + 2],
+                                 qn[4 * k + 3]);
 #pragma unroll
-          for (int y = 0; y < 8; ++y)
-            sv[y] = decay ? gC * sv[y] + acc[u][y] : sv[y] + acc[u][y];
-          store8(srow, sv);
-          if (cg == 0)
-            zs[rm] = decay ? gC * zs[rm] + zacc[u] : zs[rm] + zacc[u];
+          for (int nz = 0; nz < 2; ++nz) {
+            if (nz < NZ) mma3(qz[nz], qf, frag_load(zf, k * NZ + nz, lane));
+          }
         }
       }
+#pragma unroll
+      for (int nz = 0; nz < 2; ++nz) {
+        if (nz < NZ) {
+          const int c0 = 8 * nz + 2 * t, c1 = c0 + 1;
+          if (ra && c0 < R) dsum0 = fmaf(ar0[c0], qz[nz][0], dsum0);
+          if (ra && c1 < R) dsum0 = fmaf(ar0[c1], qz[nz][1], dsum0);
+          if (rb && c0 < R) dsum1 = fmaf(ar1[c0], qz[nz][2], dsum1);
+          if (rb && c1 < R) dsum1 = fmaf(ar1[c1], qz[nz][3], dsum1);
+        }
+      }
+    }
+    // the next chunk's q rows: in flight during the emit and the store
+    if (c + 1 < nC) load_q(c + 1);
+
+    // 4. emit: each row's den summed over the four lanes that hold it
+    if (rows) {
+      dsum0 += __shfl_xor_sync(0xffffffffu, dsum0, 1);
+      dsum0 += __shfl_xor_sync(0xffffffffu, dsum0, 2);
+      dsum1 += __shfl_xor_sync(0xffffffffu, dsum1, 1);
+      dsum1 += __shfl_xor_sync(0xffffffffu, dsum1, 2);
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        const int i = i0 + g + 8 * x;
+        if (i < C) {
+          const long long row = bh * L + p0 + i;
+          float d = x ? dsum1 : dsum0;
+          if (a.res_den) d += a.res_den[row];
+          if (a.normalize) {
+            d = fabsf(d) < a.eps ? a.eps : d;
+          } else if (tile == 0 && t == 0) {
+            a.den_out[row] = d;
+          }
+#pragma unroll
+          for (int nt = 0; nt < NT; ++nt) {
+            const int col = 8 * nt + 2 * t;
+            if (col < wv) {
+              float n0 = num[nt][2 * x], n1 = num[nt][2 * x + 1];
+              const long long e = row * hd + t0 + col;
+              if (hd % 2 == 0) {  // the pair (col, col + 1) is 8-byte aligned
+                if (a.res_num) {
+                  const float2 rn =
+                      *reinterpret_cast<const float2*>(a.res_num + e);
+                  n0 += rn.x;
+                  n1 += rn.y;
+                }
+                *reinterpret_cast<float2*>(a.out + e) =
+                    a.normalize ? make_float2(n0 / d, n1 / d)
+                                : make_float2(n0, n1);
+              } else {  // an odd hd: one float at a time, col + 1 may be past
+                const bool two = col + 1 < wv;
+                if (a.res_num) {
+                  n0 += a.res_num[e];
+                  if (two) n1 += a.res_num[e + 1];
+                }
+                a.out[e] = a.normalize ? n0 / d : n0;
+                if (two) a.out[e + 1] = a.normalize ? n1 / d : n1;
+              }
+            }
+          }
+        }
+      }
+    }
+
+    // 5. the new state, S <- gC S + dS and z <- gC z + dz, in fp32 from the
+    //    exact split copy, split again for the next chunk's read
+    __syncthreads();  // every warp is done reading the split state
+#pragma unroll
+    for (int i = 0; i < NRW; ++i) {
+      const int r = wg + NG * i;
+      if (r < R) {
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) {
+          if (mt < MT) {
+            // rows 16 mt + g (+ 8) are blocks 2 mt (+ 1), row g there
+            const int blk = (r * KM + 2 * mt) * NT + wn;
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              frag_update(sf, blk + (e >> 1) * NT, g, 2 * t + (e & 1), gC,
+                          sacc[i][mt][e]);
+          }
+        }
+      }
+    }
+    if (zw) {
+      const int blk = 2 * zmt * NZ + znt;
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        frag_update(zf, blk + (e >> 1) * NZ, g, 2 * t + (e & 1), gC,
+                    zacc[e]);
     }
   }
 }
 
 template <int TD>
-int launch(const SweepArgs& a, int B, size_t smem, cudaStream_t stream) {
+int launch(const SweepArgs& a, int B, int nbuf, size_t smem,
+           cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      topo_sweep_kernel<TD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      topo_sweep_tc_kernel<TD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((a.hd + TD - 1) / TD, a.H, B);
-  topo_sweep_kernel<TD><<<grid, THREADS, smem, stream>>>(a);
+  topo_sweep_tc_kernel<TD><<<grid, THREADS, smem, stream>>>(a, nbuf);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). Checks nothing the
-// Python wrapper checks (shapes, types, contiguity, the device, td and the
+// Returns the cudaError_t of the launch (0 on success): td 16 or 64, nbuf 1
+// or 2. Checks nothing the Python wrapper checks (shapes, types,
+// contiguity, alignment, the device, the limits on C, m and R, and the
 // shared-memory size, which it computes with the layout above).
 extern "C" int topo_sweep_launch(
-    int td, const float* q, const float* k, const float* v, const float* dmat,
-    const float* lg, const float* alpha, const float* beta,
-    const float* res_num, const float* res_den, float* out, float* den_out,
-    int B, int H, int L, int m, int hd, int C, int R, float eps, int normalize,
-    long long smem, void* stream) {
+    int td, int nbuf, const float* q, const float* k, const float* v,
+    const float* dmat, const float* lg, const float* alpha,
+    const float* beta, const float* res_num, const float* res_den,
+    float* out, float* den_out, int B, int H, int L, int m, int hd, int C,
+    int R, float eps, int normalize, long long smem, void* stream) {
   SweepArgs a{q, k, v, dmat, lg, alpha, beta, res_num, res_den, out, den_out,
               H, L, m, hd, C, R, eps, normalize};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nbuf != 1 && nbuf != 2) return (int)cudaErrorInvalidValue;
   switch (td) {
-    case 16: return launch<16>(a, B, (size_t)smem, s);
-    case 32: return launch<32>(a, B, (size_t)smem, s);
-    case 64: return launch<64>(a, B, (size_t)smem, s);
+    case 16: return launch<16>(a, B, nbuf, (size_t)smem, s);
+    case 64: return launch<64>(a, B, nbuf, (size_t)smem, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -214,6 +214,71 @@ def test_topo_sweep_kernel_matches_plain_version(B, H, L, m, hd, C, R,
         assert got.shape == (B, H, L, hd) and _rel(got, want) < 1e-4
 
 
+def _sweep_once(B, H, L, m, hd, C, R, variant, device):
+    """One sweep launch at this shape and variant (counted once by the
+    wrapper), within 1e-4 of the plain sweep."""
+    rng = np.random.default_rng(B * 1000 + L + m)
+    qf, kf, v, dmat, mode = _sweep_inputs(rng, B, H, L, m, hd, C, R, device)
+    kw = dict(mode, normalize=variant != "unnormalized")
+    if variant == "residual":
+        kw["res_num"] = torch.tensor(rng.normal(size=(B, H, L, hd)),
+                                     dtype=torch.float32, device=device)
+        kw["res_den"] = torch.tensor(rng.uniform(1, 2, (B, H, L)),
+                                     dtype=torch.float32, device=device)
+    before = topo_ops.LAUNCHES
+    got = topo_ops.topo_attention_sweep(qf, kf, v, dmat, **kw)
+    torch.cuda.synchronize()
+    assert topo_ops.LAUNCHES == before + 1
+    num, den = topo_ops._sweep(qf, kf, v, dmat, mode.get("log_gamma"),
+                               mode.get("alpha"), mode.get("beta"))
+    want = topo_ops._emit(num, den, kw.get("res_num"), kw.get("res_den"),
+                          kw["normalize"], 1e-6)
+    if variant == "unnormalized":
+        assert _rel(got[0], want[0]) < 1e-4 and _rel(got[1], want[1]) < 1e-4
+    else:
+        assert got.shape == (B, H, L, hd) and _rel(got, want) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [0, 16], ids=["decay", "rank16"])
+@pytest.mark.parametrize("variant", ["normalize", "unnormalized",
+                                     "residual"])
+def test_topo_sweep_served_layer_shape_takes_the_tensor_cores(R, variant,
+                                                             cuda_device):
+    """The served layer's widths (m = hd = 64, C = 128) at a reduced length
+    (B = 1, H = 2, L = 512) on the tensor-core kernel."""
+    _sweep_once(1, 2, 512, 64, 64, 128, R, variant, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [0, 16], ids=["decay", "rank16"])
+@pytest.mark.parametrize("B,H,L,m,hd,C", [(1, 2, 60, 8, 10, 20),
+                                          (2, 2, 64, 6, 8, 16)])
+def test_topo_sweep_zero_fills_ragged_shapes(B, H, L, m, hd, C, R,
+                                             cuda_device):
+    """A C not a multiple of 8 and an m or hd not a multiple of 4: the
+    kernel zero-fills the staged rows and columns past them."""
+    _sweep_once(B, H, L, m, hd, C, R, "residual", cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["m_above_64", "qf_unaligned"])
+def test_topo_sweep_refuses_what_the_kernel_cannot_take(bad, cuda_device):
+    """An m above 64, or q rows that are not 16-byte aligned, raise
+    ValueError on the card; nothing runs the plain sweep in their place."""
+    rng = np.random.default_rng(5)
+    m = 72 if bad == "m_above_64" else 8
+    qf, kf, v, dmat, mode = _sweep_inputs(rng, 1, 2, 64, m, 8, 16, 0,
+                                          cuda_device)
+    if bad == "qf_unaligned":
+        qf = torch.zeros(qf.numel() + 4, device=cuda_device)[1:qf.numel() + 1]
+        qf = qf.view(1, 2, 64, m)
+    before = topo_ops.LAUNCHES
+    with pytest.raises(ValueError):
+        topo_ops.topo_attention_sweep(qf, kf, v, dmat, **mode)
+    assert topo_ops.LAUNCHES == before
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("g,degree", [("exp", 1), ("exp", 2),
@@ -536,6 +601,31 @@ def test_scan_kernel_matches_plain_version(Bt, L, din, N, dtype, with_h0,
     assert scan_ops.LAUNCHES == before + 1
     assert y.shape == (Bt, L, din) and h.shape == (Bt, din, N)
     assert y.dtype == h.dtype == torch.float32
+    for wy, wh in (scan_ops.scan(*args, h0=h0, use_kernel=False),
+                   selective_scan_ref(*args, h0=h0)):
+        assert float((y - wy).abs().max()) < 2e-5
+        assert float((h - wh).abs().max()) < 2e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("Bt,L,din", [(2, 1001, 100), (1, 77, 333)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_h0", [False, True], ids=["h0=0", "h0"])
+def test_scan_kernel_ragged_shapes(Bt, L, din, N, dtype, with_h0,
+                                   cuda_device):
+    """din not a multiple of a block's 128 channels and L not a multiple of
+    its 16-step chunk: y and h_final within 2e-5 of the plain version and
+    of the sequential oracle."""
+    from repro_torch.kernels.selective_scan import kernel as scan_kernel
+
+    assert din % scan_kernel.THREADS and L % scan_kernel.TL
+    rng = np.random.default_rng(L + din + N)
+    args = _scan_inputs(rng, Bt, L, din, N, dtype, cuda_device)
+    h0 = (torch.tensor(rng.normal(size=(Bt, din, N)), dtype=torch.float32,
+                       device=cuda_device) if with_h0 else None)
+    y, h = scan_ops.scan(*args, h0=h0)
+    torch.cuda.synchronize()
     for wy, wh in (scan_ops.scan(*args, h0=h0, use_kernel=False),
                    selective_scan_ref(*args, h0=h0)):
         assert float((y - wy).abs().max()) < 2e-5

@@ -195,3 +195,72 @@ def test_wrapper_refuses_grad_on_the_kernel_path():
     with torch.no_grad():
         ops.scan(u, dt, A, B, C, D)
     assert ops.LAUNCHES == before  # CPU tensors never reach the kernel
+
+
+def _f32(x):
+    return np.asarray(x, np.float64).astype(np.float32)
+
+
+def _fma(a, b, c):
+    """fmaf: a b + c with one rounding to float32 (the float64 product of
+    two float32 values is exact)."""
+    return _f32(np.asarray(a, np.float64) * np.asarray(b, np.float64)
+                + np.asarray(c, np.float64))
+
+
+def _kernel_emulation(u, dt, A, Bm, Cm, D):
+    """The kernel's arithmetic (selective_scan.cu) in float32 on the CPU:
+    a2 = A log2(e) rounded once, dA = 2^(fma(dt, a2, 1)) / 2, h =
+    fma(du, B, dA h), y summed over n in order by fmas, then + D u. The
+    card's MUFU.EX2 is not emulated (exp2 here is accurate); its error is
+    measured on the card (chip_scan_variants.py)."""
+    Bt, L, din = u.shape
+    N = A.shape[1]
+    a2 = _f32(A * np.float32(np.log2(np.e)))
+    h = np.zeros((Bt, din, N), np.float32)
+    ys = np.zeros((Bt, L, din), np.float32)
+    for t in range(L):
+        d = dt[:, t, :, None]
+        dA = _f32(np.exp2(_fma(d, a2[None], 1.0)) * np.float32(0.5))
+        du = _f32(dt[:, t] * u[:, t])[..., None]
+        h = _fma(du, Bm[:, t, None, :], _f32(dA * h))
+        acc = np.zeros((Bt, din), np.float32)
+        for n in range(N):
+            acc = _fma(h[..., n], Cm[:, t, None, n], acc)
+        ys[:, t] = _fma(u[:, t], D[None], acc)
+    return ys, h
+
+
+@pytest.mark.parametrize("N", [4, 8, 16])
+def test_kernel_arithmetic_keeps_the_bound(N):
+    """The kernel's arithmetic, emulated on the CPU (log2(e) folded into A,
+    the decay as 2^(dt a2 + 1) / 2, h's fma order), stays within
+    tests/test_kernels.py's 2e-5 of the sequential oracle on y and h_final."""
+    args = _inputs(np.random.default_rng(N), 2, 300, 40, N)
+    y, h = _kernel_emulation(*args)
+    wy, wh = t_ref(*[torch.from_numpy(a) for a in args])
+    assert _abs(y, wy.numpy()) < TOL and _abs(h, wh.numpy()) < TOL
+
+
+def test_kernel_block_geometry():
+    """The wrapper's THREADS and TL are the .cu file's: one thread a
+    channel, 128 channels a block, 16 steps a staged chunk; the served
+    Falcon-Mamba prefill (Bt = 4, din = 8192) runs 256 blocks."""
+    src = kernel.SOURCE.read_text()
+    assert f"constexpr int THREADS = {kernel.THREADS};" in src
+    assert f"constexpr int TL = {kernel.TL};" in src
+    assert (kernel.THREADS, kernel.TL) == (128, 16)
+    assert 4 * (-(-8192 // kernel.THREADS)) == 256
+
+
+def test_scan_kernel_source_names_the_tpu_kernel_and_its_design():
+    src = kernel.SOURCE.read_text()
+    note = src[:src.index("#include")]
+    for word in ("selective_scan_pallas", "Bound on an H100",
+                 "one thread owns one (b, d)", "float4 broadcasts",
+                 "2^(dt a2 + 1) / 2", "fma(du, B, dA h)", "phase 4d",
+                 "float64"):
+        assert word in note, word
+    assert "ex2.approx.ftz.f32 %0, %1;" in src
+    assert "h[n] = fmaf(du, bv[i], dA * h[n]);" in src
+    assert 'extern "C" int selective_scan_launch' in src

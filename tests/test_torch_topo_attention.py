@@ -310,20 +310,6 @@ def test_kernel_path_refuses_inputs_that_require_grad():
         ops.topo_linear_attention(qf, kf, v, cs, use_kernel=True, **kw)
 
 
-@pytest.mark.parametrize("C,m,hd,R,td", [
-    (128, 64, 64, 1, 64), (128, 64, 64, 16, 16), (40, 4, 8, 1, 16),
-    (40, 4, 8, 16, 16), (128, 64, 24, 4, 32), (128, 64, 130, 1, 64)])
-def test_kernel_tile_choice_fits_the_block(C, m, hd, R, td):
-    assert kernel.choose_td(C, m, hd, R) == td
-    assert kernel.smem_bytes(td, C, m, R) <= kernel.SMEM_LIMIT
-    assert R * m <= kernel.UPT * kernel.THREADS // (td // 8)
-
-
-def test_kernel_tile_choice_raises_when_nothing_fits():
-    with pytest.raises(ValueError, match="no hd tile"):
-        kernel.choose_td(128, 128, 128, 16)  # rank state of qwen2's head_dim
-
-
 def test_topo_kernel_source_names_the_tpu_kernel_and_its_bound():
     src = (PKG / "kernels" / "topo_linear_attention"
            / "topo_sweep.cu").read_text()
@@ -331,3 +317,240 @@ def test_topo_kernel_source_names_the_tpu_kernel_and_its_bound():
     assert "src/repro/kernels/topo_linear_attention/kernel.py" in src
     assert "Bound on an H100" in src
     assert 'extern "C" int topo_sweep_launch' in src
+
+
+# ----------------------------------------------------------------------------
+# the tensor-core kernel's arithmetic, emulated on the CPU
+# ----------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """x rounded to tf32 as the kernel rounds it (topo_sweep.cu `tf32`): add
+    half a unit of the 13 dropped bits, then drop them, on the float32 bits
+    (to nearest, ties away from zero)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -8192).view(
+        torch.float32)
+
+
+def _tf32_trunc(x):
+    """What the tensor cores read of a float32 operand: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tc_split(x):
+    """The kernel's split: hi = tf32(x); lo = x - hi, truncated to tf32 by
+    the tensor cores."""
+    hi = _tf32(x)
+    return hi, _tf32_trunc(x - hi)
+
+
+def _rz(x):
+    """float64 -> float32 rounded toward zero."""
+    y = x.to(torch.float32)
+    away = y.double().abs() > x.abs()
+    return torch.where(away, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _tc_product(a, b, passes, acc=None):
+    """acc + a @ b as the kernel's m16n8k8 steps on the tensor cores: each
+    mma adds 8 exact products of tf32 values to its fp32 accumulator and
+    rounds the sum toward zero; per 8-deep step the passes a_lo b_hi,
+    a_hi b_lo, a_hi b_hi (passes=3) or one TF32 pass a_hi b_hi (passes=1)."""
+    (ah, al), (bh, bl) = _tc_split(a), _tc_split(b)
+    out = (torch.zeros(a.shape[:-1] + (b.shape[-1],), dtype=torch.float32)
+           if acc is None else acc)
+    terms = ((al, bh), (ah, bl), (ah, bh)) if passes == 3 else ((ah, bh),)
+    for k in range(0, a.shape[-1], 8):
+        s = slice(k, k + 8)
+        for x, y in terms:
+            out = _rz(out.double() + x[..., s].double() @ y[..., s, :].double())
+    return out
+
+
+def _tc_sweep_emulation(qp, kp, vp, dmat, lg=None, alpha=None, beta=None,
+                        passes=3, state_in_mma=False):
+    """One causal sweep with the tensor-core kernel's arithmetic
+    (topo_sweep.cu, topo_sweep_tc_kernel): per chunk P = (q k^T) * dmat
+    and num = P v as split products, den = rowsum(P); the read of the state
+    from its split copy, sum_r alpha_r (q S_r) and sum_r alpha_r (q z)_r;
+    the write dS_r = k^T (beta_r v), dz = k^T beta as split products from
+    zero, then S_r <- gC S_r + dS_r and z <- gC z + dz in fp32.
+    state_in_mma=True instead accumulates the state in the mma accumulators
+    across the whole sequence. Returns (num, den)."""
+    B, H, Lp, m = qp.shape
+    hd = vp.shape[-1]
+    C = dmat.shape[-1]
+    i = torch.arange(C, dtype=torch.float32)
+    if lg is not None:
+        R = 1
+        al_c = torch.exp(lg[:, None] * i)[:, :, None]           # (H, C, 1)
+        be_c = torch.exp(lg[:, None] * (C - i))[:, :, None]
+        gC = torch.exp(lg * C)[None, :, None, None]
+    else:
+        R = alpha.shape[-1]
+        gC = torch.ones((1, H, 1, 1))
+    S = torch.zeros((B, H, R, m, hd))
+    z = torch.zeros((B, H, m, R))
+    nums, dens = [], []
+    for c0 in range(0, Lp, C):
+        q, k, v = (t[:, :, c0:c0 + C] for t in (qp, kp, vp))
+        al = al_c if lg is not None else alpha[:, c0:c0 + C]
+        be = be_c if lg is not None else beta[:, c0:c0 + C]
+        P = _tc_product(q, k.transpose(-1, -2), passes) * dmat[None]
+        den = P.sum(-1)
+        num = _tc_product(P, v, passes)
+        for r in range(R):
+            num = num + al[None, :, :, r, None] * _tc_product(
+                q, S[:, :, r], passes)
+        den = den + (al[None] * _tc_product(q, z, passes)).sum(-1)
+        kt = k.transpose(-1, -2)
+        bv = [be[None, :, :, r, None] * v for r in range(R)]
+        bz = be[None].expand(B, H, C, R)
+        if state_in_mma:
+            S = torch.stack([_tc_product(kt, bv[r], passes,
+                                         S[:, :, r] * gC) for r in range(R)],
+                            dim=2)
+            z = _tc_product(kt, bz, passes, z * gC)
+        else:
+            S = S * gC[:, :, None] + torch.stack(
+                [_tc_product(kt, bv[r], passes) for r in range(R)], dim=2)
+            z = z * gC + _tc_product(kt, bz, passes)
+        nums.append(num)
+        dens.append(den)
+    return torch.cat(nums, 2), torch.cat(dens, 2)
+
+
+def _served_mode_inputs(mode, seed):
+    """The served layer's m = hd = 64 and C = 128 at L = 512 (4 chunks),
+    with the mask pieces of the port's _prepare (degree 1: decay; degree 2:
+    rank 16, whose Lagrange tables change sign)."""
+    rng = np.random.default_rng(seed)
+    qf, kf, v = (_t(a) for a in _features(rng, 1, 2, 512, 64, 64))
+    cs = _t(_coeffs(rng, (2, 2 if mode == "decay" else 3)))
+    spec = ops.TopoSpec("exp", 1.0 / 512, True, 128, 16, 1e-6)
+    lg, alpha, beta, dmat, _ = ops._prepare(spec, cs, 512)
+    return qf, kf, v, dmat, lg, alpha, beta
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("mode", ["decay", "rank16"])
+def test_tensor_core_split_keeps_the_gate(mode, seed):
+    """The tensor-core kernel's 3xTF32 arithmetic, emulated on the CPU,
+    stays within the 1e-4 bound of the plain sweep (num, den and the
+    normalized output) at the served layer's widths, in both modes: the
+    numerics are settled before the card sees them."""
+    qf, kf, v, dmat, lg, alpha, beta = _served_mode_inputs(mode, seed)
+    num, den = _tc_sweep_emulation(qf, kf, v, dmat, lg, alpha, beta)
+    pnum, pden = ops._sweep(qf, kf, v, dmat, lg, alpha, beta)
+    assert _rel(num, pnum) < 1e-4 and _rel(den, pden) < 1e-4
+    assert _rel(num / den[..., None], pnum / pden[..., None]) < 1e-4
+
+
+@pytest.mark.parametrize("mode", ["decay", "rank16"])
+def test_one_tf32_pass_would_break_the_gate(mode):
+    """Why the kernel splits each operand: one TF32 pass of the same
+    products lands above the 1e-4 bound of the plain sweep."""
+    qf, kf, v, dmat, lg, alpha, beta = _served_mode_inputs(mode, 0)
+    num, den = _tc_sweep_emulation(qf, kf, v, dmat, lg, alpha, beta,
+                                   passes=1)
+    pnum, pden = ops._sweep(qf, kf, v, dmat, lg, alpha, beta)
+    assert _rel(num / den[..., None], pnum / pden[..., None]) > 1e-4
+
+
+def test_state_accumulated_in_the_tensor_cores_would_drift():
+    """Why the kernel adds each chunk's dS to the state in fp32: kept in the
+    mma accumulators across the whole sequence, the state takes the
+    tensor cores' rounding toward zero of every sum, and num and den drift
+    from the plain sweep as L grows."""
+    rng = np.random.default_rng(0)
+    qf, kf, v = (_t(a) for a in _features(rng, 1, 2, 2048, 64, 64))
+    cs = _t(_coeffs(rng, (2, 2)))
+    spec = ops.TopoSpec("exp", 1.0 / 2048, True, 128, 16, 1e-6)
+    lg, _, _, dmat, _ = ops._prepare(spec, cs, 2048)
+    pnum, pden = ops._sweep(qf, kf, v, dmat, lg)
+    errs = {}
+    for long_lived in (False, True):
+        num, den = _tc_sweep_emulation(qf, kf, v, dmat, lg,
+                                       state_in_mma=long_lived)
+        errs[long_lived] = max(_rel(num, pnum), _rel(den, pden))
+    assert errs[False] < 5e-6 < 5 * errs[False] < errs[True]
+
+
+@pytest.mark.parametrize("C,m,hd,R,decay,want", [
+    (128, 64, 64, 1, True, (64, 2)),      # served, decay mode
+    (128, 64, 64, 16, False, (16, 1)),    # served, rank16 mode
+    (40, 4, 8, 1, True, (16, 2)), (40, 4, 8, 16, False, (16, 2)),
+    (32, 64, 64, 16, False, (16, 2)), (16, 16, 24, 1, True, (64, 2)),
+    (128, 64, 24, 4, False, (16, 2)), (128, 64, 130, 1, True, (64, 2)),
+    (128, 60, 62, 16, False, (16, 1)),
+    (20, 4, 8, 1, True, (16, 2)),         # C not a multiple of 8
+    (20, 8, 10, 16, False, (16, 2)),      # ... and hd not one of 4
+    (16, 6, 8, 16, False, (16, 2)),       # m not a multiple of 4
+    (128, 64, 10, 1, True, (16, 2))])
+def test_tensor_core_path_takes_every_served_shape(C, m, hd, R, decay,
+                                                   want):
+    """The served shapes (m = hd = 64, C = 128, decay or R = 16) and those
+    of the card tests, the ragged C, m and hd (zero-filled in shared memory)
+    among them, take the kernel in a block that fits."""
+    td, nbuf, smem = kernel.tc_config(C, m, hd, R, decay)
+    assert (td, nbuf) == want
+    assert smem == kernel.tc_smem_bytes(td, nbuf, C, m, R)
+    assert smem <= kernel.SMEM_LIMIT
+
+
+def _unaligned(*shape):
+    """A float32 tensor of this shape whose data lies 4 bytes past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 4)[1:n + 1].view(*shape)
+
+
+@pytest.mark.parametrize("bad", ["m_above_64", "moments_above_16",
+                                 "chunk_above_128", "qf_unaligned",
+                                 "v_unaligned", "res_num_unaligned"])
+def test_tensor_core_path_refuses_what_it_cannot_take(bad):
+    """A shape the kernel does not take, or rows it cannot copy 16 bytes at
+    a time, raise ValueError before anything is built or launched (these
+    CPU tensors would reach the launch otherwise)."""
+    B, H, L, m, hd, C = 1, 2, 16, 8, 8, 8
+    a = dict(qf=torch.ones(B, H, L, m), kf=torch.ones(B, H, L, m),
+             v=torch.ones(B, H, L, hd), dmat=torch.ones(H, C, C),
+             log_gamma=torch.zeros(H), alpha=None, beta=None, res_num=None,
+             res_den=None)
+    if bad == "m_above_64":
+        a["qf"] = a["kf"] = torch.ones(B, H, L, 72)
+    elif bad == "moments_above_16":
+        a["log_gamma"] = None
+        a["alpha"] = a["beta"] = torch.ones(H, L, 17)
+    elif bad == "chunk_above_128":
+        a["dmat"] = torch.ones(H, 136, 136)
+    elif bad == "qf_unaligned":
+        a["qf"] = _unaligned(B, H, L, m)
+    elif bad == "v_unaligned":
+        a["v"] = _unaligned(B, H, L, hd)
+    else:
+        a["res_num"] = _unaligned(B, H, L, hd)
+        a["res_den"] = torch.ones(B, H, L)
+    match = "aligned" if bad.endswith("unaligned") else "takes C <= 128"
+    with pytest.raises(ValueError, match=match):
+        kernel.topo_sweep_cuda(**a, normalize=True, eps=1e-6)
+    assert kernel._lib is None  # nothing was built
+
+
+def test_cpu_sweeps_count_no_launch_on_any_path():
+    a = _ok_sweep_args()
+    before = ops.LAUNCHES
+    ops.topo_attention_sweep(a.pop("qf"), a.pop("kf"), a.pop("v"),
+                             a.pop("dmat"), **a)
+    assert ops.LAUNCHES == before
+
+
+def test_topo_kernel_source_describes_the_tensor_core_path():
+    src = (PKG / "kernels" / "topo_linear_attention"
+           / "topo_sweep.cu").read_text()
+    note = src[:src.index("#include")]
+    for word in ("3xTF32", "mma.sync", "cp.async", "zero-filled",
+                 "0.161 ms", "0.899 ms", "0.261 / 2.215 ms"):
+        assert word in note, word
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert "topo_sweep_tc_kernel" in src and "simt" not in src.lower()
