@@ -9,9 +9,9 @@ sm_90a) and nvcc:
 It builds the port's five CUDA kernels (fdist_matvec, the topological
 linear-attention sweep, flash attention, causal linear attention and the
 selective scan) from the repository's sources, in parallel, checks that
-the flash attention library's bf16 kernel and the topo sweep library run
-on the tensor cores (HGMMA and HMMA instructions in their SASS,
-`cuobjdump -sass`), and drives four paths.
+the flash attention library's bf16 kernel and the topo sweep and linear
+attention libraries run on the tensor cores (HGMMA and HMMA instructions
+in their SASS, `cuobjdump -sass`), and drives four paths.
 
 FTFI: it holds the fdist_matvec kernel against its plain PyTorch version
 on the card, drives `ftfi.build` (graph -> MST -> IT plan on the host) and
@@ -40,8 +40,9 @@ full-width Llama-3.2-1B as published (rope, softmax attention,
 `attention_variant="full"`) and as a Performer (`"performer"`), with
 `attn_impl="cuda"` held against `"chunked"` in float32; then times
 prefill, decode and both kernels in bf16 (flash attention beside one
-`scaled_dot_product_attention` call) and traces one prefill and one
-decode step.
+`scaled_dot_product_attention` call; linear attention beside three
+bounds: bytes, 3xTF32 products on the tensor cores, fp32 FMAs outside
+them) and traces one prefill and one decode step.
 
 SSM LM: it holds the selective scan kernel against its plain chunked
 version (the served shape with f32 and bf16 inputs, on y and h_final; a
@@ -242,12 +243,14 @@ def phase_build():
     print(f"[build] {len(mods)} kernels in parallel, {wall:.1f} s wall",
           flush=True)
     out["wall_seconds"] = wall
-    # the bf16 flash kernel (wgmma: HGMMA in the SASS) and the topo sweep's
-    # tensor-core kernel (mma.sync: HMMA) must run on the tensor cores
+    # the bf16 flash kernel (wgmma: HGMMA in the SASS), the topo sweep's and
+    # the linear attention's tensor-core kernels (mma.sync: HMMA) must run
+    # on the tensor cores
     from repro_torch.kernels import _nvcc
 
     cuobjdump = Path(_nvcc.nvcc()).with_name("cuobjdump")
-    for name, op in (("flash_attention", "HGMMA"), ("topo_sweep", "HMMA")):
+    for name, op in (("flash_attention", "HGMMA"), ("topo_sweep", "HMMA"),
+                     ("linear_attention", "HMMA")):
         sass = subprocess.run([str(cuobjdump), "-sass",
                                str(ROOT / out[name]["library"])],
                               capture_output=True, text=True, check=True,
@@ -265,30 +268,53 @@ def phase_build():
 
 def _check_one(x, y, v, cs, mode, single=False):
     """(rel err vs the plain version, abs err vs it, rel err vs the exact
-    float64 product, the plain version's rel err vs that product) of one
-    kernel call."""
+    float64 product, the plain version's rel err vs that product, a
+    diagnosis) of one kernel call. The plain version and the exact product
+    are computed and synchronized before the kernel launches, so the
+    reference is complete before the code under test runs. The diagnosis
+    names the worst element (the kernel's, the plain and the exact value
+    there) and holds a second plain computation against the kernel, so a
+    failed check says which of the three results moved."""
     import torch
     from repro_torch.kernels.fdist_matvec import ops
     from repro_torch.kernels.fdist_matvec.ref import (
         f_eval, fdist_matvec_batched_ref, fdist_matvec_ref)
 
-    if single:
-        got = ops.fdist_matvec(x[0], y[0], v[0], cs, mode)[None]
-        want = fdist_matvec_ref(x[0], y[0], v[0], cs, mode)[None]
-    else:
-        got = ops.fdist_matvec_batched(x, y, v, cs, mode)
-        want = fdist_matvec_batched_ref(x, y, v, cs, mode)
+    def plain():
+        if single:
+            return fdist_matvec_ref(x[0], y[0], v[0], cs, mode)[None]
+        return fdist_matvec_batched_ref(x, y, v, cs, mode)
+
+    want = plain()
     exact = torch.bmm(f_eval(x.double()[:, :, None] + y.double()[:, None, :],
                              cs.double(), mode), v.double())
+    torch.cuda.synchronize()
+    if single:
+        got = ops.fdist_matvec(x[0], y[0], v[0], cs, mode)[None]
+    else:
+        got = ops.fdist_matvec_batched(x, y, v, cs, mode)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"kernel gave {tuple(got.shape)} {got.dtype}, "
                              f"plain {tuple(want.shape)} {want.dtype}")
     if not bool(torch.isfinite(got.float()).all()):
         raise AssertionError(f"kernel gave non-finite values ({mode})")
+
+    def diagnosis():
+        at = tuple(int(i) for i in np.unravel_index(
+            int((got.double() - want.double()).abs().argmax()),
+            tuple(got.shape)))
+        again = plain()
+        torch.cuda.synchronize()
+        return (f"worst at {at}: kernel "
+                f"{float(got[at]):.6g}, plain {float(want[at]):.6g}, exact "
+                f"{float(exact[at]):.6g}; plain computed again: rel err "
+                f"{rel_err(got, again):.3e} vs the kernel, "
+                f"{rel_err(again, want):.3e} vs the first plain")
+
     return (rel_err(got, want),
             float((got.double() - want.double()).abs().max()),
-            rel_err(got, exact), rel_err(want, exact))
+            rel_err(got, exact), rel_err(want, exact), diagnosis)
 
 
 def phase_kernel_vs_plain(buckets, device):
@@ -317,13 +343,13 @@ def phase_kernel_vs_plain(buckets, device):
             cs = torch.tensor(coeffs, dtype=torch.float32, device=device)
             for vdtype, tol in ((torch.float32, FP32_TOL),
                                 (torch.bfloat16, BF16_TOL)):
-                rel, ab, rel_x, plain_x = _check_one(
+                rel, ab, rel_x, plain_x, diagnosis = _check_one(
                     x, y, v32.to(vdtype), cs, mode, single=kind == "test_B1")
                 if not (rel < tol and rel_x < tol):
                     raise AssertionError(
                         f"kernel {kind} (B={B}, a={a}, b={b}, d={d}) {mode} "
                         f"{vdtype}: rel err {rel:.3e} vs plain, {rel_x:.3e} "
-                        f"vs exact; bound {tol}")
+                        f"vs exact; bound {tol}; {diagnosis()}")
                 rows.append({"kind": kind, "B": B, "a": a, "b": b, "d": d,
                              "mode": mode, "dtype": str(vdtype).split(".")[1],
                              "rel_err": rel, "abs_err": ab,
@@ -1104,11 +1130,13 @@ def phase_attn_kernel_vs_plain(device):
     served shape (causal and not, f32 and bf16) and at a ragged L, and
     against the dense oracle at L <= 1024; the linear attention kernel
     against its plain version at the served Performer shape, lg = 0 and
-    per-head lg in [-0.05, 0), f32 and bf16 v, on num and on den."""
+    per-head lg in [-0.05, 0), f32 and bf16 v, on num and on den, and
+    against the dense oracle on four of its heads."""
     import torch
     from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.kernels.linear_attention import ops as linear_ops
+    from repro_torch.kernels.linear_attention.ref import linear_attention_ref
 
     rng = np.random.default_rng(17)
     rows, served = [], {}
@@ -1192,14 +1220,21 @@ def phase_attn_kernel_vs_plain(device):
             num, den = linear_ops.linear_attention(qf, kf, v, lg)
             pnum, pden = linear_ops.linear_attention(qf, kf, v, lg,
                                                      use_kernel=False)
+            # the dense O(L^2) oracle over the whole length, on the first
+            # batch row's first 4 heads (their scores take 268 MB)
+            rnum, rden = linear_attention_ref(qf[:1, :4], kf[:1, :4],
+                                              v[:1, :4], lg[:4])
             torch.cuda.synchronize()
             e_num, e_den = rel_err(num, pnum), rel_err(den, pden)
+            r_num = rel_err(num[:1, :4], rnum)
+            r_den = rel_err(den[:1, :4], rden)
             row = {"kernel": "linear_attention", "shape": (B, H, L, m, hd),
                    "dtype": str(v.dtype).split(".")[1], "gamma": name,
                    "rel_err_num": e_num, "rel_err_den": e_den,
+                   "rel_err_num_ref": r_num, "rel_err_den_ref": r_den,
                    "abs_err": float((num - pnum).abs().max()),
                    "den_min": float(pden.min())}
-            if not (e_num <= LINEAR_TOL and e_den <= LINEAR_TOL):
+            if not max(e_num, e_den, r_num, r_den) <= LINEAR_TOL:
                 raise AssertionError(f"linear attention kernel {row} "
                                      f"(bound {LINEAR_TOL})")
             rows.append(row)
@@ -1222,8 +1257,10 @@ def phase_attn_kernel_vs_plain(device):
           f" | linear: {len(li)} checks at {DENSE['linear_shape']} (lg 0 and "
           f"per head, f32/bf16 v) | worst rel err num "
           f"{max(r['rel_err_num'] for r in li):.2e}, den "
-          f"{max(r['rel_err_den'] for r in li):.2e} (< {LINEAR_TOL})",
-          flush=True)
+          f"{max(r['rel_err_den'] for r in li):.2e}; vs the dense oracle "
+          f"(b 0, heads 0-3) num {max(r['rel_err_num_ref'] for r in li):.2e},"
+          f" den {max(r['rel_err_den_ref'] for r in li):.2e} (< "
+          f"{LINEAR_TOL})", flush=True)
     return rows, served
 
 
@@ -1231,7 +1268,9 @@ def phase_attn_times(served, card):
     """5c: each kernel's device time per launch at the served shape, beside
     its bound, its plain version's time and, for flash attention, one
     `scaled_dot_product_attention` call on the same inputs (a yardstick,
-    never on the path)."""
+    never on the path). Linear attention's bound is the work's bytes over
+    HBM against its operations as 3xTF32 products on the tensor cores (the
+    kernel's route); its operations as fp32 FMAs outside them beside it."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as flash_ops
@@ -1275,17 +1314,23 @@ def phase_attn_times(served, card):
         p_ms = device_ms(lambda: linear_ops.linear_attention(
             qf, kf, v, lg, use_kernel=False), 2)
         nbytes, ops_ = linear_work(B, H, L, m, hd, v.element_size())
-        b_ms, b_by = bound(nbytes, ops_)
+        b_ms, b_by = bound(nbytes, ops_, TF32_FLOPS_PER_S / 3)
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        tf32_ms = ops_ / (TF32_FLOPS_PER_S / 3) * 1e3
+        fp32_ms = ops_ / FP32_FLOPS_PER_S * 1e3
         out[f"linear_{name}"] = {
             "shape": (B, H, L, m, hd), "C": C, "td":
                 linear_kernel.TD, "v_dtype": "bfloat16",
             "ms": k_ms, "plain_ms": p_ms, "library_ms": None,
             "bytes": nbytes, "ops": ops_, "bound_ms": b_ms,
-            "bound_by": b_by}
+            "bound_by": b_by, "bytes_ms": bytes_ms, "tf32x3_ms": tf32_ms,
+            "bound_fp32_ms": max(bytes_ms, fp32_ms), "fp32_ms": fp32_ms}
         print(f"[attn times linear {name}] B={B} H={H} L={L} m={m} hd={hd} "
               f"C={C}, bf16 v: kernel {k_ms:.3f} ms/launch, plain "
-              f"{p_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}), library none "
-              f"| {card}", flush=True)
+              f"{p_ms:.3f} ms | bounds: bytes {bytes_ms:.3f} ms, 3xTF32 "
+              f"{tf32_ms:.3f} ms, fp32 FMA {fp32_ms:.3f} ms: bound "
+              f"{b_ms:.3f} ms ({b_by}; {b_ms / k_ms:.0%} of it reached), "
+              f"library none | {card}", flush=True)
     return out
 
 
@@ -1617,10 +1662,13 @@ def run(cfg, device, out_path=None) -> dict:
         "max_abs_err": max(r["abs_err"] for r in attn_checks
                            if r["kernel"] == "linear_attention"),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None,
+        "bound_by": t["bound_by"], "bound_fp32_ms": t["bound_fp32_ms"],
+        "library_ms": None,
         "at": (f"one launch, lg = 0, bf16 v, B={B} H={H} L={L} m={m} "
                f"hd={hd}, C={t['C']}: one layer of the {TOPO['arch']} "
-               "Performer prefill"),
+               "Performer prefill; bound_ms: bytes against 3xTF32 on the "
+               "tensor cores, bound_fp32_ms: against fp32 FMAs outside "
+               "them"),
     })
 
     # slice 4: Falcon-Mamba-7B served through the selective scan kernel

@@ -4,6 +4,10 @@ The source, `linear_attention.cu`, sits beside this module. At first use
 the port's one nvcc build step (`kernels/_nvcc.py`) compiles it for sm_90a
 into a shared library with a plain C entry point, loaded with ctypes.
 
+The kernel (3xTF32 `mma.sync` on the tensor cores, 2xTF32 where v is
+bf16) takes every m <= 64 that is a multiple of 4, which includes every
+served shape; `ops._check` refuses the rest with a ValueError.
+
 Nothing here runs at import: the CPU tests import this module on machines
 with neither nvcc nor a card. A failed build or a refused launch raises;
 nothing falls back to the plain version.
@@ -20,6 +24,7 @@ from repro_torch.kernels import _nvcc
 SOURCE = Path(__file__).with_name("linear_attention.cu")
 CHUNK = 64  # the .cu file's C
 TD = 64  # the .cu file's hd tile: columns of hd a block owns
+MAX_M = 64  # the .cu file's MAX_M: 8 k-steps of q, 4 m-tiles of the state
 
 _ARGTYPES = ([ctypes.c_int] + [ctypes.c_void_p] * 7
              + [ctypes.c_int] * 5 + [ctypes.c_void_p])
@@ -48,13 +53,15 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
-def smem_bytes(m: int) -> int:
-    """Dynamic shared memory of one block (the .cu file's layout): q and k,
-    P, the v tile, the state S and z, and the two decay rows. An m whose
-    block does not fit is refused at launch."""
+def smem_bytes() -> int:
+    """Dynamic shared memory of one block (the .cu file's SM_FLOATS): two
+    split copies of the state S (MAX_M x TD, hi and lo: before and after a
+    chunk), two buffers each of q and k rows (C x (MAX_M + 4)) and of v
+    rows (C x (TD + 4) floats; a bf16 row takes TD + 8 halves of it), P
+    (C x (C + 8)), two copies of z, and the decay table (C + 4)."""
     C = CHUNK
-    return 4 * (2 * C * (m + 4) + C * (C + 4) + C * (TD + 4) + m * (TD + 4)
-                + m + 2 * C)
+    return 4 * (4 * MAX_M * TD + 4 * C * (MAX_M + 4) + 2 * C * (TD + 4)
+                + C * (C + 8) + 2 * MAX_M + C + 4)
 
 
 def linear_attention_cuda(qf, kf, v, log_gamma):
@@ -80,5 +87,5 @@ def linear_attention_cuda(qf, kf, v, log_gamma):
     if err != 0:
         raise RuntimeError(
             f"linear attention launch failed: cudaError {err} (B={B}, H={H}, "
-            f"L={L}, m={m}, hd={hd}, smem={smem_bytes(m)})")
+            f"L={L}, m={m}, hd={hd}, smem={smem_bytes()})")
     return num, den

@@ -103,9 +103,9 @@ def _check(qf, kf, v, log_gamma, kernel_path: bool) -> None:
                             f"got {t.dtype}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a unit last stride")
-    if m % 4:
-        raise ValueError(f"the linear attention kernel needs m % 4 == 0, "
-                         f"got m={m}")
+    if m % 4 or m > kernel.MAX_M:
+        raise ValueError(f"the linear attention kernel takes m <= "
+                         f"{kernel.MAX_M} with m % 4 == 0, got m={m}")
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in named.values()):
         raise NotImplementedError(

@@ -468,14 +468,16 @@ def test_flash_kernel_reads_the_model_layout_in_place(cuda_device):
 @pytest.mark.parametrize("B,H,L,m,hd", [
     (2, 3, 128, 16, 32), (1, 2, 1000, 64, 64), (2, 2, 200, 8, 8),
     (1, 2, 77, 64, 24), (1, 1, 1, 16, 16), (1, 2, 150, 32, 80),
-    (2, 2, 64, 64, 160)])
+    (2, 2, 64, 64, 160), (1, 2, 4096, 64, 64), (2, 3, 300, 12, 40)])
 @pytest.mark.parametrize("lg", [0.0, -0.05, "perhead"])
 @pytest.mark.parametrize("vdtype", ["float32", "bfloat16"])
 def test_linear_kernel_matches_plain_version(B, H, L, m, hd, lg, vdtype,
                                              cuda_device):
     """num and den each within 1e-5 relative to max of the plain version
     and of the dense oracle (tests/test_kernels.py); hd = 80 and 160 take
-    two and three hd tiles, the last one ragged."""
+    two and three hd tiles, the last one ragged; L = 4096 is the served
+    length (64 chunks of state); m = 12 is a multiple of 4 but not of 8
+    (its last k-step zero-filled)."""
     rng = np.random.default_rng(L + m)
     qf, kf = (torch.tensor(np.abs(rng.normal(size=(B, H, L, m))),
                            dtype=torch.float32, device=cuda_device)
@@ -497,18 +499,52 @@ def test_linear_kernel_matches_plain_version(B, H, L, m, hd, lg, vdtype,
 
 @pytest.mark.cuda
 def test_linear_kernel_refuses_an_m_that_does_not_fit(cuda_device):
-    """A block holds q, k and the state in shared memory: m = 512 does not
-    fit, and the launch is refused; the next launch is not affected."""
+    """The kernel takes m <= 64 (8 k-steps of q, 4 m-tiles of the state):
+    m = 512 is refused with a ValueError before anything launches; the
+    next launch is not affected."""
     v = torch.ones(1, 2, 8, 64, device=cuda_device)
     lg = torch.zeros(2, device=cuda_device)
     big = torch.ones(1, 2, 8, 512, device=cuda_device)
-    with pytest.raises(RuntimeError, match="launch failed"):
+    before = linear_ops.LAUNCHES
+    with pytest.raises(ValueError, match="m <= 64"):
         linear_ops.linear_attention(big, big, v, lg)
+    assert linear_ops.LAUNCHES == before
     small = torch.ones(1, 2, 8, 64, device=cuda_device)
     num, den = linear_ops.linear_attention(small, small, v, lg)
     torch.cuda.synchronize()
     assert torch.equal(den[0, 0], 64.0 * torch.arange(1, 9, device=cuda_device,
                                                       dtype=torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16"])
+def test_linear_kernel_reads_strided_and_unaligned_rows(vdtype, cuda_device):
+    """The model's (B, L, H, .) tensors as transposed views (staged 16 bytes
+    at a time) and rows that are not 16-byte aligned (staged by plain
+    loads: q and k 4 bytes past a boundary, hd = 20) give the contiguous
+    result bit for bit (the staging does not change the arithmetic),
+    written in v's layout."""
+    rng = np.random.default_rng(5)
+    B, L, H, m = 2, 200, 3, 16
+    lg = torch.tensor(-rng.uniform(0, 0.05, H), dtype=torch.float32,
+                      device=cuda_device)
+    for hd, shift in ((64, 0), (20, 1)):
+        qf, kf = (torch.tensor(np.abs(rng.normal(size=(B * L * H * m + 1))),
+                               dtype=torch.float32, device=cuda_device)
+                  [shift:shift + B * L * H * m].view(B, L, H, m)
+                  .transpose(1, 2) for _ in range(2))
+        v = torch.tensor(rng.normal(size=(B, L, H, hd)),
+                         dtype=getattr(torch, vdtype),
+                         device=cuda_device).transpose(1, 2)
+        num, den = linear_ops.linear_attention(qf, kf, v, lg)
+        want = linear_ops.linear_attention(
+            *(t.contiguous() for t in (qf, kf, v)), lg)
+        torch.cuda.synchronize()
+        assert num.stride() == v.stride()
+        assert torch.equal(num, want[0]) and torch.equal(den, want[1])
+        pnum, pden = linear_ops.linear_attention(qf, kf, v, lg,
+                                                 use_kernel=False)
+        assert _rel(num, pnum) < 1e-5 and _rel(den, pden) < 1e-5
 
 
 @pytest.mark.cuda

@@ -5,8 +5,12 @@ against the reference's Pallas kernel (interpret mode), its XLA twin
 log_gamma 0 (the Performer), -0.05 and per head, on num and on den; the
 topological "fft" impl at degree <= 1 (which runs through it) against the
 reference's "fft" and the port's dense "ref", causal and bidirectional;
-the wrapper's refusals. The kernel itself is held against the plain
-version on a card by test_torch_cuda.py."""
+the wrapper's refusals; the kernel's tensor-core arithmetic (3xTF32, 2xTF32
+with a bf16 v, the state in fp32), emulated on the CPU at the served
+length. The kernel itself is held against the plain version on a card by
+test_torch_cuda.py."""
+import re
+
 import numpy as np
 import pytest
 
@@ -115,8 +119,8 @@ def test_wrapper_runs_the_plain_version_on_the_cpu():
 
 
 @pytest.mark.parametrize("bad", [
-    "rank", "v_length", "lg_shape", "dtype", "v_dtype", "m_odd", "stride",
-    "numpy", "meta_device"])
+    "rank", "v_length", "lg_shape", "dtype", "v_dtype", "m_odd",
+    "m_above_64", "stride", "numpy", "meta_device"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     B, H, L, m, hd = 1, 2, 16, 8, 8
     a = dict(qf=torch.ones(B, H, L, m), kf=torch.ones(B, H, L, m),
@@ -133,6 +137,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
         a["v"] = a["v"].half()
     elif bad == "m_odd":
         a["qf"] = a["kf"] = torch.ones(B, H, L, 6)
+    elif bad == "m_above_64":  # more than the kernel's 8 k-steps of q
+        a["qf"] = a["kf"] = torch.ones(B, H, L, 68)
     elif bad == "stride":
         a["kf"] = torch.ones(B, H, m, L).transpose(2, 3)
     elif bad == "numpy":
@@ -163,6 +169,176 @@ def test_linear_kernel_source_names_the_tpu_kernel_and_its_bound():
     assert "src/repro/kernels/linear_attention/kernel.py" in src
     assert "Bound on an H100" in src
     assert 'extern "C" int linear_attention_launch' in src
+    # one kernel, on the tensor cores as 3xTF32; no SIMT body of fp32 FMAs
+    note = src[:src.index("#include")]
+    for word in ("3xTF32", "mma.sync", "cp.async", "0.141 ms", "0.054 ms",
+                 "0.132 ms"):
+        assert word in note, word
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in src
+    assert src.count("__global__") == 1 and "lin_attn_tc_kernel" in src
+    assert not re.search(r"\blin_attn_kernel\b", src)
+
+
+def test_kernel_constants_match_the_source():
+    """kernel.py's CHUNK, TD and MAX_M are the .cu file's, and its block
+    (the same for every m) fits in an SM's shared memory."""
+    src = kernel.SOURCE.read_text()
+    for name, value in (("C", kernel.CHUNK), ("TD", kernel.TD),
+                        ("MAX_M", kernel.MAX_M)):
+        assert f"constexpr int {name} = {value};" in src, name
+    assert kernel.smem_bytes() == 189_200 <= 232_448
+    assert "sizeof(float) * SM_FLOATS" in src
+
+
+# ----------------------------------------------------------------------------
+# the tensor-core kernel's arithmetic, emulated on the CPU
+# ----------------------------------------------------------------------------
+
+
+def _tf32(x):
+    """x rounded to tf32 as the kernel rounds it (linear_attention.cu
+    `tf32`): add half a unit of the 13 dropped bits, then drop them, on the
+    float32 bits (to nearest, ties away from zero)."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & -8192).view(
+        torch.float32)
+
+
+def _tf32_trunc(x):
+    """What the tensor cores read of a float32 operand: its top 19 bits."""
+    return (x.contiguous().view(torch.int32) & -8192).view(torch.float32)
+
+
+def _tc_split(x):
+    """The kernel's split: hi = tf32(x); lo = x - hi, truncated to tf32 by
+    the tensor cores."""
+    hi = _tf32(x)
+    return hi, _tf32_trunc(x - hi)
+
+
+def _rz(x):
+    """float64 -> float32 rounded toward zero."""
+    y = x.to(torch.float32)
+    away = y.double().abs() > x.abs()
+    return torch.where(away, torch.nextafter(y, torch.zeros_like(y)), y)
+
+
+def _tc_product(a, b, passes, acc=None):
+    """acc + a @ b as the kernel's m16n8k8 steps on the tensor cores: each
+    mma adds 8 exact products of tf32 values to its fp32 accumulator and
+    rounds the sum toward zero; per 8-deep step the passes a_lo b_hi,
+    a_hi b_lo, a_hi b_hi (3), without a_hi b_lo where b is exact in tf32
+    (2: a bf16 v), or one TF32 pass a_hi b_hi (1)."""
+    (ah, al), (bh, bl) = _tc_split(a), _tc_split(b)
+    out = (torch.zeros(a.shape[:-1] + (b.shape[-1],), dtype=torch.float32)
+           if acc is None else acc)
+    terms = {3: ((al, bh), (ah, bl), (ah, bh)), 2: ((al, bh), (ah, bh)),
+             1: ((ah, bh),)}[passes]
+    for k in range(0, a.shape[-1], 8):
+        s = slice(k, k + 8)
+        for x, y in terms:
+            out = _rz(out.double() + x[..., s].double() @ y[..., s, :].double())
+    return out
+
+
+def _fma(a, b, c):
+    """a b + c in float32 with one rounding, as the kernel's fmaf."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _lin_kernel_emulation(qf, kf, v, lg, passes=3, v_passes=3,
+                          state_in_mma=False):
+    """Causal linear attention with the tensor-core kernel's arithmetic
+    (linear_attention.cu, lin_attn_tc_kernel), chunks of C = 64: per chunk
+    P = (q k^T) * gamma^(i-j) and num = P v as split products from zero,
+    den = rowsum(P); the read of the state, num += gamma^pos (q S) with S
+    split, den += gamma^pos (q . z) in fp32; the write dS = (k
+    gamma^(C-pos))^T v as split products from zero, then S <- gamma^C S +
+    dS (one fp32 rounding) and z <- gamma^C z + dz in fp32. v_passes: the
+    passes of P v and dS (2 where v holds bf16 values). state_in_mma=True
+    instead accumulates S in the mma accumulators across the sequence.
+    (B, H, L, .) in; returns (num, den)."""
+    B, H, L, m = qf.shape
+    C = kernel.CHUNK
+    etab = torch.exp(lg[:, None] * torch.arange(C + 1, dtype=torch.float32))
+    i = torch.arange(C)
+    delta = i[:, None] - i[None, :]
+    dmat = torch.where(delta >= 0, etab[:, delta.clamp(min=0)], 0.0)
+    ea = etab[:, :C][None, :, :, None]          # gamma^pos
+    beta = etab[:, C - i][None, :, :, None]     # gamma^(C - pos)
+    gC = etab[:, C][None, :, None, None]
+    S = torch.zeros((B, H, m, v.shape[-1]))
+    z = torch.zeros((B, H, m, 1))
+    nums, dens = [], []
+    for c0 in range(0, L, C):
+        q, k, vc = (t[:, :, c0:c0 + C] for t in (qf, kf, v))
+        P = _tc_product(q, k.transpose(-1, -2), passes) * dmat[None]
+        num = _fma(ea, _tc_product(q, S, passes), _tc_product(P, vc,
+                                                              v_passes))
+        den = P.sum(-1) + (ea * (q @ z))[..., 0]
+        kb = (k * beta).transpose(-1, -2)
+        if state_in_mma:
+            S = _tc_product(kb, vc, v_passes, S * gC)
+        else:
+            S = _fma(gC, S, _tc_product(kb, vc, v_passes))
+        z = gC * z + kb.sum(-1, keepdim=True)
+        nums.append(num)
+        dens.append(den)
+    return torch.cat(nums, 2), torch.cat(dens, 2)
+
+
+def _served_length_inputs(lg_kind, vdtype, seed=0):
+    """The served Performer layer's m = hd = 64 at its L = 4096 (64
+    chunks), two heads; v rounded to bf16 where the model's v is bf16."""
+    rng = np.random.default_rng(seed)
+    qf, kf, v = (_t(a) for a in _features(rng, 1, 2, 4096, 64, 64))
+    lg = _t(-rng.uniform(1e-4, 0.05, 2) if lg_kind == "perhead"
+            else np.zeros(2))
+    if vdtype == "bfloat16":
+        v = v.to(torch.bfloat16).float()
+    return qf, kf, v, lg
+
+
+def _gate(got, want):
+    return max(_rel(got[0], want[0]), _rel(got[1], want[1]))
+
+
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lg_kind", ["lg0", "perhead"])
+def test_kernel_arithmetic_keeps_the_gate(lg_kind, vdtype):
+    """The tensor-core kernel's arithmetic, emulated on the CPU over the
+    whole served length, stays within the 1e-5 gate of the plain version on
+    num and den: 3xTF32 for the fp32 products, 2xTF32 where v is bf16 (the
+    dropped pass multiplies v's lo, which is 0), the state in fp32."""
+    qf, kf, v, lg = _served_length_inputs(lg_kind, vdtype)
+    got = _lin_kernel_emulation(qf, kf, v, lg,
+                                v_passes=2 if vdtype == "bfloat16" else 3)
+    plain = ops.linear_attention(qf, kf, v, lg, use_kernel=False)
+    assert _gate(got, plain) < TOL
+
+
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16"])
+def test_one_tf32_pass_would_break_the_gate(vdtype):
+    """Why the kernel splits each fp32 operand: one TF32 pass of the same
+    products lands above the 1e-5 gate of the plain version."""
+    qf, kf, v, lg = _served_length_inputs("lg0", vdtype)
+    got = _lin_kernel_emulation(qf, kf, v, lg, passes=1, v_passes=1)
+    plain = ops.linear_attention(qf, kf, v, lg, use_kernel=False)
+    assert _gate(got, plain) > TOL
+
+
+@pytest.mark.parametrize("vdtype", ["float32", "bfloat16"])
+def test_state_accumulated_in_the_tensor_cores_would_drift(vdtype):
+    """Why the kernel adds each chunk's dS to the state in fp32: at lg = 0
+    (the Performer's state never decays) a state kept in the mma
+    accumulators over the 64 chunks takes the tensor cores' rounding toward
+    zero of every sum and drifts past the gate."""
+    qf, kf, v, lg = _served_length_inputs("lg0", vdtype)
+    passes = 2 if vdtype == "bfloat16" else 3
+    plain = ops.linear_attention(qf, kf, v, lg, use_kernel=False)
+    errs = [_gate(_lin_kernel_emulation(qf, kf, v, lg, v_passes=passes,
+                                        state_in_mma=long_lived), plain)
+            for long_lived in (False, True)]
+    assert errs[0] < TOL < errs[1]
 
 
 # ----------------------------------------------------------------------------
