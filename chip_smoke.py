@@ -55,6 +55,19 @@ them again, times prefill, decode and the kernel (its bound with a third
 term, the exps on the special function units at the card's SM clock)
 and traces one prefill and one decode step.
 
+Topo fft and TopoViT: it holds `topo_attention_train` with impl "fft"
+(Alg. 1 with the Toeplitz-FFT FastMult, float64 FFTs) against the dense
+oracle at the served topo-LM's width (degree 2 and 3, causal and
+bidirectional, L = 1024) and times it beside the sweep kernel at L = 4096;
+holds the full TopoViT-B/16 (12 layers, the grid-MST mask through the plan
+executor's Hankel engine, which launches no kernel of the port) in float32
+on impl "cuda" against "ref" on the card and against "torch" on the CPU at
+2 images, and against "ref" at 64 (the field in several column chunks);
+then serves a batch of 64 images in bf16, and the Performer variant at the
+same shape: forward ms, images/s, peak memory, a profile of one forward and
+the fastmult's share of its device time, the dense mask's forward for
+scale, and the ops of one Hankel-engine call (the FFT's layout).
+
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
 
@@ -1498,6 +1511,338 @@ def phase_scan_times(served, info, card):
     return out
 
 
+# ----------------------------------------------------------------------------
+# slice 8: the Toeplitz-FFT topo impl, and TopoViT-B/16 served through Alg. 1
+# with the plan FastMult (no kernel of the port on this path)
+# ----------------------------------------------------------------------------
+
+# topovit_b16 (src/repro_torch/configs/topovit_b16.py) at full width and
+# depth: 224 x 224 images as 196 patches of 16 x 16 x 3 = 768 values
+VIT = {"arch": "topovit_b16", "patch_dim": 768, "classes": 1000,
+       "gate_batch": 2, "serve_batch": 64, "seed": 0, "reps": 3,
+       # the topo-LM layer of phase 3e: (B, L) checked, (B, L) timed
+       "fft_check": (4, 1024), "fft_time": (4, 4096), "fft_degrees": (2, 3)}
+FFT_REF_TOL = 1e-3  # tests/test_topo_attention.py:81, relative to max
+VIT_REF_TOL, VIT_CPU_TOL = 1e-3, 1e-4  # tests/test_topo_attention.py:132
+LAYOUT_OPS = {"aten::flip", "aten::clone", "aten::contiguous", "aten::copy_",
+              "aten::constant_pad_nd", "aten::_fft_r2c", "aten::_fft_c2r"}
+
+
+def _topo_layer(cfg, seed, device):
+    """One topo attention layer of `cfg` (random projections, mask scalars
+    drawn as tests/test_topo_attention.py's _topo_params draws them)."""
+    import torch
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import Params
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    rng = np.random.default_rng(seed)
+    attn = A.Attention(cfg, torch.float32, device)
+    topo = Params(A.topo_shapes(cfg), torch.float32, device)
+    with torch.no_grad():
+        for name, t in A.attn_init(gen, cfg).items():
+            getattr(attn, name).copy_(t)
+        topo.coeffs.copy_(torch.tensor(rng.uniform(
+            -0.5, 0.5, tuple(topo.coeffs.shape)), dtype=torch.float32))
+        topo.logit_scale.copy_(torch.tensor(rng.uniform(
+            -0.3, 0.3, tuple(topo.logit_scale.shape)), dtype=torch.float32))
+    return attn, topo, gen
+
+
+def phase_topo_fft(card, device):
+    """3e: topo_attention_train with impl "fft" (Alg. 1 with the
+    Toeplitz-FFT FastMult, float64 FFTs) against "ref" (the dense oracle)
+    at the served topo-LM's width, float32, degree 2 and 3, causal and
+    bidirectional; then "fft" timed beside "cuda" (the sweep kernel, rank
+    mode) at L = 4096."""
+    import torch
+    from repro_torch.models import attention as A
+
+    out = {"checks": [], "times": []}
+    for degree in VIT["fft_degrees"]:
+        cfg = _topo_cfg(degree, "fft", "float32")
+        attn, topo, gen = _topo_layer(cfg, degree, device)
+        B, L = VIT["fft_check"]
+        x = torch.randn((B, L, cfg.d_model), generator=gen,
+                        device=device) * 0.5
+        pos = torch.arange(L, device=device)[None].expand(B, L)
+        for causal in (True, False):
+            with torch.no_grad():
+                got = A.topo_attention_train(cfg, attn, topo, x, pos, causal)
+                want = A.topo_attention_train(
+                    cfg.replace(topo_attn_impl="ref"), attn, topo, x, pos,
+                    causal)
+            err = rel_err(got, want)
+            ok = bool(torch.isfinite(got).all()) and err <= FFT_REF_TOL
+            out["checks"].append({"degree": degree, "causal": causal,
+                                  "B": B, "L": L, "rel_err": err})
+            print(f"[topo fft check] degree {degree}, "
+                  f"{'causal' if causal else 'bidirectional'}, B={B} "
+                  f"L={L} H={cfg.num_heads} KV={cfg.num_kv_heads} "
+                  f"hd={cfg.head_dim} d_model={cfg.d_model}, float32: fft vs "
+                  f"ref {err:.2e} (<= {FFT_REF_TOL})", flush=True)
+            if not ok:
+                raise AssertionError(f"topo fft degree {degree} causal "
+                                     f"{causal}: {err:.3e} from ref")
+        del x, got, want
+        torch.cuda.empty_cache()
+    cfg = _topo_cfg(2, "fft", "float32")
+    attn, topo, gen = _topo_layer(cfg, 2, device)
+    B, L = VIT["fft_time"]
+    x = torch.randn((B, L, cfg.d_model), generator=gen, device=device) * 0.5
+    pos = torch.arange(L, device=device)[None].expand(B, L)
+    row = {"degree": 2, "B": B, "L": L, "causal": True}
+    for impl in ("fft", "cuda"):
+        c = cfg.replace(topo_attn_impl=impl)
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            row[f"{impl}_ms"] = host_ms(lambda: A.topo_attention_train(
+                c, attn, topo, x, pos, True), VIT["reps"])
+        row[f"{impl}_peak_bytes"] = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        row["fft_vs_cuda_rel_err"] = rel_err(
+            A.topo_attention_train(cfg, attn, topo, x, pos, True),
+            A.topo_attention_train(cfg.replace(topo_attn_impl="cuda"), attn,
+                                   topo, x, pos, True))
+    out["times"].append(row)
+    print(f"[topo fft times] one layer, degree 2 causal, B={B} L={L}, "
+          f"float32, host clock to synchronize: fft {row['fft_ms']:.1f} ms "
+          f"(peak {row['fft_peak_bytes'] / 2**30:.1f} GiB), cuda (B2 rank16) "
+          f"{row['cuda_ms']:.1f} ms (peak "
+          f"{row['cuda_peak_bytes'] / 2**30:.1f} GiB); fft vs cuda "
+          f"{row['fft_vs_cuda_rel_err']:.2e} | {card}", flush=True)
+    del x
+    torch.cuda.empty_cache()
+    return out
+
+
+def _vit_cfg(impl: str = "cuda", dtype: str | None = None, **kw):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(VIT["arch"], topo_attn_impl=impl, **kw)
+    return cfg.replace(dtype=dtype) if dtype else cfg
+
+
+def _patches(cfg, B, dtype, device):
+    import torch
+
+    rng = np.random.default_rng(VIT["seed"] + B)
+    return torch.tensor(rng.normal(size=(B, cfg.num_prefix_embeddings,
+                                         VIT["patch_dim"])),
+                        dtype=dtype, device=device)
+
+
+def _vit_forward(cfg, model, patches, device):
+    import torch
+    from repro_torch.models import vit
+
+    with torch.no_grad():
+        return vit.forward(cfg, model, patches, device=device)
+
+
+def phase_vit_gate(device):
+    """4e: TopoViT-B/16 at full width and depth in float32 (TF32 off), B =
+    2, random weights from a seed: impl "cuda" on the card against "ref"
+    (the dense MST mask) on the card, and against "torch" on the CPU (the
+    same computation); no port kernel launches. Then "cuda" against "ref"
+    on the card at the served batch, whose folded field runs in several
+    column chunks."""
+    import torch
+    from repro_torch.core.masks import FIELD_COL_CHUNK
+    from repro_torch.kernels.fdist_matvec import ops as fdist_ops
+    from repro_torch.kernels.topo_linear_attention import ops as topo_ops
+    from repro_torch.models import vit
+
+    cfg = _vit_cfg("cuda", "float32")
+    model = vit.init_params(cfg, VIT["seed"], VIT["classes"],
+                            VIT["patch_dim"], device=device)
+    patches = _patches(cfg, VIT["gate_batch"], torch.float32, device)
+    before = (fdist_ops.LAUNCHES, topo_ops.LAUNCHES)
+    got = _vit_forward(cfg, model, patches, device)
+    torch.cuda.synchronize()
+    launched = (fdist_ops.LAUNCHES - before[0], topo_ops.LAUNCHES - before[1])
+    want = _vit_forward(cfg.replace(topo_attn_impl="ref"), model, patches,
+                        device)
+    cpu_model = vit.from_state_dict(cfg, {k: t.detach().cpu() for k, t in
+                                          model.state_dict().items()})
+    t0 = time.perf_counter()
+    cpu = _vit_forward(cfg.replace(topo_attn_impl="torch"), cpu_model,
+                       patches.cpu(), "cpu")
+    cpu_s = time.perf_counter() - t0
+    e_ref, e_cpu = rel_err(got, want), rel_err(got.cpu(), cpu)
+    shape_ok = tuple(got.shape) == (VIT["gate_batch"], VIT["classes"])
+    ok = (shape_ok and bool(torch.isfinite(got).all()) and e_ref <= VIT_REF_TOL
+          and e_cpu <= VIT_CPU_TOL and launched == (0, 0))
+    print(f"[topovit gate] {cfg.name}, float32, matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, depth {cfg.num_layers} "
+          f"of {cfg.num_layers}, width {cfg.d_model}, B={VIT['gate_batch']}: "
+          f"logits {tuple(got.shape)}, cuda vs ref (card) {e_ref:.2e} (<= "
+          f"{VIT_REF_TOL}), cuda (card) vs torch (CPU, {cpu_s:.1f} s) "
+          f"{e_cpu:.2e} (<= {VIT_CPU_TOL}); port kernel launches fdist "
+          f"{launched[0]}, topo sweep {launched[1]}", flush=True)
+    if not ok:
+        raise AssertionError("topovit float32 gate failed")
+    # the served batch: its folded field spans several column chunks, so
+    # the chunk-and-concatenate path is held against the dense mask here
+    B = VIT["serve_batch"]
+    cols = B * cfg.num_heads * cfg.head_dim * cfg.head_dim
+    chunks = -(-cols // FIELD_COL_CHUNK)
+    patches = _patches(cfg, B, torch.float32, device)
+    got = _vit_forward(cfg, model, patches, device)
+    want = _vit_forward(cfg.replace(topo_attn_impl="ref"), model, patches,
+                        device)
+    e_served = rel_err(got, want)
+    ok = (chunks > 1 and tuple(got.shape) == (B, VIT["classes"])
+          and bool(torch.isfinite(got).all()) and e_served <= VIT_REF_TOL)
+    print(f"[topovit gate, served batch] float32, B={B}: a folded field of "
+          f"{cols} columns, {chunks} chunks of {FIELD_COL_CHUNK}: cuda vs ref "
+          f"(card) {e_served:.2e} (<= {VIT_REF_TOL})", flush=True)
+    if not ok:
+        raise AssertionError("topovit float32 gate at the served batch "
+                             "failed")
+    return {"dtype": "float32", "layers": cfg.num_layers,
+            "batch": VIT["gate_batch"], "rel_err_vs_ref": e_ref,
+            "rel_err_vs_cpu": e_cpu, "cpu_seconds": cpu_s,
+            "served_batch": B, "served_columns": cols,
+            "served_chunks": chunks, "rel_err_vs_ref_served": e_served,
+            "kernel_launches": {"fdist_matvec": launched[0],
+                                "topo_sweep": launched[1]}}
+
+
+def _fastmult_profile(cfg, device):
+    """Device time of one layer's two fastmults (the k (x) v field and
+    phi(k)) at the served shape; and the ops of the Hankel engine's call on
+    the plan's largest cross bucket at that width: what the profiler shows
+    of the FFT's layout."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import plan_api
+    from repro_torch.core.masks import make_tree_fastmult, mask_f
+    from repro_torch.models import vit
+
+    B, H, L, m = (VIT["serve_batch"], cfg.num_heads,
+                  cfg.num_prefix_embeddings, cfg.head_dim)
+    plan = vit.build_grid_plan(cfg, device=device)
+    coeffs = [0.0, -1.0, -0.5]
+    fm = make_tree_fastmult(plan, cfg.topo_g, coeffs, cfg.topo_dist_scale,
+                            backend="cuda", device=device)
+    # what each layer pays to build its closure (coeffs on the card, as
+    # the forward passes them)
+    coeffs_dev = torch.tensor(coeffs, device=device)
+    build_ms = host_ms(lambda: make_tree_fastmult(
+        plan, cfg.topo_g, coeffs_dev, cfg.topo_dist_scale, backend="cuda",
+        device=device), 100)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    kf = torch.rand((B, H, L, m), generator=gen, device=device)
+    v1 = torch.rand((B, H, L, m * cfg.head_dim), generator=gen,
+                    device=device)
+    fm(kf), fm(v1)
+    prof = phase_calls_profile("topovit fastmult, one layer",
+                               lambda: (fm(v1), fm(kf)))
+    del v1
+    spec = plan[0]
+    t = plan_api._device_tables(spec, device)
+    Bn, Us = spec.cross_src_mask[0].shape
+    Xp = torch.rand((Bn, Us, B * H * m * cfg.head_dim), generator=gen,
+                    device=device)
+    fe = mask_f(cfg.topo_g, torch.tensor(coeffs, device=device),
+                cfg.topo_dist_scale)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        plan_api.hankel_batched_matvec(
+            fe, spec.grid_h, t["grid_tgt"][0], t["grid_src"][0],
+            t["grid_tgt_t"][0], t["grid_src_t"][0], Xp)
+        torch.cuda.synchronize()
+    # the device kernels, and the host ops that copy or transform
+    layout = [{"name": ev.key[:90], "calls": ev.count,
+               "device_ms": getattr(ev, "self_device_time_total", 0) / 1e3}
+              for ev in p.key_averages()
+              if ev.key in LAYOUT_OPS or getattr(
+                  ev, "self_device_time_total", 0) > 0]
+    print(f"[topovit fft layout] hankel_batched_matvec on cross bucket 0, "
+          f"Xp {tuple(Xp.shape)}: " + "; ".join(
+              f"{k['name'][:48]} x{k['calls']} {k['device_ms']:.2f} ms"
+              for k in layout), flush=True)
+    print(f"[topovit fastmult build] make_tree_fastmult, host clock: "
+          f"{build_ms:.4f} ms a build, against {prof['device_ms']:.2f} ms of "
+          f"device time for the layer's two fastmults", flush=True)
+    prof["build_ms"] = build_ms
+    return prof, layout
+
+
+def phase_vit_serve(card, device):
+    """5e: TopoViT-B/16 served in bf16, impl "cuda", a batch of 64 images
+    (224 x 224, 196 patches of 768), and the "performer" variant at the same
+    shape: forward ms and images/s (host clock to synchronize), peak
+    device memory, the profile of one forward, and the fastmult's share of
+    device time (12 x one layer's two fastmults, profiled alone)."""
+    import torch
+    from repro_torch.kernels.fdist_matvec import ops as fdist_ops
+    from repro_torch.models import vit
+
+    B = VIT["serve_batch"]
+    out = {}
+    for variant in ("topo", "performer"):
+        cfg = _vit_cfg("cuda", attention_variant=variant)
+        model = vit.init_params(cfg, VIT["seed"], VIT["classes"],
+                                VIT["patch_dim"], device=device)
+        patches = _patches(cfg, B, torch.bfloat16, device)
+        t0 = time.perf_counter()
+        first = _vit_forward(cfg, model, patches, device)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        if (tuple(first.shape) != (B, VIT["classes"])
+                or not bool(torch.isfinite(first).all())):
+            raise AssertionError(f"topovit {variant}: logits "
+                                 f"{tuple(first.shape)} not finite")
+        torch.cuda.reset_peak_memory_stats()
+        before = fdist_ops.LAUNCHES
+        ms = host_ms(lambda: _vit_forward(cfg, model, patches, device),
+                     VIT["reps"])
+        peak = torch.cuda.max_memory_allocated()
+        row = {"variant": variant, "dtype": cfg.dtype, "batch": B,
+               "layers": cfg.num_layers, "first_forward_s": first_s,
+               "forward_ms": ms, "images_per_s": B / (ms / 1e3),
+               "peak_bytes": peak,
+               "fdist_launches": fdist_ops.LAUNCHES - before, "card": card}
+        print(f"[topovit serve {variant}] {cfg.name}, bf16, "
+              f"{cfg.num_layers} layers, B={B} images: first forward "
+              f"{first_s:.2f} s (plan build included), forward {ms:.1f} ms "
+              f"({row['images_per_s']:.1f} images/s), peak "
+              f"{peak / 2**30:.2f} GiB allocated | {card}", flush=True)
+        row["profile"] = phase_calls_profile(
+            f"topovit {variant} forward",
+            lambda: _vit_forward(cfg, model, patches, device))
+        if variant == "topo":
+            # for scale: the dense MST mask ("ref", O(L^2)) at L = 196
+            ref_cfg = cfg.replace(topo_attn_impl="ref")
+            row["ref_forward_ms"] = host_ms(lambda: _vit_forward(
+                ref_cfg, model, patches, device), VIT["reps"])
+            row["rel_err_vs_ref_bf16"] = rel_err(
+                first, _vit_forward(ref_cfg, model, patches, device))
+            print(f"[topovit serve topo, ref] the dense MST mask at B={B}: "
+                  f"forward {row['ref_forward_ms']:.1f} ms (for scale); "
+                  f"cuda vs ref logits in bf16 "
+                  f"{row['rel_err_vs_ref_bf16']:.2e} (not gated)", flush=True)
+            fm_prof, row["fft_layout"] = _fastmult_profile(cfg, device)
+            row["fastmult_device_ms"] = cfg.num_layers * fm_prof["device_ms"]
+            row["fastmult_share"] = (row["fastmult_device_ms"]
+                                     / row["profile"]["device_ms"])
+            row["fastmult_profile"] = fm_prof
+            print(f"[topovit fastmult share] {cfg.num_layers} x "
+                  f"{fm_prof['device_ms']:.2f} ms = "
+                  f"{row['fastmult_device_ms']:.1f} ms of "
+                  f"{row['profile']['device_ms']:.1f} ms device time a "
+                  f"forward: {row['fastmult_share']:.0%}", flush=True)
+        out[variant] = row
+        del model, patches, first
+        torch.cuda.empty_cache()
+    return out
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -1700,6 +2045,11 @@ def run(cfg, device, out_path=None) -> dict:
                f"{t['bound_term']}; library none: no single PyTorch call "
                "computes the scan"),
     })
+    # slice 8: the Toeplitz-FFT topo impl; TopoViT-B/16 (no port kernel)
+    topo_fft = phase_topo_fft(card, device)
+    vit_gate = phase_vit_gate(device)
+    torch.cuda.empty_cache()
+    vit_serve = phase_vit_serve(card, device)
     record = {"device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
@@ -1709,7 +2059,8 @@ def run(cfg, device, out_path=None) -> dict:
               "dense_serve": dense_serves, "attn_times": attn_times,
               "scan_kernel_checks": scan_checks, "ssm_gate": ssm_gate,
               "ssm_serve": ssm_serve, "scan_times": scan_times,
-              "kernels": kernels}
+              "topo_fft": topo_fft, "vit_gate": vit_gate,
+              "vit_serve": vit_serve, "kernels": kernels}
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(record, indent=1))

@@ -53,14 +53,13 @@ class ModelConfig:
     # plain chunked sweep, the reference's XLA twin) | cuda (the fused
     # kernel, the reference's "pallas") | fft (the separable decay path at
     # g=exp, degree <= 1, through causal linear attention and attn_impl;
-    # other masks are the Toeplitz-FFT path of ROADMAP A5 and raise)
+    # other masks Alg. 1 with the Toeplitz-FFT FastMult, FFTs in float64)
     topo_attn_impl: str = "fft"
-    # tree/grid Integrator backend override for the ViT path (None: follow
-    # topo_attn_impl — pallas -> pallas, else plan)
+    # plan backend of the ViT's grid-mask fastmult, "torch" | "cuda" (None:
+    # follow topo_attn_impl — cuda -> cuda, else torch)
     topo_backend: Optional[str] = None
-    # multi-device: run the topo plan executor under shard_map on the active
-    # launch.sharding mesh (leaf blocks over the plan axis); no-op without a
-    # mesh or on one device
+    # multi-device plan executor (ROADMAP A12): a no-op without a process
+    # group of more than one rank, which raises
     topo_shard_plan: bool = False
 
     # mlp
@@ -137,10 +136,10 @@ class ModelConfig:
 # registry
 # ----------------------------------------------------------------------------
 
-ARCHS = ["falcon_mamba_7b", "llama3_2_1b"]
+ARCHS = ["falcon_mamba_7b", "llama3_2_1b", "topovit_b16"]
 
 _ALIASES = {"falcon-mamba-7b": "falcon_mamba_7b",
-            "llama3.2-1b": "llama3_2_1b"}
+            "llama3.2-1b": "llama3_2_1b", "topovit-b16": "topovit_b16"}
 
 
 def _module(arch: str):

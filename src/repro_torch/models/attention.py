@@ -12,13 +12,14 @@ Alg. 1), each with train/prefill and O(1)-per-token decode.
   - topo: masked linear attention under the sequence mask f(|i-j|);
     `cfg.topo_attn_impl` picks the dense oracle ("ref"), the plain chunked
     sweep ("torch"), the fused sweep kernel ("cuda", the reference's
-    "pallas") or the separable decay path ("fft" at g = exp, degree <= 1,
-    through `causal_linear_attention` and so `cfg.attn_impl`); decode uses
-    O(1)-state cordial recurrences (a non-separable f through the Chebyshev
-    rank-R separable expansion shared with the sweep).
+    "pallas") or "fft": the separable decay path at g = exp, degree <= 1
+    (through `causal_linear_attention` and so `cfg.attn_impl`), else Alg.
+    1 with the Toeplitz-FFT FastMult (core/toeplitz.py, float64 FFTs);
+    decode uses O(1)-state cordial recurrences (a non-separable f through
+    the Chebyshev rank-R separable expansion shared with the sweep).
 
-Local and MLA attention come with ROADMAP A10, the Toeplitz-FFT path
-(topo "fft" at degree >= 2) with A5, the forest tree-mask prefill with A11.
+Local and MLA attention come with ROADMAP A10, the forest tree-mask
+prefill with A11.
 """
 from __future__ import annotations
 
@@ -399,32 +400,70 @@ def _topo_separable_attention(cfg, qf, kf, v, coeffs, causal: bool):
     return linear_attention_output(num, den)
 
 
+# feature columns of Alg. 1's k (x) v field per Toeplitz product in
+# `_topo_fft_attention`
+FFT_COL_CHUNK = 8
+
+
+def _topo_fft_attention(cfg, qf, kf, v, coeffs, causal: bool):
+    """Alg. 1 with the Toeplitz-FFT FastMult, chunked over feature columns:
+    exact for any g and degree, memory O(B L H FFT_COL_CHUNK hd) instead of
+    O(B L H m hd). The accumulators are float32 and the FFTs float64
+    (core/toeplitz.py says why). (B, L, H, .) in, (B, L, H, hd) out."""
+    from repro_torch.core.masks import sequence_mask_values
+    from repro_torch.core.toeplitz import (causal_toeplitz_matvec,
+                                           symmetric_toeplitz_matvec)
+
+    B, L, H, m = qf.shape
+    hd = v.shape[-1]
+    F = sequence_mask_values(cfg.topo_g, coeffs, L,
+                             cfg.topo_dist_scale)[None]  # (1, H, L)
+    fastmult = causal_toeplitz_matvec if causal else symmetric_toeplitz_matvec
+    qf32, kf32, v32 = qf.float(), kf.float(), v.float()
+    d2 = fastmult(F, kf32.transpose(1, 2)).transpose(1, 2)
+    den = torch.einsum("blhm,blhm->blh", qf32, d2)
+    num = torch.zeros((B, L, H, hd), dtype=torch.float32, device=qf.device)
+    for c0 in range(0, m, FFT_COL_CHUNK):
+        c1 = min(c0 + FFT_COL_CHUNK, m)
+        v1 = kf32[..., c0:c1, None] * v32[..., None, :]  # (B, L, H, c, hd)
+        v1 = v1.reshape(B, L, H, -1).transpose(1, 2)  # (B, H, L, c*hd)
+        d1 = fastmult(F, v1).transpose(1, 2).reshape(B, L, H, c1 - c0, hd)
+        num = num + torch.einsum("blhc,blhcv->blhv", qf32[..., c0:c1], d1)
+    return linear_attention_output(num, den)
+
+
+def resolve_topo_backend(cfg, backend: str | None = None) -> str:
+    """Plan backend of the tree- and grid-mask fastmults (the ViT path):
+    the explicit `backend`, else cfg.topo_backend, else "cuda" where
+    cfg.topo_attn_impl is "cuda" and "torch" otherwise. (The reference's
+    degradation ladder is ROADMAP A9: nothing here falls back.)"""
+    return (backend or cfg.topo_backend
+            or ("cuda" if cfg.topo_attn_impl == "cuda" else "torch"))
+
+
 def topo_attention_train(cfg, p, p_topo, x, positions, causal: bool = True):
     """Masked linear attention (Alg. 1) with the sequence topological mask,
     over the whole of x (B, L, d). Impl (cfg.topo_attn_impl): "ref" the
     dense (L, L) oracle, "torch" the plain chunked sweep, "cuda" the fused
     kernel (on CPU tensors its wrapper runs the plain sweep), "fft" the
-    separable decay path at g = exp, degree <= 1 (the Toeplitz-FFT path
-    for other masks is ROADMAP A5)."""
+    separable decay path at g = exp, degree <= 1, else Alg. 1 with the
+    Toeplitz-FFT FastMult."""
     B, L, _ = x.shape
     impl = cfg.topo_attn_impl
     if impl not in IMPLS:
         raise ValueError(f"cfg.topo_attn_impl={impl!r}: expected one of "
                          f"{IMPLS}")
     separable = cfg.topo_g == "exp" and cfg.topo_degree <= 1
-    if impl == "fft" and not separable:
-        raise NotImplementedError(
-            "topo_attn_impl='fft' off the separable masks (g=exp, degree "
-            "<= 1) is the Toeplitz-FFT path (core/toeplitz.py), not ported "
-            "yet (ROADMAP A5); use 'torch' or 'cuda'")
     q, k, v = _project_qkv(cfg, p, x, positions, rope=False)
     k, v = _expand_kv(cfg, k, v)
     scale = topo_logit_scale(cfg, p_topo)  # (H,)
     qf = phi_features(q * scale[None, None, :, None], cfg.performer_phi)
     kf = phi_features(k, cfg.performer_phi)
     coeffs = topo_mask_coeffs(cfg, p_topo)  # (H, t+1)
-    if impl == "fft":
+    if impl == "fft" and separable:
         out = _topo_separable_attention(cfg, qf, kf, v, coeffs, causal)
+    elif impl == "fft":
+        out = _topo_fft_attention(cfg, qf, kf, v, coeffs, causal)
     else:
         args = (qf.permute(0, 2, 1, 3), kf.permute(0, 2, 1, 3),
                 v.permute(0, 2, 1, 3).float(), coeffs)

@@ -1,6 +1,6 @@
 """Weights carried across from the reference: its param pytree (nested
 dicts of numpy arrays, layer-stacked leaves with a leading num_layers
-axis) to a `DecoderLM` and back.
+axis) to a `DecoderLM` or a `TopoViT` and back.
 
 The port's parameter names are the reference's pytree paths with the layer
 axis unstacked (`blocks0/attn/wq[l]` -> `blocks.{l}.attn.wq`) and its
@@ -14,9 +14,10 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.models import lm
+from repro_torch.models import lm, vit
 
-STACKED = "blocks0"
+STACKED = "blocks0"  # the LM's stacked blocks
+VIT_STACKED = "blocks"
 
 
 def _to_torch(a, dev) -> torch.Tensor:
@@ -44,24 +45,19 @@ def _flatten(tree: dict, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
-def from_reference(cfg, tree: dict, device=None) -> lm.DecoderLM:
-    """The reference's `lm.init_params(cfg, key)` tree (as numpy) -> a
-    DecoderLM on `device`, loaded with load_state_dict(strict=True)."""
-    dev = resolve_device(device)
+def _state_dict(tree: dict, dev, stacked: str) -> dict:
     sd = {}
     for name, leaf in _flatten(tree):
-        if name.startswith(STACKED + "."):
-            rest = name[len(STACKED) + 1:]
+        if name.startswith(stacked + "."):
+            rest = name[len(stacked) + 1:]
             for layer in range(np.shape(leaf)[0]):
                 sd[f"blocks.{layer}.{rest}"] = _to_torch(leaf[layer], dev)
         else:
             sd[name] = _to_torch(leaf, dev)
-    return lm.from_state_dict(cfg, sd)
+    return sd
 
 
-def to_reference(model: lm.DecoderLM) -> dict:
-    """The counterpart of `from_reference`: the numpy param tree, with the
-    block leaves stacked along a leading num_layers axis."""
+def _tree(model, stacked: str) -> dict:
     tree: dict = {}
     blocks: dict = {}
     for name, t in model.state_dict().items():
@@ -75,9 +71,34 @@ def to_reference(model: lm.DecoderLM) -> dict:
             node = node.setdefault(p, {})
         node[parts[-1]] = _to_numpy(t)
     for path, layers in blocks.items():
-        node = tree.setdefault(STACKED, {})
+        node = tree.setdefault(stacked, {})
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.stack([a for _, a in sorted(layers,
                                                         key=lambda x: x[0])])
     return tree
+
+
+def from_reference(cfg, tree: dict, device=None) -> lm.DecoderLM:
+    """The reference's `lm.init_params(cfg, key)` tree (as numpy) -> a
+    DecoderLM on `device`, loaded with load_state_dict(strict=True)."""
+    return lm.from_state_dict(cfg, _state_dict(tree, resolve_device(device),
+                                               STACKED))
+
+
+def to_reference(model: lm.DecoderLM) -> dict:
+    """The counterpart of `from_reference`: the numpy param tree, with the
+    block leaves stacked along a leading num_layers axis."""
+    return _tree(model, STACKED)
+
+
+def vit_from_reference(cfg, tree: dict, device=None) -> vit.TopoViT:
+    """The reference's `vit.init_params(cfg, key, ...)` tree (as numpy,
+    blocks stacked under "blocks") -> a TopoViT on `device` (strict)."""
+    return vit.from_state_dict(cfg, _state_dict(
+        tree, resolve_device(device), VIT_STACKED))
+
+
+def vit_to_reference(model: vit.TopoViT) -> dict:
+    """The counterpart of `vit_from_reference`."""
+    return _tree(model, VIT_STACKED)

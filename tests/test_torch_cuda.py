@@ -7,7 +7,9 @@ linear attention kernels against their plain versions and dense oracles,
 and the smoke Llama with full and Performer attention served on
 attn_impl "cuda" against "chunked"; the selective scan kernel against its
 plain version and the sequential oracle, and the smoke Falcon-Mamba
-served on attn_impl "cuda" against "chunked". These tests need a card (the
+served on attn_impl "cuda" against "chunked"; the float64 Toeplitz
+products and the topo "fft" impl on the card, and the smoke TopoViT on
+impl "cuda" against "ref" and the CPU. These tests need a card (the
 kernels have no CPU mode) and skip without one; they import nothing of
 jax, so they run where only the port is installed:
 
@@ -726,3 +728,92 @@ def test_ssm_lm_serving_kernel_matches_plain(cuda_device):
     for k in ("conv", "h"):
         assert _rel(out["cuda"][2]["blocks0"][k],
                     out["chunked"][2]["blocks0"][k]) < 1e-5
+
+
+# --- the Toeplitz-FFT topo impl and TopoViT (no port kernel on this path) ---
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "sym"])
+def test_toeplitz_float64_on_card_matches_cpu(causal, cuda_device):
+    """The Toeplitz products run their FFTs in float64 on the card too
+    (cuFFT) and agree with the CPU's (pocketfft) to float32 rounding."""
+    from repro_torch.core import toeplitz
+
+    rng = np.random.default_rng(1)
+    L = 1000
+    F = torch.tensor(np.exp(-np.arange(L) / 300.0)[None].repeat(4, 0),
+                     dtype=torch.float32)
+    V = torch.tensor(rng.normal(size=(2, 4, L, 24)), dtype=torch.float32)
+    fn = (toeplitz.causal_toeplitz_matvec if causal
+          else toeplitz.symmetric_toeplitz_matvec)
+    got = fn(F.to(cuda_device), V.to(cuda_device))
+    assert got.dtype == torch.float32 and got.device.type == "cuda"
+    assert _rel(got, fn(F, V)) < 1e-6
+    dense = toeplitz.toeplitz_dense(F.double(), L, causal) @ V.double()
+    assert _rel(got, dense) < 1e-6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("degree", [2, 3])
+def test_topo_fft_impl_on_card_meets_ref(degree, cuda_device):
+    """topo_attention_train with impl "fft" (Alg. 1, the float64 Toeplitz
+    FastMult) against "ref" (the dense oracle) on the card, float32, with
+    one token's features near zero (the case a float32 FFT misses)."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.layers import Params
+
+    L = 97
+    cfg = get_smoke_config("llama3_2_1b", attention_variant="topo",
+                           topo_attn_impl="fft", topo_degree=degree,
+                           topo_dist_scale=1.0 / L, dtype="float32")
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(degree)
+    attn = A.Attention(cfg, device=cuda_device)
+    topo = Params(A.topo_shapes(cfg), device=cuda_device)
+    with torch.no_grad():
+        for name, t in A.attn_init(gen, cfg).items():
+            getattr(attn, name).copy_(t)
+        topo.coeffs.copy_(torch.linspace(0.3, -0.4, degree + 1))
+        topo.logit_scale.zero_()
+    x = torch.randn((2, L, cfg.d_model), generator=gen, device=cuda_device)
+    x[:, 0] *= 1e-4
+    pos = torch.arange(L, device=cuda_device)[None].expand(2, L)
+    with torch.no_grad():
+        for causal in (True, False):
+            got = A.topo_attention_train(cfg, attn, topo, x, pos, causal)
+            ref = A.topo_attention_train(cfg.replace(topo_attn_impl="ref"),
+                                         attn, topo, x, pos, causal)
+            assert _rel(got, ref) <= 1e-3, causal
+
+
+@pytest.mark.cuda
+def test_topovit_cuda_matches_ref_and_cpu(cuda_device):
+    """The smoke TopoViT in float32 on the card: impl "cuda" against "ref"
+    (the dense MST mask) and against "torch" on the CPU; the Hankel engine
+    launches no port kernel."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.kernels.topo_linear_attention import ops as topo_ops
+    from repro_torch.models import vit
+
+    cfg = get_smoke_config("topovit_b16", dtype="float32",
+                           topo_attn_impl="cuda")
+    model = vit.init_params(cfg, 0, num_classes=10, patch_dim=32)
+    with torch.no_grad():
+        for blk in model.blocks:  # mask scalars away from their init
+            blk.topo.coeffs.copy_(torch.tensor([0.2, -0.3, 0.4]))
+    patches = np.random.default_rng(0).normal(size=(3, 16, 32)).astype(
+        np.float32)
+    before = (ops.LAUNCHES, topo_ops.LAUNCHES)
+    with torch.no_grad():
+        got = vit.forward(cfg, model, patches)
+        assert (ops.LAUNCHES, topo_ops.LAUNCHES) == before
+        ref = vit.forward(cfg.replace(topo_attn_impl="ref"), model, patches)
+        cpu_model = vit.from_state_dict(cfg, {
+            k: t.cpu() for k, t in model.state_dict().items()})
+        cpu = vit.forward(cfg.replace(topo_attn_impl="torch"), cpu_model,
+                          patches, device="cpu")
+    assert got.device.type == "cuda" and got.shape == (3, 10)
+    assert _rel(got, ref) <= 1e-3
+    assert _rel(got, cpu) <= 1e-4

@@ -367,8 +367,8 @@ def test_topo_fft_separable_matches_reference(degree, causal, perhead, gqa,
     lg = a1 * dist_scale, bidirectional = forward + reversed - diagonal):
     the port against the reference's "fft" (1e-4) and the port's dense
     "ref" (1e-3), at odd L; attn_impl "cuda" is the kernel path (the plain
-    version on the CPU). ROADMAP C1: the reference's "fft" is wrong only at
-    degree >= 2, which the port refuses."""
+    version on the CPU). ROADMAP C1: the reference's "fft" misses its "ref"
+    only at degree >= 2 (a float32 FFT; tests/test_torch_masks.py)."""
     L = 45
     jcfg, tcfg = _cfgs(L, degree, perhead, gqa, attn_impl)
     seed = 5 * degree + perhead + 3 * gqa
@@ -403,8 +403,21 @@ def test_topo_fft_separable_matches_reference(degree, causal, perhead, gqa,
 
 
 def test_topo_fft_off_the_separable_masks_raises_naming_the_roadmap():
+    """Off the separable masks "fft" was refused, naming ROADMAP A5; it now
+    runs Alg. 1 with the float64 Toeplitz FastMult (held against the
+    reference in tests/test_torch_masks.py) and meets the dense "ref"."""
     _, tcfg = _cfgs(16, 2, False, False, "naive")
     attn, topo = TA.Attention(tcfg), Params(TA.topo_shapes(tcfg))
-    with pytest.raises(NotImplementedError, match="A5"):
-        TA.topo_attention_train(tcfg, attn, topo, torch.zeros(1, 16, 16),
-                                torch.zeros(1, 16, dtype=torch.int32))
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for name, t in TA.attn_init(gen, tcfg).items():
+            getattr(attn, name).copy_(t)
+        topo.coeffs.copy_(torch.tensor([0.2, -0.4, -0.3]))
+        topo.logit_scale.zero_()
+        x = torch.randn(1, 16, 16, generator=gen)
+        pos = torch.zeros(1, 16, dtype=torch.int32)
+        got = TA.topo_attention_train(tcfg, attn, topo, x, pos)
+        dense = TA.topo_attention_train(tcfg.replace(topo_attn_impl="ref"),
+                                        attn, topo, x, pos)
+    assert got.shape == (1, 16, 16)
+    assert _rel(got, dense) < 1e-3

@@ -184,11 +184,13 @@ def test_what_is_not_ported_raises_naming_the_roadmap():
     cfg = get_smoke_config("llama3_2_1b", **OVER)
     model = TA.init_params(cfg, 0, device="cpu")
     toks = np.zeros((1, 8), np.int32)
-    with pytest.raises(NotImplementedError, match="A5"):  # "fft", degree 2
-        TA.prefill_fn(cfg.replace(topo_degree=2),
-                      TA.init_params(cfg.replace(topo_degree=2), 0,
-                                     device="cpu"),
-                      {"tokens": toks}, device="cpu")
+    # "fft" at degree 2 (the Toeplitz FastMult) is ported: it serves
+    deg2 = cfg.replace(topo_degree=2)
+    model2 = TA.init_params(deg2, 0, device="cpu")
+    got = TA.prefill_fn(deg2, model2, {"tokens": toks}, device="cpu")
+    want = TA.prefill_fn(deg2.replace(topo_attn_impl="torch"), model2,
+                         {"tokens": toks}, device="cpu")
+    assert _rel(got, want) <= 1e-3
     with pytest.raises(NotImplementedError, match="A11"):
         TLM.forward_prefill_into_cache(
             cfg.replace(topo_attn_impl="torch"), model,
