@@ -68,17 +68,33 @@ same shape: forward ms, images/s, peak memory, a profile of one forward and
 the fastmult's share of its device time, the dense mask's forward for
 scale, and the ops of one Hankel-engine call (the FFT's layout).
 
+Training: every kernel wrapper is a torch.autograd.Function (forward the
+kernel, backward its plain version's VJP; B1's v-grad the kernel with x
+and y swapped). 3f holds each Function's grads against the plain path's
+under the same upstream gradient (card-test shapes and the training
+paths' shapes) and counts one launch per forward, none in the backward
+but B1's, none on the plain path, and times each backward; 4f holds
+`api.loss_fn` + backward in float32 through the kernels against the plain
+impls from the same weights and batch (the topo Llama-3.2-1B at full
+depth, degree 1 and 2; full, Performer and Falcon-Mamba-7B at full width
+and 2 layers); 5f trains the paper's topological Llama-3.2-1B (degree 2,
+bf16, batch 4 x 2048) for 6 steps through `train.loop.run_training`:
+losses, step time, tokens/s, peak memory, the checkpoint's save time and
+a bit-exact restore, and a profiled step.
+
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
 
 Phases print one line each. The line before the last is the card's name
 and power limit as nvidia-smi reports them; the line before that lists the
-kernels with their launch counts on the main path; the last line is
+kernels with their launch counts on the main path and what each backward
+runs; the last line is
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import re
 import subprocess
@@ -1843,6 +1859,629 @@ def phase_vit_serve(card, device):
     return out
 
 
+# ----------------------------------------------------------------------------
+# slice 9: training. Every kernel wrapper is a torch.autograd.Function whose
+# forward is the kernel and whose backward is its plain version's VJP (B1's
+# v-grad: the kernel with x and y swapped); the paper's topological
+# Llama-3.2-1B trained at full width through train.loop.run_training
+# ----------------------------------------------------------------------------
+
+# the trainer: llama3_2_1b, topo g = exp at degree 2 (the paper's learnable
+# mask scalars, the sweep's rank-16 mode), dist scale 1/L, bf16, batch 4 x
+# 2048 tokens; the float32 gates at B = 2, L = 512 (full depth for topo,
+# 2 layers for the paths of earlier slices)
+TRAIN = {"arch": "llama3_2_1b", "degree": 2, "batch": 4, "seq": 2048,
+         "steps": 6, "seed": 0, "gate_batch": 2, "gate_seq": 512,
+         "gate_degrees": (1, 2), "gate_layers": 2}
+# 3f's shapes: the card tests' and, last in each list (the one timed), the
+# trainer's layer (batch 4 x 2048): B2, B4 (B, H, L, m, hd), B5 (B, H, KV,
+# L, hd). B6 (Bt, L, din, N) takes the float32 gate's Falcon-Mamba layer:
+# its plain chunked scan keeps every doubling step of every chunk for the
+# backward, ~70 GB at 4 x 2048. B1 (B, a, b, d) adds plan (a)'s cross
+# buckets
+GRAD_SHAPES = {
+    "fdist_matvec": [(3,) + s for s in TEST_SHAPES],
+    "topo_attention_sweep": TOPO["sweep_shapes"][1:] + [
+        (TRAIN["batch"], 32, TRAIN["seq"], 64, 64)],
+    "linear_attention": [(1, 2, 100, 16, 16),
+                         (TRAIN["batch"], 32, TRAIN["seq"], 64, 64)],
+    "flash_attention": [(1, 4, 2, 100, 64),
+                        (TRAIN["batch"], 32, 8, TRAIN["seq"], 64)],
+    "selective_scan": SSM["oracle_shapes"] + [
+        (TRAIN["gate_batch"], TRAIN["gate_seq"], 8192, 16)]}
+# grads of a kernel path against the plain path's, relative to max: the
+# forward's bounds (PERF.md section 2)
+GRAD_TOL = {"fdist_matvec": FP32_TOL, "topo_attention_sweep": 1e-4,
+            "linear_attention": 1e-5, "flash_attention": 2e-5,
+            "selective_scan": 1e-5}
+TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-5, 1e-4
+# the topo LM's grads with phi = relu at full depth: "cuda" against the
+# plain impl within this many times the dense oracle's spread against the
+# plain impl (relu's kink; PERF.md section 6 has the readings, 0.74x and
+# 1.95x at degrees 1 and 2 on an H100)
+RELU_FLOOR_K = 4.0
+BACKWARD = {
+    "fdist_matvec": ("v: the kernel itself, M^T u (x and y swapped, one "
+                     "launch); x, y, coeffs: the VJP of the plain version "
+                     "(kernels/fdist_matvec/ref.py)"),
+    "topo_attention_sweep": ("the VJP of the plain chunked sweep "
+                             "(ops._plain_forward), recomputed from qf, kf, "
+                             "v, coeffs: the reference's _fused custom VJP"),
+    "flash_attention": ("the VJP of the plain online-softmax twin "
+                        "(ops.sdpa_chunked), recomputed from q, k, v"),
+    "linear_attention": ("the VJP of the plain chunked twin "
+                         "(ops.causal_linear_attention), recomputed from "
+                         "qf, kf, v, log_gamma"),
+    "selective_scan": ("the VJP of the plain chunked scan "
+                       "(ops.selective_scan), recomputed from u, dt, A, B, "
+                       "C, D, h0")}
+
+
+def _kernel_grads(kernel, counter, fn, ins, need, label, expect_fwd,
+                  expect_bwd, time_backward=False, exact=None):
+    """One 3f check: fn(*ins, use_kernel) on the kernel path and on the
+    plain path, the same upstream gradient into both; the grads of every
+    input in `need` held against the plain path's; the launches of each
+    pass counted (`counter()` reads the wrapper's count). `exact(ins,
+    ups)` gives float64 grads {input index: tensor} of the inputs whose
+    grad the kernel computes: the kernel's grad is held against them too,
+    and the plain path's distance from them is recorded, so a failed check
+    says which result moved."""
+    import torch
+
+    def run(use_kernel):
+        xs = [None if t is None else t.detach().clone().requires_grad_(n)
+              for t, n in zip(ins, need)]
+        before = counter()
+        out = fn(*xs, use_kernel=use_kernel)
+        torch.cuda.synchronize()
+        fwd = counter() - before
+        return xs, (out if isinstance(out, tuple) else (out,)), fwd
+
+    xs_k, out_k, fwd_k = run(True)
+    gen = torch.Generator(device=out_k[0].device)
+    gen.manual_seed(5)
+    ups = [torch.randn(o.shape, generator=gen, device=o.device).to(o.dtype)
+           for o in out_k]
+    wanted = [x for x in xs_k if x is not None and x.requires_grad]
+    before = counter()
+    got = torch.autograd.grad(out_k, wanted, ups, retain_graph=time_backward)
+    torch.cuda.synchronize()
+    bwd_k = counter() - before
+    xs_p, out_p, fwd_p = run(False)
+    before = counter()
+    want = torch.autograd.grad(out_p, [x for x in xs_p if x is not None
+                                       and x.requires_grad], ups)
+    torch.cuda.synchronize()
+    bwd_p = counter() - before
+    if (fwd_k, bwd_k, fwd_p, bwd_p) != (expect_fwd, expect_bwd, 0, 0):
+        raise AssertionError(
+            f"{label}: launches forward {fwd_k}, backward {bwd_k} on the "
+            f"kernel path (expected {expect_fwd}, {expect_bwd}); forward "
+            f"{fwd_p}, backward {bwd_p} on the plain path (expected 0, 0)")
+    errs = [rel_err(a, b) for a, b in zip(got, want)]
+    index = [i for i, x in enumerate(xs_k) if x is not None
+             and x.requires_grad]
+    ex = exact(ins, ups) if exact is not None else {}
+    e_exact = [(rel_err(got[index.index(i)], e),
+                rel_err(want[index.index(i)], e)) for i, e in ex.items()
+               if i in index]
+    for g in got:
+        if not bool(torch.isfinite(g.float()).all()):
+            raise AssertionError(f"{label}: a non-finite grad")
+    # B1's v-grad in bf16 is the kernel's bf16 output: its forward's bound
+    bf16 = any(t is not None and t.dtype == torch.bfloat16 for t in ins)
+    tol = BF16_TOL if kernel == "fdist_matvec" and bf16 else GRAD_TOL[kernel]
+    row = {"kernel": kernel, "case": label, "rel_err": max(errs),
+           "abs_err": max(float((a.double() - b.double()).abs().max())
+                          for a, b in zip(got, want)),
+           "tol": tol, "launches_forward": fwd_k, "launches_backward": bwd_k,
+           "rel_err_exact": max((k for k, _ in e_exact), default=None),
+           "plain_rel_err_exact": max((p for _, p in e_exact), default=None)}
+    if not (row["rel_err"] <= tol and all(k <= tol for k, _ in e_exact)):
+        raise AssertionError(f"{label}: grads {errs} against the plain "
+                             f"path's (< {tol}); against the exact float64 "
+                             f"grads (kernel, plain): {e_exact}")
+    if time_backward:
+        # CUDA events time the backward as a caller waits for it at the
+        # card; a plain VJP of many small ops can leave the card idle
+        # between them, so the sum of its device ops comes from the
+        # profiler too (the time the card spends in it)
+        row["backward_ms"] = device_ms(lambda: torch.autograd.grad(
+            out_k, wanted, ups, retain_graph=True), 3)
+        row["backward_device_ms"] = phase_calls_profile(
+            f"{label} backward", lambda: torch.autograd.grad(
+                out_k, wanted, ups, retain_graph=True))["device_ms"]
+        row["forward_ms"] = device_ms(lambda: fn(*[
+            None if t is None else t.detach() for t in ins],
+            use_kernel=True), 3)
+    return row
+
+
+def phase_kernel_grads(device, buckets):
+    """3f: each wrapper's autograd.Function on the card: the grads of
+    every differentiable input against the plain version's, under the same
+    upstream gradient, at the card-test shapes and the shapes the training
+    paths give it (GRAD_SHAPES);
+    one launch per forward (two for the bidirectional sweep pair), none in
+    the backward but B1's M^T u, none on the plain path; the backward's
+    device time at the largest shape. B1 takes the card-test shapes and
+    `buckets` (the main path's (x, y, d) cross buckets of plan (a)), with
+    its v-grad held against the exact float64 M^T u as well."""
+    import torch
+    from repro_torch.kernels.fdist_matvec import ops as fdist_ops
+    from repro_torch.kernels.fdist_matvec.ref import (
+        f_eval, fdist_matvec_batched_ref)
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.linear_attention import ops as linear_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.topo_linear_attention import ops as topo_ops
+
+    rng = np.random.default_rng(29)
+
+    def t(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a, np.float32), device=device).to(
+            dtype)
+
+    rows = []
+    # B1: x, y, v, coeffs
+    fdist_cases = [(None, s, mode, cs, torch.float32, False)
+                   for s in GRAD_SHAPES["fdist_matvec"] for mode, cs in MODES]
+    largest = max(range(len(buckets)), key=lambda i: buckets[i][0].numel()
+                  * buckets[i][1].shape[1])
+    fdist_cases += [((bx, by), (bx.shape[0], bx.shape[1], by.shape[1], d),
+                     "exp", MODES[1][1], dt, i == largest
+                     and dt == torch.float32)
+                    for i, (bx, by, d) in enumerate(buckets)
+                    for dt in (torch.float32, torch.bfloat16)]
+
+    def exact_v(ins, ups, mode):
+        x, y, v, c = ins
+        m = f_eval(x.double()[:, :, None] + y.double()[:, None, :],
+                   c.double(), mode)
+        return {2: torch.bmm(m.transpose(1, 2), ups[0].double())}
+
+    for xy, (B, a, b, d), mode, cs, vdt, timed in fdist_cases:
+        x, y = xy if xy is not None else (t(rng.uniform(0, 3, (B, a))),
+                                          t(rng.uniform(0, 3, (B, b))))
+        ins = [x, y, t(rng.normal(size=(B, b, d)), vdt), t(cs)]
+
+        def fdist(x, y, v, c, use_kernel, mode=mode):
+            if use_kernel:
+                return fdist_ops.fdist_matvec_batched(x, y, v, c, mode)
+            return fdist_matvec_batched_ref(x, y, v, c, mode)
+
+        for need in ((True,) * 4, (False, False, True, False),
+                     (True, True, False, True)):
+            rows.append(_kernel_grads(
+                "fdist_matvec", lambda: fdist_ops.LAUNCHES, fdist, ins, need,
+                f"fdist {mode} {(B, a, b, d)} {str(vdt)[6:]} grads "
+                f"{''.join('xyvc'[i] for i in range(4) if need[i])}", 1,
+                int(need[2]), timed and all(need),
+                None if vdt != torch.float32 else functools.partial(
+                    exact_v, mode=mode)))
+    # B2: qf, kf, v, coeffs in decay (degree 1) and rank16 (degree 2) mode
+    for B, H, L, m, hd in GRAD_SHAPES["topo_attention_sweep"]:
+        big = (B, H, L, m, hd) == GRAD_SHAPES["topo_attention_sweep"][-1]
+        qf, kf = (t(np.abs(rng.normal(size=(B, H, L, m)))) for _ in range(2))
+        v = t(rng.normal(size=(B, H, L, hd)))
+        for degree in TOPO["degrees"]:
+            cs = _mask_coeffs(rng, H, degree, device)
+            for causal in ((True,) if big else (True, False)):
+                def topo(q, k, v, c, use_kernel, causal=causal, L=L):
+                    return topo_ops.topo_linear_attention(
+                        q, k, v, c, g="exp", dist_scale=1.0 / L,
+                        causal=causal, use_kernel=use_kernel)
+
+                rows.append(_kernel_grads(
+                    "topo_attention_sweep", lambda: topo_ops.LAUNCHES, topo,
+                    [qf, kf, v, cs], (True,) * 4,
+                    f"topo {'decay' if degree == 1 else 'rank16'} "
+                    f"{(B, H, L, m, hd)} {'causal' if causal else 'bidir'}",
+                    1 if causal else 2, 0, big))
+    # B4: qf, kf, v, log_gamma (lg = 0 as the Performer, and per head)
+    for B, H, L, m, hd in GRAD_SHAPES["linear_attention"]:
+        big = (B, H, L, m, hd) == GRAD_SHAPES["linear_attention"][-1]
+        qf, kf = (t(np.abs(rng.normal(size=(B, H, L, m)))) for _ in range(2))
+        for vdt in ((torch.float32, torch.bfloat16) if big
+                    else (torch.float32,)):
+            v = t(rng.normal(size=(B, H, L, hd)), vdt)
+            for lg in (t(np.zeros(H)), t(-rng.uniform(0, 0.05, H))):
+                rows.append(_kernel_grads(
+                    "linear_attention", lambda: linear_ops.LAUNCHES,
+                    linear_ops.linear_attention, [qf, kf, v, lg], (True,) * 4,
+                    f"linear {(B, H, L, m, hd)} v {str(vdt)[6:]} lg "
+                    f"{'0' if not bool(lg.any()) else 'per head'}", 1, 0,
+                    big and vdt == torch.float32 and not bool(lg.any())))
+    # B5: q, k, v in float32 and bf16, causal and not
+    for B, H, KV, L, hd in GRAD_SHAPES["flash_attention"]:
+        big = (B, H, KV, L, hd) == GRAD_SHAPES["flash_attention"][-1]
+        base = [rng.normal(size=(B, n, L, hd)) for n in (H, KV, KV)]
+        for dt in (torch.float32, torch.bfloat16):
+            for causal in (True, False):
+                def flash(q, k, v, use_kernel, causal=causal):
+                    return flash_ops.flash_attention(q, k, v, causal,
+                                                     use_kernel=use_kernel)
+
+                rows.append(_kernel_grads(
+                    "flash_attention", lambda: flash_ops.LAUNCHES, flash,
+                    [t(a, dt) for a in base], (True,) * 3,
+                    f"flash {(B, H, KV, L, hd)} {str(dt)[6:]} "
+                    f"{'causal' if causal else 'full'}", 1, 0,
+                    big and causal and dt == torch.float32))
+    # B6: u, dt, A, B, C, D (and h0), float32 and bf16 u/dt/B/C
+    for shape in GRAD_SHAPES["selective_scan"]:
+        big = shape == GRAD_SHAPES["selective_scan"][-1]
+        for dt in ((torch.float32, torch.bfloat16) if big
+                   else (torch.float32,)):
+            args = list(_scan_inputs(rng, shape, dt, device))
+            Bt, L, din, N = shape
+            args.append(None if big else t(rng.standard_normal(
+                (Bt, din, N))))
+
+            def scan(u, dt_, A, Bm, Cm, D, h0, use_kernel):
+                return scan_ops.scan(u, dt_, A, Bm, Cm, D, h0=h0,
+                                     use_kernel=use_kernel)
+
+            rows.append(_kernel_grads(
+                "selective_scan", lambda: scan_ops.LAUNCHES, scan, args,
+                (True,) * 6 + (not big,),
+                f"scan {shape} {str(dt)[6:]}{'' if big else ' h0'}", 1, 0,
+                big and dt == torch.float32))
+        torch.cuda.empty_cache()
+    for kernel in GRAD_TOL:
+        mine = [r for r in rows if r["kernel"] == kernel]
+        timed = [r for r in mine if "backward_ms" in r]
+        worst = {}
+        for r in mine:
+            worst[r["tol"]] = max(worst.get(r["tol"], 0.0), r["rel_err"])
+        exact = [r for r in mine if r["rel_err_exact"] is not None]
+        print(f"[grads {kernel}] {len(mine)} checks: worst rel err against "
+              f"the plain path's grads " + ", ".join(
+                  f"{e:.2e} (< {tol:g})" for tol, e in worst.items())
+              + (f"; the kernel's grads against the exact float64 ones "
+                 f"{max(r['rel_err_exact'] for r in exact):.2e}, the plain "
+                 f"path's {max(r['plain_rel_err_exact'] for r in exact):.2e}"
+                 if exact else "") + "; launches per forward "
+              f"{sorted({r['launches_forward'] for r in mine})}, per "
+              f"backward {sorted({r['launches_backward'] for r in mine})} | "
+              + "; ".join(f"{r['case']}: forward {r['forward_ms']:.3f} ms, "
+                          f"backward {r['backward_ms']:.3f} ms (its device "
+                          f"ops {r['backward_device_ms']:.3f} ms)"
+                          for r in timed), flush=True)
+    return rows
+
+
+def _train_cfg(degree: int, impl: str = "cuda", dtype: str | None = None,
+               L: int | None = None):
+    """The slice's model: topo llama3_2_1b, g = exp, dist scale 1/L."""
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(TRAIN["arch"], attention_variant="topo", topo_g="exp",
+                     topo_degree=degree, topo_attn_impl=impl,
+                     topo_dist_scale=1.0 / (L or TRAIN["seq"]))
+    return cfg.replace(dtype=dtype) if dtype else cfg
+
+
+def _leaf(name: str) -> str:
+    """The grads' unit of comparison: a block parameter stacked over the
+    layers (the reference's leaf), the mask scalars (coeffs and
+    logit_scale) as one: a0 and logit_scale cancel in the normalization, so
+    their exact grads are 0 but for phi's +1e-6, and what the card gives
+    for them is rounding."""
+    parts = name.split(".")
+    if parts[0] != "blocks":
+        return name
+    return "blocks.topo" if parts[2] == "topo" else ".".join(
+        ["blocks"] + parts[2:])
+
+
+def _grad_errors(got: dict, want: dict):
+    """({name: max |got - want| over the largest |want| of the name's
+    leaf}, {name: the same over its own largest})."""
+    top = {}
+    for name, g in want.items():
+        top[_leaf(name)] = max(top.get(_leaf(name), 0.0),
+                               float(g.abs().max()))
+    errs, own = {}, {}
+    for name, g in want.items():
+        diff = float((got[name].double() - g.double()).abs().max())
+        errs[name] = diff / max(top[_leaf(name)], 1e-30)
+        own[name] = diff / max(float(g.abs().max()), 1e-30)
+    return errs, own
+
+
+def phase_train_gate(label, cfg, plain_cfg, ops, device, floor_cfg=None):
+    """4f: float32 (TF32 off), one `api.loss_fn` + backward through the
+    kernels (`cfg`) and through the plain versions (`plain_cfg`) from the
+    same weights and batch: the loss within TRAIN_LOSS_TOL relative, each
+    grad within TRAIN_GRAD_TOL of its leaf's largest; the launches
+    counted (one per layer forward, again in the remat's recompute; none
+    on the plain run). The worst tensor, the error by depth and each
+    tensor's error against its own largest are printed, not gated.
+
+    With `floor_cfg` (the topo LM at full depth with phi = relu, its
+    configured feature map) the grads are held instead within
+    RELU_FLOOR_K times the spread of a third implementation (`floor_cfg`)
+    against the plain one, or TRAIN_GRAD_TOL if that is larger. There the grads are a discontinuous function
+    of the forward: from the second layer on, a q or k within rounding of
+    0 takes the relu's kink one way or the other, so two correct float32
+    forwards give grads that differ by far more than rounding (on an H100
+    the plain sweep against the dense oracle reads 3.5e-3; PERF.md). At
+    one layer both paths feed the relu the same bits, and the caller
+    holds the relu grads there at TRAIN_GRAD_TOL."""
+    import torch
+    from repro_torch.data.synthetic import SyntheticLMStream
+    from repro_torch.models import api, lm
+
+    model = api.init_params(cfg, TRAIN["seed"], device=device)
+    toks = SyntheticLMStream(cfg.vocab_size, TRAIN["gate_batch"],
+                             TRAIN["gate_seq"], seed=TRAIN["seed"]).batch_at(
+        0)["tokens"]
+
+    def loss_and_grads(c):
+        before = ops.LAUNCHES
+        loss, _ = api.loss_fn(c, model, {"tokens": toks}, device=device)
+        fwd = ops.LAUNCHES - before
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        torch.cuda.synchronize()
+        return (float(loss.detach()),
+                dict(zip(dict(model.named_parameters()), grads)),
+                fwd, ops.LAUNCHES - before - fwd)
+
+    t0 = time.perf_counter()
+    loss_k, got, fwd_k, bwd_k = loss_and_grads(cfg)
+    kernel_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_p, want, fwd_p, bwd_p = loss_and_grads(plain_cfg)
+    plain_s = time.perf_counter() - t0
+    n = cfg.num_layers
+    remat = lm._remat(cfg)
+    if (fwd_k, bwd_k, fwd_p, bwd_p) != (n, n if remat else 0, 0, 0):
+        raise AssertionError(f"{label}: launches forward {fwd_k}, backward "
+                             f"{bwd_k} (expected {n}, {n if remat else 0}); "
+                             f"plain {fwd_p}, {bwd_p}")
+    errs, own = _grad_errors(got, want)
+    del got
+    worst = max(errs, key=errs.get)
+    worst_own = max(own, key=own.get)
+    by_layer = [max(e for k, e in errs.items()
+                    if k.startswith(f"blocks.{i}.")) for i in range(n)]
+    e_loss = abs(loss_k - loss_p) / abs(loss_p)
+    uses_phi = cfg.family == "dense" and cfg.attention_variant != "full"
+    grad_tol, floor = TRAIN_GRAD_TOL, None
+    if floor_cfg is not None:
+        loss_f, third, _, _ = loss_and_grads(floor_cfg)
+        f_errs, _ = _grad_errors(third, want)
+        del third
+        f_worst = max(f_errs, key=f_errs.get)
+        floor = {"impl": floor_cfg.topo_attn_impl, "rel_err_grad":
+                 f_errs[f_worst], "worst": f_worst,
+                 "rel_err_loss": abs(loss_f - loss_p) / abs(loss_p)}
+        grad_tol = max(TRAIN_GRAD_TOL, RELU_FLOOR_K * floor["rel_err_grad"])
+    ok = (e_loss <= TRAIN_LOSS_TOL and all(np.isfinite([loss_k, loss_p]))
+          and errs[worst] <= grad_tol)
+    phi = f"phi {cfg.performer_phi}, " if uses_phi else ""
+    print(f"[{label} train gate] float32, {phi}matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, {n} layers, width "
+          f"{cfg.d_model}, B={TRAIN['gate_batch']} L={TRAIN['gate_seq']}, "
+          f"remat {remat}: loss {loss_k:.6f} vs {loss_p:.6f}, rel "
+          f"{e_loss:.2e} (< {TRAIN_LOSS_TOL}); grads worst {errs[worst]:.2e}"
+          f" ({worst}) of the leaf's max (< {grad_tol:.2e}" + (
+              f" = {RELU_FLOOR_K:g} x impl {floor['impl']}'s spread: relu "
+              "kinks" if floor else "") +
+          f"); launches {fwd_k} forward + {bwd_k} recomputed in the "
+          f"backward, plain 0; {kernel_s:.2f} s vs {plain_s:.2f} s | not "
+          f"gated: by depth layer 0 {by_layer[0]:.1e}, layer {n // 2} "
+          f"{by_layer[n // 2]:.1e}, layer {n - 1} {by_layer[-1]:.1e}; "
+          f"against each tensor's own max {own[worst_own]:.2e} "
+          f"({worst_own})" + (
+              f"; impl {floor['impl']} against the plain one: grads "
+              f"{floor['rel_err_grad']:.2e} ({floor['worst']}), loss "
+              f"{floor['rel_err_loss']:.2e}" if floor else ""), flush=True)
+    if not ok:
+        raise AssertionError(f"{label}: the kernel and plain training paths "
+                             "disagree")
+    return {"label": label, "layers": n, "phi": cfg.performer_phi,
+            "grad_tol": grad_tol, "loss": loss_k, "plain_loss": loss_p,
+            "rel_err_loss": e_loss, "rel_err_grad": errs[worst],
+            "worst": worst, "rel_err_grad_by_layer": by_layer,
+            "rel_err_own_max": own[worst_own], "worst_own": worst_own,
+            "floor": floor, "launches_forward": fwd_k,
+            "launches_backward": bwd_k, "seconds": kernel_s,
+            "plain_seconds": plain_s}
+
+
+def phase_train_gates(topo_ops, scan_ops, device):
+    """4f: the topo model at full depth (degree 1 and 2) with phi = relu
+    as configured (the grads held against the dense oracle "ref"'s
+    spread) and with phi = "sq", and at one layer with phi = relu;
+    Performer at 2 layers with phi = relu and "sq"; full attention and
+    Falcon-Mamba-7B at 2 layers. Loss and grads gated in every case."""
+    import torch
+
+    gates = []
+    L, n = TRAIN["gate_seq"], TRAIN["gate_layers"]
+    for degree in TRAIN["gate_degrees"]:
+        full = _train_cfg(degree, "cuda", "float32", L)
+        for phi, layers in (("relu", full.num_layers), ("sq", full.num_layers),
+                            ("relu", 1)):
+            cfg = full.replace(performer_phi=phi, num_layers=layers)
+            deep_relu = phi == "relu" and layers > 1
+            gates.append(phase_train_gate(
+                f"topo degree {degree}", cfg,
+                cfg.replace(topo_attn_impl="torch"), topo_ops, device,
+                cfg.replace(topo_attn_impl="ref") if deep_relu else None))
+            torch.cuda.empty_cache()
+    for variant in DENSE["variants"]:
+        for phi in (("relu", "sq") if variant == "performer" else ("relu",)):
+            cfg = _dense_cfg(variant, "cuda", "float32").replace(
+                num_layers=n, performer_phi=phi)
+            gates.append(phase_train_gate(
+                variant, cfg, cfg.replace(attn_impl="chunked"),
+                _kernel_ops(variant), device))
+            torch.cuda.empty_cache()
+    cfg = _ssm_cfg("cuda", "float32").replace(num_layers=n)
+    gates.append(phase_train_gate("falcon-mamba", cfg,
+                                  cfg.replace(attn_impl="chunked"), scan_ops,
+                                  device))
+    torch.cuda.empty_cache()
+    return gates
+
+
+def phase_train(card, device, bwd_rank16_ms):
+    """4f/5f main path: `train.loop.run_training` on the slice's model in
+    bf16 at full width and depth for TRAIN["steps"] steps, the sweep's
+    count from 0 just before and read just after; every loss finite; step
+    time (median of steps 2 on), tokens/s, peak memory, the checkpoint's
+    save time; the final checkpoint restored and held bit for bit against
+    the live parameters and optimizer state; the resume through
+    run_training (params bit for bit, the moments equal to the live ones
+    cast to the params' dtype); then one step profiled: the
+    busy share, the top device ops, the sweep's share and that of the
+    plain rank-16 backward (16 x the device time of its ops in 3f)."""
+    import tempfile
+
+    import torch
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.kernels.topo_linear_attention import ops
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWState
+    from repro_torch.train.loop import (TrainLoopConfig,
+                                        make_accumulating_step, run_training)
+
+    cfg = _train_cfg(TRAIN["degree"])
+    B, L = TRAIN["batch"], TRAIN["seq"]
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    loop = TrainLoopConfig(steps=TRAIN["steps"], batch_size=B, seq_len=L,
+                           ckpt_every=10 ** 6, ckpt_dir=ckpt, keep=1,
+                           seed=TRAIN["seed"], log_every=1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    res = run_training(cfg, loop, verbose=False, device=device)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = ops.LAUNCHES
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    losses = [float(x) for x in res["losses"]]
+    n = cfg.num_layers
+    if launches != TRAIN["steps"] * 2 * n or not all(np.isfinite(losses)):
+        raise AssertionError(f"trainer: {launches} sweep launches for "
+                             f"{TRAIN['steps']} steps of {n} layers "
+                             f"(expected {TRAIN['steps'] * 2 * n}: forward "
+                             f"and remat), losses {losses}")
+    step_ms = float(np.median(res["step_seconds"][1:])) * 1e3
+    model, opt = res["params"], res["opt_state"]
+    # the final checkpoint, restored on the host, against the live state
+    mgr = CheckpointManager(ckpt, keep=1)
+    like_opt = AdamWState(
+        torch.zeros((), dtype=torch.int32),
+        {k: torch.zeros_like(v, device="cpu") for k, v in opt.mu.items()},
+        {k: torch.zeros_like(v, device="cpu") for k, v in opt.nu.items()})
+    like = {k: torch.zeros_like(v, device="cpu")
+            for k, v in model.state_dict().items()}
+    t0 = time.perf_counter()
+    got = mgr.restore(like, like_opt)
+    restore_s = time.perf_counter() - t0
+    mismatched = [k for k, v in model.state_dict().items()
+                  if not torch.equal(like[k], v.cpu())]
+    for part in ("mu", "nu"):
+        mismatched += [f"{part}.{k}" for k, v in getattr(opt, part).items()
+                       if not torch.equal(getattr(like_opt, part)[k],
+                                          v.cpu())]
+    if got["step"] != TRAIN["steps"] or int(like_opt.step) != int(opt.step) \
+            or mismatched:
+        raise AssertionError(f"checkpoint restore: step {got['step']}, "
+                             f"opt step {int(like_opt.step)}; differs at "
+                             f"{mismatched[:5]}")
+    ckpt_bytes = sum(f.stat().st_size for f in Path(ckpt).rglob("*")
+                     if f.is_file())
+    del like, like_opt, got
+    # the resume through run_training's own path (run again with the same
+    # steps: it restores into adamw_init's state and runs no step). The
+    # params come back bit for bit; mu and nu, float32 since the first
+    # update, come back cast to the params' dtype, as the reference's
+    # restore casts them: a bf16 resume is not bit-identical
+    t0 = time.perf_counter()
+    back = run_training(cfg, loop, verbose=False, device=device)
+    resume_s = time.perf_counter() - t0
+    live_sd, back_sd = model.state_dict(), back["params"].state_dict()
+    mismatched = [k for k, v in live_sd.items()
+                  if not torch.equal(back_sd[k], v)]
+    moment_err = {}
+    for part in ("mu", "nu"):
+        live_m, back_m = getattr(opt, part), getattr(back["opt_state"], part)
+        mismatched += [f"{part}.{k}" for k, v in live_m.items() if not
+                       torch.equal(back_m[k], v.to(back_m[k].dtype))]
+        moment_err[part] = max(
+            float((back_m[k].float() - v.float()).abs().max())
+            / max(float(v.abs().max()), 1e-30) for k, v in live_m.items())
+    moment_dtypes = sorted({str(v.dtype)[6:] for v in back["opt_state"]
+                            .mu.values()})
+    if len(back["losses"]) or int(back["opt_state"].step) != int(opt.step) \
+            or mismatched:
+        raise AssertionError(f"resume: {len(back['losses'])} steps run, opt "
+                             f"step {int(back['opt_state'].step)}; differs "
+                             f"from the live state (moments cast) at "
+                             f"{mismatched[:5]}")
+    del back, live_sd, back_sd
+    torch.cuda.empty_cache()
+    # one more step, profiled (the stream's next batch)
+    from repro_torch.data.synthetic import SyntheticLMStream
+    from repro_torch.optim.adamw import AdamWConfig
+
+    step = make_accumulating_step(cfg, AdamWConfig(
+        total_steps=TRAIN["steps"], warmup_steps=1), 1, False, device)
+    toks = torch.as_tensor(SyntheticLMStream(
+        cfg.vocab_size, B, L, seed=TRAIN["seed"]).batch_at(TRAIN["steps"])[
+        "tokens"], device=device).long()
+    holder = {"opt": opt}
+
+    def one_step():
+        holder["opt"], _, _ = step(model, holder["opt"], None,
+                                   {"tokens": toks})
+
+    prof = phase_calls_profile("trainer step", one_step)
+    sweep_ms = sum(o["ms"] for o in prof["ops"] if "topo_sweep" in o["name"])
+    out = {"card": card, "params": api.param_count(model),
+           "losses": losses, "launches": launches,
+           "step_ms": step_ms, "step_ms_all": [x * 1e3 for x in
+                                               res["step_seconds"]],
+           "tokens_per_s": B * L / (step_ms / 1e3), "peak_gib": peak,
+           "train_seconds": train_s, "ckpt_save_s": res["ckpt_seconds"][-1],
+           "ckpt_restore_s": restore_s, "ckpt_bytes": ckpt_bytes,
+           "resume_s": resume_s, "resume_moment_dtypes": moment_dtypes,
+           "resume_moment_rel_err": moment_err,
+           "profile": prof, "sweep_share": sweep_ms / prof["device_ms"],
+           "device_share_of_step": prof["device_ms"] / step_ms,
+           "plain_rank16_backward_share": n * bwd_rank16_ms
+           / prof["device_ms"]}
+    import shutil
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"[trainer] {cfg.name} topo degree {TRAIN['degree']} (rank16), "
+          f"{cfg.dtype}, {n} layers, {out['params']} params, B={B} L={L}: "
+          f"{TRAIN['steps']} steps through run_training in {train_s:.1f} s, "
+          f"losses {' '.join(f'{x:.4f}' for x in losses)}; {launches} sweep "
+          f"launches; {step_ms:.1f} ms/step (median of steps 2-"
+          f"{TRAIN['steps']}), {out['tokens_per_s']:.0f} tokens/s; peak "
+          f"{peak:.2f} GiB; checkpoint {ckpt_bytes / 2 ** 30:.2f} GiB saved "
+          f"in {out['ckpt_save_s']:.1f} s, restored in {restore_s:.1f} s, "
+          f"bit for bit; resumed through run_training in {resume_s:.1f} s: "
+          f"params bit for bit, mu and nu cast to "
+          f"{'/'.join(moment_dtypes)} (rel change mu "
+          f"{moment_err['mu']:.2e}, nu {moment_err['nu']:.2e}); profiled "
+          f"step: busy {prof['busy']:.2f} under the "
+          f"profiler, device time {prof['device_ms']:.1f} ms = "
+          f"{out['device_share_of_step']:.2f} of an unprofiled step, the sweep "
+          f"{out['sweep_share']:.1%} of device time, the plain rank-16 "
+          f"backward {out['plain_rank16_backward_share']:.1%} ({n} x "
+          f"{bwd_rank16_ms:.2f} ms) | {card}", flush=True)
+    return out
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -1862,8 +2501,8 @@ def run(cfg, device, out_path=None) -> dict:
     tree = synthetic_tree(cfg)
     _, host_params = ftfi.build(tree, leaf_size=cfg["leaf"], device=device,
                                 use_cache=False)  # phase 4 times a cold build
-    checks = phase_kernel_vs_plain(
-        top_buckets(host_params, cfg["widths"]), device)
+    buckets = top_buckets(host_params, cfg["widths"])
+    checks = phase_kernel_vs_plain(buckets, device)
     del host_params
 
     fams = families()
@@ -2050,6 +2689,26 @@ def run(cfg, device, out_path=None) -> dict:
     vit_gate = phase_vit_gate(device)
     torch.cuda.empty_cache()
     vit_serve = phase_vit_serve(card, device)
+    # slice 9: training. 3f the Functions' grads; 4f the float32 training
+    # gates (topo at full depth, the earlier paths at 2 layers); 5f the
+    # trainer, the slice's main path
+    grad_rows = phase_kernel_grads(device, [b for b in buckets
+                                            if b[2] == max(cfg["widths"])])
+    torch.cuda.empty_cache()
+    train_gates = phase_train_gates(topo_ops, scan_ops, device)
+    timed = {r["case"]: r for r in grad_rows if "backward_ms" in r}
+    rank16 = next(r for c, r in timed.items() if "rank16" in c)
+    trainer = phase_train(card, device, rank16["backward_device_ms"])
+    for k in kernels:
+        name = k["name"].split("[")[0].replace("_batched", "")
+        mode = k["name"].split("[")[-1].rstrip("]")
+        row = next(r for c, r in timed.items() if r["kernel"] == name
+                   and (name != "topo_attention_sweep" or mode in c))
+        k.update(backward=BACKWARD[name], backward_ms=row["backward_ms"],
+                 backward_device_ms=row["backward_device_ms"],
+                 backward_at=row["case"])
+        if k["name"] == "topo_attention_sweep[rank16]":
+            k["train_launches"] = trainer["launches"]
     record = {"device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
@@ -2060,7 +2719,9 @@ def run(cfg, device, out_path=None) -> dict:
               "scan_kernel_checks": scan_checks, "ssm_gate": ssm_gate,
               "ssm_serve": ssm_serve, "scan_times": scan_times,
               "topo_fft": topo_fft, "vit_gate": vit_gate,
-              "vit_serve": vit_serve, "kernels": kernels}
+              "vit_serve": vit_serve, "kernel_grads": grad_rows,
+              "train_gates": train_gates, "trainer": trainer,
+              "kernels": kernels}
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(record, indent=1))

@@ -6,15 +6,20 @@ A CUDA tensor goes to the hand-written kernel (`kernel.py`, built from
 the kernel launches or the call raises. `LAUNCHES` counts kernel launches,
 so a caller can show that its path went through the kernel, and
 `LAUNCHES_BY_TD` counts them by the kernel's d-tile width (4, 16 or 64).
-The kernel has no backward yet (ROADMAP A8), so the wrappers refuse inputs
-that require grad on every device, as the reference's `pallas_call` does,
-rather than cut the graph.
+
+The batched wrapper is a `torch.autograd.Function`. Its forward is the
+kernel (the plain version on CPU tensors); its backward is, for v, the
+exact transpose product M^T u, which is the same kernel with x and y
+swapped since f depends on x_i + y_j alone (one more launch), and, for x,
+y and coeffs, the VJP of the plain version recomputed from the saved
+inputs, as the reference's custom VJPs differentiate their XLA twins.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels.fdist_matvec import kernel
+from repro_torch.kernels._vjp import plain_vjp
 from repro_torch.kernels.fdist_matvec.ref import fdist_matvec_batched_ref
 
 MODES = ("poly", "exp", "expq", "rational")
@@ -56,20 +61,11 @@ def _check(x, y, v, coeffs, mode: str) -> None:
     if (want is not None and k != want) or not 1 <= k <= MAX_COEFFS:
         raise ValueError(f"mode {mode!r} takes {want or '1..4096'} "
                          f"coefficients, got {k}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, y, v, coeffs)):
-        raise NotImplementedError(
-            "the fdist_matvec kernel has no backward yet: it comes with "
-            "ROADMAP A8. Run under torch.no_grad(), or use "
-            "ftfi.apply(..., backend='torch')")
 
 
-def fdist_matvec_batched(x, y, v, coeffs, mode: str = "poly"):
-    """Bucketed form used by the plan executor: (B, a) x (B, b) x (B, b, d)
-    -> (B, a, d) in v's dtype, out[n, i] = sum_j f(x[n, i] + y[n, j]) v[n, j].
-    """
+def _forward(x, y, v, coeffs, mode: str):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
     global LAUNCHES
-    _check(x, y, v, coeffs, mode)
     if x.device.type == "cpu":
         return fdist_matvec_batched_ref(x, y, v, coeffs, mode)
     if x.device.type != "cuda":
@@ -82,6 +78,37 @@ def fdist_matvec_batched(x, y, v, coeffs, mode: str = "poly"):
     LAUNCHES += 1
     LAUNCHES_BY_TD[kernel.tile_width(d)] += 1
     return out
+
+
+class _FdistMatvec(torch.autograd.Function):
+    """Kernel forward; backward M^T u on the kernel (v) and the plain
+    version's VJP (x, y, coeffs)."""
+
+    @staticmethod
+    def forward(ctx, x, y, v, coeffs, mode):
+        ctx.mode = mode
+        ctx.save_for_backward(x, y, v, coeffs)
+        return _forward(x, y, v, coeffs, mode)
+
+    @staticmethod
+    def backward(ctx, u):
+        x, y, v, coeffs = ctx.saved_tensors
+        need_x, need_y, need_v, need_c = ctx.needs_input_grad[:4]
+        u = u.contiguous()
+        gv = (_forward(y, x, u, coeffs, ctx.mode) if need_v else None)
+        gx, gy, gc = plain_vjp(
+            lambda x, y, c: fdist_matvec_batched_ref(x, y, v.detach(), c,
+                                                     ctx.mode),
+            (x, y, coeffs), (need_x, need_y, need_c), u)
+        return gx, gy, gv, gc, None
+
+
+def fdist_matvec_batched(x, y, v, coeffs, mode: str = "poly"):
+    """Bucketed form used by the plan executor: (B, a) x (B, b) x (B, b, d)
+    -> (B, a, d) in v's dtype, out[n, i] = sum_j f(x[n, i] + y[n, j]) v[n, j].
+    Differentiable in every input (the module docstring says how)."""
+    _check(x, y, v, coeffs, mode)
+    return _FdistMatvec.apply(x, y, v, coeffs, mode)
 
 
 def fdist_matvec(x, y, v, coeffs, mode: str = "poly"):

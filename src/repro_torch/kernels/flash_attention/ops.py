@@ -13,9 +13,11 @@ forward).
     launches the kernel (kernel.py, built from flash_attention.cu) or the
     call raises; a CPU tensor runs the plain version. `LAUNCHES` counts
     kernel launches, and `LAUNCHES_BY_MODE` the causal and the non-causal
-    ("full") ones apart. The kernel has no backward yet (ROADMAP A8), so the
-    kernel path refuses inputs that require grad rather than cut the graph.
-    Its bf16 path (tensor cores, TMA copies) needs 16-byte-aligned rows: a
+    ("full") ones apart. The kernel path is a `torch.autograd.Function`:
+    its forward is the kernel, its backward the VJP of `sdpa_chunked`
+    recomputed from the saved q, k, v (the reference's design: its custom
+    VJPs run the Pallas kernel forward and differentiate the XLA twin), so
+    it never holds the (L, L) logits at once. Its bf16 path (tensor cores, TMA copies) needs 16-byte-aligned rows: a
     CUDA view without them is refused, never copied.
 """
 from __future__ import annotations
@@ -25,6 +27,7 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention import kernel
+from repro_torch.kernels._vjp import plain_vjp
 from repro_torch.models.layers import softcap
 
 LAUNCHES = 0
@@ -105,11 +108,42 @@ def _check(q, k, v, kernel_path: bool) -> None:
             "the bf16 flash attention kernel reads q, k, v through TMA "
             "tensor maps: each needs a 16-byte-aligned start and strides "
             "that are multiples of 8 elements (16-byte rows)")
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError(
-            "the flash attention kernel has no backward yet: it comes with "
-            "ROADMAP A8. Run under torch.no_grad(), or use the plain version "
-            "(use_kernel=False, attn_impl='chunked')")
+
+
+def _plain(q, k, v, causal: bool):
+    """The plain version in the kernel's (B, H, L, hd) layout."""
+    out = sdpa_chunked(q.transpose(1, 2), k.transpose(1, 2),
+                       v.transpose(1, 2), causal)
+    return out.transpose(1, 2)
+
+
+def _forward(q, k, v, causal: bool):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    global LAUNCHES
+    if q.device.type == "cpu":
+        return _plain(q, k, v, causal)
+    if q.device.type != "cuda":
+        raise ValueError(f"no flash attention kernel for device {q.device}")
+    out = kernel.flash_attention_cuda(q, k, v, causal)
+    LAUNCHES += 1
+    LAUNCHES_BY_MODE["causal" if causal else "full"] += 1
+    return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Kernel forward, `sdpa_chunked`'s VJP backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v)
+        return _forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*plain_vjp(lambda q, k, v: _plain(q, k, v, ctx.causal),
+                           ctx.saved_tensors, ctx.needs_input_grad[:3], g),
+                None)
 
 
 def flash_attention(q, k, v, causal: bool = True,
@@ -120,17 +154,10 @@ def flash_attention(q, k, v, causal: bool = True,
     (B, H, L, hd) in q's dtype.
 
     use_kernel=None or True: the kernel path (the kernel on CUDA tensors,
-    the plain version on CPU tensors); False: the plain version."""
-    global LAUNCHES
+    the plain version on CPU tensors; differentiable through the plain
+    version's VJP); False: the plain version."""
     kernel_path = use_kernel is not False
     _check(q, k, v, kernel_path)
-    if not kernel_path or q.device.type == "cpu":
-        out = sdpa_chunked(q.transpose(1, 2), k.transpose(1, 2),
-                           v.transpose(1, 2), causal)
-        return out.transpose(1, 2)
-    if q.device.type != "cuda":
-        raise ValueError(f"no flash attention kernel for device {q.device}")
-    out = kernel.flash_attention_cuda(q, k, v, causal)
-    LAUNCHES += 1
-    LAUNCHES_BY_MODE["causal" if causal else "full"] += 1
-    return out
+    if not kernel_path:
+        return _plain(q, k, v, causal)
+    return _FlashAttention.apply(q, k, v, causal)

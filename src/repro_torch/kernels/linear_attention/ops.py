@@ -11,9 +11,11 @@ the separable g = exp, degree-1 topological mask).
   * `linear_attention` is the kernel's wrapper, in the reference kernel's
     (B, H, L, .) layout: a CUDA tensor launches the kernel (kernel.py,
     built from linear_attention.cu) or the call raises; a CPU tensor runs
-    the plain version. `LAUNCHES` counts kernel launches. The kernel has no
-    backward yet (ROADMAP A8), so the kernel path refuses inputs that
-    require grad rather than cut the graph.
+    the plain version. `LAUNCHES` counts kernel launches. The kernel path
+    is a `torch.autograd.Function`: its forward is the kernel, its
+    backward the VJP of the plain version recomputed from the saved
+    inputs (the reference's design: its custom VJPs run the Pallas kernel
+    forward and differentiate the XLA twin).
 
 Both return the unnormalized (num, den) in float32; the model normalizes
 with `attention.linear_attention_output`.
@@ -24,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.linear_attention import kernel
+from repro_torch.kernels._vjp import plain_vjp
 
 LAUNCHES = 0
 
@@ -106,12 +109,39 @@ def _check(qf, kf, v, log_gamma, kernel_path: bool) -> None:
     if m % 4 or m > kernel.MAX_M:
         raise ValueError(f"the linear attention kernel takes m <= "
                          f"{kernel.MAX_M} with m % 4 == 0, got m={m}")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in named.values()):
-        raise NotImplementedError(
-            "the linear attention kernel has no backward yet: it comes with "
-            "ROADMAP A8. Run under torch.no_grad(), or use the plain version "
-            "(use_kernel=False, attn_impl='chunked')")
+
+
+def _plain(qf, kf, v, log_gamma):
+    """The plain version in the kernel's (B, H, L, .) layout."""
+    num, den = causal_linear_attention(qf.transpose(1, 2), kf.transpose(1, 2),
+                                       v.transpose(1, 2), log_gamma)
+    return num.transpose(1, 2), den.transpose(1, 2)
+
+
+def _forward(qf, kf, v, log_gamma):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    global LAUNCHES
+    if qf.device.type == "cpu":
+        return _plain(qf, kf, v, log_gamma)
+    if qf.device.type != "cuda":
+        raise ValueError(f"no linear attention kernel for device {qf.device}")
+    got = kernel.linear_attention_cuda(qf, kf, v, log_gamma.contiguous())
+    LAUNCHES += 1
+    return got
+
+
+class _LinearAttention(torch.autograd.Function):
+    """Kernel forward, the plain version's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, qf, kf, v, log_gamma):
+        ctx.save_for_backward(qf, kf, v, log_gamma)
+        return _forward(qf, kf, v, log_gamma)
+
+    @staticmethod
+    def backward(ctx, g_num, g_den):
+        return plain_vjp(_plain, ctx.saved_tensors, ctx.needs_input_grad,
+                         (g_num, g_den))
 
 
 def linear_attention(qf, kf, v, log_gamma, use_kernel: bool | None = None):
@@ -121,17 +151,10 @@ def linear_attention(qf, kf, v, log_gamma, use_kernel: bool | None = None):
     float32.
 
     use_kernel=None or True: the kernel path (the kernel on CUDA tensors,
-    the plain version on CPU tensors); False: the plain version."""
-    global LAUNCHES
+    the plain version on CPU tensors; differentiable through the plain
+    version's VJP); False: the plain version."""
     kernel_path = use_kernel is not False
     _check(qf, kf, v, log_gamma, kernel_path)
-    if not kernel_path or qf.device.type == "cpu":
-        num, den = causal_linear_attention(
-            qf.transpose(1, 2), kf.transpose(1, 2), v.transpose(1, 2),
-            log_gamma)
-        return num.transpose(1, 2), den.transpose(1, 2)
-    if qf.device.type != "cuda":
-        raise ValueError(f"no linear attention kernel for device {qf.device}")
-    got = kernel.linear_attention_cuda(qf, kf, v, log_gamma.contiguous())
-    LAUNCHES += 1
-    return got
+    if not kernel_path:
+        return _plain(qf, kf, v, log_gamma)
+    return _LinearAttention.apply(qf, kf, v, log_gamma)

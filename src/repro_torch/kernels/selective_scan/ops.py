@@ -17,8 +17,11 @@ in float32, from h_0 = h0 (zeros when absent), returning (y, h_final).
     `selective_scan_pallas`, plus the final state and h0): a CUDA tensor
     launches the kernel (kernel.py, built from selective_scan.cu) or the
     call raises; a CPU tensor runs the plain version. `LAUNCHES` counts
-    kernel launches. The kernel has no backward yet (ROADMAP A8), so the
-    kernel path refuses inputs that require grad rather than cut the graph.
+    kernel launches. The kernel path is a `torch.autograd.Function`: its
+    forward is the kernel, its backward the VJP of the plain chunked scan
+    recomputed from the saved inputs (the reference's design: its custom
+    VJPs run the Pallas kernel forward and differentiate the XLA twin), so
+    the forward's values are the kernel's alone.
 
 u, dt, B and C may be float32 or bfloat16 (the upcast to float32 is
 exact); A, D and h0 are float32.
@@ -29,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.selective_scan import kernel
+from repro_torch.kernels._vjp import plain_vjp
 
 LAUNCHES = 0
 
@@ -108,12 +112,36 @@ def _check(u, dt, A, Bm, Cm, D, h0, kernel_path: bool) -> None:
     for name, t in named.items():
         if t.stride(-1) != 1:
             raise ValueError(f"{name} needs a unit last stride")
-    if torch.is_grad_enabled() and any(t.requires_grad
-                                       for t in named.values()):
-        raise NotImplementedError(
-            "the selective scan kernel has no backward yet: it comes with "
-            "ROADMAP A8. Run under torch.no_grad(), or use the plain version "
-            "(use_kernel=False, attn_impl='chunked')")
+
+
+def _forward(u, dt, A, Bm, Cm, D, h0):
+    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    global LAUNCHES
+    if u.device.type == "cpu":
+        return selective_scan(u, dt, A, Bm, Cm, D, h0=h0)
+    if u.device.type != "cuda":
+        raise ValueError(f"no selective scan kernel for device {u.device}")
+    got = kernel.selective_scan_cuda(u, dt, A.contiguous(), Bm, Cm,
+                                     D.contiguous(),
+                                     None if h0 is None else h0.contiguous())
+    LAUNCHES += 1
+    return got
+
+
+class _Scan(torch.autograd.Function):
+    """Kernel forward, the plain chunked scan's VJP backward."""
+
+    @staticmethod
+    def forward(ctx, u, dt, A, Bm, Cm, D, h0):
+        ctx.save_for_backward(u, dt, A, Bm, Cm, D, h0)
+        return _forward(u, dt, A, Bm, Cm, D, h0)
+
+    @staticmethod
+    def backward(ctx, g_y, g_h):
+        return plain_vjp(
+            lambda u, dt, A, Bm, Cm, D, h0: selective_scan(u, dt, A, Bm, Cm,
+                                                           D, h0=h0),
+            ctx.saved_tensors, ctx.needs_input_grad, (g_y, g_h))
 
 
 def scan(u, dt, A, Bm, Cm, D, h0=None, use_kernel: bool | None = None):
@@ -123,16 +151,10 @@ def scan(u, dt, A, Bm, Cm, D, h0=None, use_kernel: bool | None = None):
     N)) in float32.
 
     use_kernel=None or True: the kernel path (the kernel on CUDA tensors,
-    the plain version on CPU tensors); False: the plain version."""
-    global LAUNCHES
+    the plain version on CPU tensors; differentiable through the plain
+    version's VJP); False: the plain version."""
     kernel_path = use_kernel is not False
     _check(u, dt, A, Bm, Cm, D, h0, kernel_path)
-    if not kernel_path or u.device.type == "cpu":
+    if not kernel_path:
         return selective_scan(u, dt, A, Bm, Cm, D, h0=h0)
-    if u.device.type != "cuda":
-        raise ValueError(f"no selective scan kernel for device {u.device}")
-    got = kernel.selective_scan_cuda(u, dt, A.contiguous(), Bm, Cm,
-                                     D.contiguous(),
-                                     None if h0 is None else h0.contiguous())
-    LAUNCHES += 1
-    return got
+    return _Scan.apply(u, dt, A, Bm, Cm, D, h0)

@@ -17,9 +17,13 @@ synced (t+1,) vector broadcasts.
 
 `topo_attention_sweep` is the kernel's wrapper: a CUDA tensor launches the
 kernel or the call raises; a CPU tensor runs the plain sweep. `LAUNCHES`
-counts kernel launches. The kernel has no backward yet (the reference's
-custom VJP comes with ROADMAP A8), so the kernel path refuses inputs that
-require grad rather than cut the graph.
+counts kernel launches. The raw sweep has no backward and refuses inputs
+that require grad. The fused entry `topo_linear_attention` on the kernel
+path is a `torch.autograd.Function` over (qf, kf, v, coeffs), the
+reference's `_fused` custom VJP: its forward is `_kernel_forward`, its
+backward the VJP of `_plain_forward` (the XLA twin's counterpart)
+recomputed from the saved inputs, so the mask scalars get their grads
+through `_prepare`'s tables.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import masks as MK
 from repro_torch.kernels.topo_linear_attention import kernel
+from repro_torch.kernels._vjp import plain_vjp
 
 LAUNCHES = 0
 
@@ -234,10 +239,10 @@ def _check(qf, kf, v, dmat, log_gamma, alpha, beta, res_num, res_den):
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in named.values()):
         raise NotImplementedError(
-            "the topo sweep kernel has no backward yet: the autograd.Function "
-            "of the reference's custom VJP comes with ROADMAP A8. Run under "
-            "torch.no_grad(), or use the plain sweep (use_kernel=False, "
-            "topo_attn_impl='torch')")
+            "the raw topo sweep has no backward: differentiate through the "
+            "fused entry topo_linear_attention(..., use_kernel=True), whose "
+            "backward is the plain sweep's VJP, or run under "
+            "torch.no_grad()")
 
 
 def topo_attention_sweep(qf, kf, v, dmat, *, log_gamma=None, alpha=None,
@@ -293,6 +298,23 @@ def _kernel_forward(spec: TopoSpec, qf, kf, v, coeffs):
     return _flip(out_rev)[:, :, :L]
 
 
+class _Fused(torch.autograd.Function):
+    """`_kernel_forward` forward, `_plain_forward`'s VJP backward (the
+    reference's `_fused` / `_fused_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, spec, qf, kf, v, coeffs):
+        ctx.spec = spec
+        ctx.save_for_backward(qf, kf, v, coeffs)
+        return _kernel_forward(spec, qf, kf, v, coeffs)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return (None, *plain_vjp(
+            lambda *ins: _plain_forward(ctx.spec, *ins), ctx.saved_tensors,
+            ctx.needs_input_grad[1:], ct))
+
+
 def topo_linear_attention(qf, kf, v, coeffs, *, g: str = "exp",
                           dist_scale: float = 1.0, causal: bool = True,
                           chunk: int = 128, rank: int = 16,
@@ -307,7 +329,8 @@ def topo_linear_attention(qf, kf, v, coeffs, *, g: str = "exp",
     use_kernel=None takes the kernel for CUDA tensors and the plain sweep
     for CPU tensors; use_kernel=True takes the kernel path anywhere (on the
     CPU the wrapper then runs the plain sweep through the kernel path's
-    padding, flips and residuals); use_kernel=False the plain sweep."""
+    padding, flips and residuals); use_kernel=False the plain sweep. The
+    kernel path differentiates through the plain sweep's VJP (`_Fused`)."""
     B, H, L, m = qf.shape
     coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=qf.device)
     if coeffs.ndim == 1:
@@ -318,5 +341,5 @@ def topo_linear_attention(qf, kf, v, coeffs, *, g: str = "exp",
     spec = TopoSpec(g, float(dist_scale), bool(causal), C, int(rank),
                     float(eps))
     if use_kernel:
-        return _kernel_forward(spec, qf, kf, v, coeffs)
+        return _Fused.apply(spec, qf, kf, v, coeffs)
     return _plain_forward(spec, qf, kf, v, coeffs)

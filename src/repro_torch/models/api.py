@@ -1,11 +1,12 @@
-"""Public model API of the port: init / prefill / decode entry points.
+"""Public model API of the port: init / loss / prefill / decode entry
+points.
 
 Each takes the model (`lm.DecoderLM`) in place of the reference's param
 pytree, and `device=None`, which means the CUDA card (raising without
 one); the tests pass `device="cpu"`. Token inputs may be numpy arrays or
 tensors and are moved to the device; the model must already live there.
-Serving runs under `torch.no_grad()`. Encoder-decoder families come with
-ROADMAP A10.
+`loss_fn` runs with grad enabled; serving runs under `torch.no_grad()`.
+Encoder-decoder families come with ROADMAP A10.
 """
 from __future__ import annotations
 
@@ -38,6 +39,16 @@ def init_params(cfg, seed=0, device=None) -> lm.DecoderLM:
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(seed))
     return lm.init_params(cfg, gen)
+
+
+def loss_fn(cfg, model, batch, device=None):
+    """(loss, {"aux": aux}) of `batch` {'tokens': (B, L)}, with grad
+    enabled: call `loss.backward()` for the parameters' grads."""
+    lm.check_supported(cfg)
+    dev = _on(model, device)
+    with torch.enable_grad():
+        return lm.forward_train(cfg, model, {"tokens": _ints(batch["tokens"],
+                                                             dev)})
 
 
 @torch.no_grad()

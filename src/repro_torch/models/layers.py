@@ -1,7 +1,7 @@
 """Shared neural layers of the port: init helpers on an explicit
 `torch.Generator`, RMS norm, rope, the logit softcap and the gated MLP.
 Weights keep the reference's `(in, out)` layout (`x @ W`), so reference
-weights copy over unchanged. The loss comes with ROADMAP A10."""
+weights copy over unchanged. And the next-token loss with its z-loss."""
 from __future__ import annotations
 
 import math
@@ -91,3 +91,18 @@ def embed_init(gen: torch.Generator, vocab: int, d_model: int,
                dtype=torch.float32) -> dict:
     x = torch.randn((vocab, d_model), generator=gen, device=gen.device)
     return {"table": (x * 0.02).to(dtype)}
+
+
+def cross_entropy_loss(logits, labels, vocab_size: int,
+                       z_loss: float = 1e-4):
+    """Mean next-token CE in float32, with z-loss; labels outside [0,
+    vocab_size) are masked. The reference's formula, term by term (not
+    `F.cross_entropy`, which has no z-loss and another masking)."""
+    logits = logits.float()
+    mask = (labels >= 0) & (labels < vocab_size)
+    labels_c = labels.clamp(0, vocab_size - 1).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_c[..., None])[..., 0]
+    nll = logz - gold + z_loss * logz.square()
+    nll = torch.where(mask, nll, 0.0)
+    return nll.sum() / mask.sum().clamp_min(1)

@@ -23,12 +23,13 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
-from repro_torch.models.layers import (Params, dense_init, dtype_of,
-                                       embed_init, gated_mlp, gated_mlp_init,
-                                       rms_norm)
+from repro_torch.models.layers import (Params, cross_entropy_loss,
+                                       dense_init, dtype_of, embed_init,
+                                       gated_mlp, gated_mlp_init, rms_norm)
 
 
 VARIANTS = ("full", "performer", "topo")
@@ -275,6 +276,42 @@ def unembed(cfg, model, x):
 
 def _final(cfg, model, x):
     return rms_norm(x, model.final_norm.scale, cfg.norm_eps, plus_one=True)
+
+
+def _remat(cfg) -> bool:
+    """Whether `forward_train` recomputes each block in the backward (the
+    counterpart of the reference's `_maybe_remat`). Both of its policies,
+    "dots" and "nothing", become a whole-block recompute here: it changes
+    memory, not numbers."""
+    return bool(cfg.remat) and getattr(cfg, "remat_policy", "dots") != "none"
+
+
+def forward_train(cfg, model, batch):
+    """batch: {'tokens': (B, L)}. Returns (loss, {"aux": aux}): the mean
+    next-token CE over `padded_vocab()` with its z-loss, plus the blocks'
+    auxiliary loss (0 for the dense and ssm families: no MoE router yet)."""
+    if cfg.mtp_depth > 0:
+        raise NotImplementedError(
+            "multi-token prediction (mtp_depth > 0) belongs to the DeepSeek "
+            "configs, which are not ported yet (ROADMAP A10)")
+    tokens = batch["tokens"]
+    B, L = tokens.shape
+    x = embed_tokens(cfg, model, tokens)
+    positions = torch.arange(L, dtype=torch.int32,
+                             device=x.device)[None].expand(B, L)
+    kind = _kind(cfg)
+    remat = _remat(cfg) and torch.is_grad_enabled()
+    for blk in model.blocks:
+        if remat:
+            x = checkpoint(_block_train, cfg, kind, blk, x, positions,
+                           use_reentrant=False)
+        else:
+            x = _block_train(cfg, kind, blk, x, positions)
+    logits = unembed(cfg, model, _final(cfg, model, x))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    loss = cross_entropy_loss(logits[:, :-1], tokens[:, 1:],
+                              cfg.padded_vocab())
+    return loss + aux, {"aux": aux}
 
 
 def forward_prefill(cfg, model, batch):

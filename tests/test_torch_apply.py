@@ -195,22 +195,27 @@ def test_no_device_means_the_card_and_never_the_cpu(monkeypatch):
 
 
 def test_apply_cuda_backend_refuses_fields_that_require_grad():
-    """backend "cuda" has no backward (ROADMAP A8): an X that requires grad
-    is refused, on the CPU as on the card, rather than integrated with its
-    cross-bucket part cut from the graph; under no_grad it runs, and
-    backend "torch" differentiates."""
+    """backend "cuda" no longer refuses an X that requires grad: the cross
+    buckets go through the fdist wrapper's autograd.Function (the v-grad
+    is M^T u, the wrapper's forward with x and y swapped), so d/dX of
+    `apply` on "cuda" equals that of backend "torch" (the exact engines);
+    under no_grad it runs as before."""
     tree = TG.random_tree(120, seed=2)
     spec, params = T.build(tree, leaf_size=8, device="cpu")
     fn = TC.Exponential(-0.5)
-    X = torch.tensor(np.random.default_rng(0).normal(size=(120, 3)),
-                     dtype=torch.float32, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        T.apply(spec, params, fn, X, backend="cuda", device="cpu")
+    rng = np.random.default_rng(0)
+    X0 = torch.tensor(rng.normal(size=(120, 3)), dtype=torch.float32)
+    W = torch.tensor(rng.normal(size=(120, 3)), dtype=torch.float32)
     with torch.no_grad():
-        got = T.apply(spec, params, fn, X, backend="cuda", device="cpu")
-        want = T.apply(spec, params, fn, X, backend="torch", device="cpu")
+        got = T.apply(spec, params, fn, X0, backend="cuda", device="cpu")
+        want = T.apply(spec, params, fn, X0, backend="torch", device="cpu")
     assert _rel(got, want) < 1e-5
-    Y = T.apply(spec, params, fn, X, backend="torch", device="cpu")
-    Y.sum().backward()
-    assert X.grad is not None and bool(torch.isfinite(X.grad).all())
+    grads = {}
+    for backend in ("cuda", "torch"):
+        X = X0.clone().requires_grad_(True)
+        (T.apply(spec, params, fn, X, backend=backend, device="cpu")
+         * W).sum().backward()
+        assert bool(torch.isfinite(X.grad).all())
+        grads[backend] = X.grad
+    assert _rel(grads["cuda"], grads["torch"]) < 1e-5
 

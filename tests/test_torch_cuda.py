@@ -143,19 +143,34 @@ def test_tile_kernel_matches_plain_version(B, a, b, d, mode, coeffs, vdtype,
 
 @pytest.mark.cuda
 def test_backward_through_apply_cuda_raises(cuda_device):
-    """The kernel has no backward (ROADMAP A8): an X that requires grad is
-    refused on the card, not integrated with its cross part detached."""
+    """The card's grad check of the fdist wrapper's autograd.Function: d/dX
+    of `apply(backend="cuda")` (the v-grad M^T u on the kernel, one launch
+    per cross bucket, as many as the forward's) equals that of backend
+    "torch" (the exact engines), and the forward still meets the dense
+    oracle."""
     tree = random_tree(300, seed=4)
     spec, params = ftfi.build(tree, leaf_size=16)
-    X = torch.tensor(np.random.default_rng(1).normal(size=(300, 4)),
-                     dtype=torch.float32, device=cuda_device,
-                     requires_grad=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ftfi.apply(spec, params, C.Exponential(-0.5), X, backend="cuda")
-    with torch.no_grad():
-        got = ftfi.apply(spec, params, C.Exponential(-0.5), X, backend="cuda")
-    want = BTFI(tree).integrate(C.Exponential(-0.5), X.detach())
-    assert _rel(got, want) < 1e-5
+    rng = np.random.default_rng(1)
+    X0 = torch.tensor(rng.normal(size=(300, 4)), dtype=torch.float32,
+                      device=cuda_device)
+    W = torch.tensor(rng.normal(size=(300, 4)), dtype=torch.float32,
+                     device=cuda_device)
+    fn = C.Exponential(-0.5)
+    grads = {}
+    for backend in ("cuda", "torch"):
+        X = X0.clone().requires_grad_(True)
+        before = ops.LAUNCHES
+        out = ftfi.apply(spec, params, fn, X, backend=backend)
+        forward = ops.LAUNCHES - before
+        (out * W).sum().backward()
+        torch.cuda.synchronize()
+        if backend == "cuda":
+            assert forward > 0 and ops.LAUNCHES - before == 2 * forward
+            assert _rel(out.detach(), BTFI(tree).integrate(fn, X0)) < 1e-5
+        else:
+            assert ops.LAUNCHES == before
+        grads[backend] = X.grad
+    assert _rel(grads["cuda"], grads["torch"]) < 1e-5
 
 
 # --- the topological linear-attention sweep kernel ---------------------------

@@ -125,24 +125,40 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 @pytest.mark.parametrize("which", ["x", "y", "v", "coeffs"])
 def test_wrapper_refuses_inputs_that_require_grad(which):
-    """The kernel has no backward (ROADMAP A8): the wrapper refuses on every
-    device rather than return a result cut from the graph, as the
-    reference's pallas_call raises under jax.grad."""
-    x, y, v, cs = _ok_args()
+    """The wrapper never returns a result cut from the graph: an input that
+    requires grad gets the plain version's grad, through the wrapper's
+    autograd.Function (v: M^T u, the wrapper's own forward with x and y
+    swapped; x, y, coeffs: the plain version's VJP), batched and single;
+    under no_grad the wrapper runs as before."""
+    rng = np.random.default_rng(3)
+    x, y = (torch.tensor(rng.uniform(0, 1, s), dtype=torch.float32)
+            for s in ((2, 5), (2, 7)))
+    v = torch.tensor(rng.normal(size=(2, 7, 3)), dtype=torch.float32)
+    cs = torch.tensor([-0.7, 1.3])
+    u = torch.tensor(rng.normal(size=(2, 5, 3)), dtype=torch.float32)
+
+    def grad_of(fn, args):
+        args = dict(args)
+        args[which] = args[which].clone().requires_grad_(True)
+        (fn(args["x"], args["y"], args["v"], args["coeffs"], "exp")
+         * u[:args["x"].shape[0]]).sum().backward()
+        return args[which].grad
+
     args = {"x": x, "y": y, "v": v, "coeffs": cs}
-    args[which].requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.fdist_matvec_batched(args["x"], args["y"], args["v"],
-                                 args["coeffs"], "exp")
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.fdist_matvec(args["x"][0], args["y"][0], args["v"][0],
-                         args["coeffs"], "exp")
+    want = grad_of(fdist_matvec_batched_ref, args)
+    got = grad_of(ops.fdist_matvec_batched, args)
+    assert float((got - want).abs().max()) <= 1e-6 * float(
+        want.abs().max())
+    one = {k: (t[0] if k != "coeffs" else t) for k, t in args.items()}
+    got1 = grad_of(lambda x, y, v, c, m: ops.fdist_matvec(x, y, v, c, m)[None],
+                   one)
+    want1 = grad_of(lambda x, y, v, c, m: fdist_matvec_ref(x, y, v, c,
+                                                           m)[None], one)
+    assert float((got1 - want1).abs().max()) <= 1e-6 * float(
+        want1.abs().max())
     with torch.no_grad():
-        got = ops.fdist_matvec_batched(args["x"], args["y"], args["v"],
-                                       args["coeffs"], "exp")
-    assert torch.equal(got, fdist_matvec_batched_ref(x.detach(), y.detach(),
-                                                     v.detach(), cs.detach(),
-                                                     "exp"))
+        got = ops.fdist_matvec_batched(x, y, v, cs, "exp")
+    assert torch.equal(got, fdist_matvec_batched_ref(x, y, v, cs, "exp"))
 
 
 def _coverage(B, a, b, d, cfg):

@@ -188,13 +188,23 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_path_refuses_inputs_that_require_grad():
-    q, k, v = (torch.from_numpy(a) for a in _qkv(np.random.default_rng(0),
-                                                  1, 2, 2, 16, 16))
-    q.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.flash_attention(q, k, v)
-    ops.flash_attention(q, k, v, use_kernel=False).sum().backward()
-    assert q.grad is not None
+    """The kernel path no longer refuses inputs that require grad: its
+    autograd.Function's backward is the plain version's VJP, so q, k and v
+    get the plain path's grads (GQA, causal and not); under no_grad it
+    runs as before."""
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 4, 2, 16, 16))
+    u = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    for causal in (True, False):
+        grads = []
+        for use_kernel in (True, False):
+            ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            (ops.flash_attention(*ins, causal=causal, use_kernel=use_kernel)
+             * u).sum().backward()
+            grads.append([t.grad for t in ins])
+        for got, want in zip(*grads):
+            assert float(want.abs().max()) > 0
+            assert torch.equal(got, want)
     with torch.no_grad():
         ops.flash_attention(q, k, v)
 

@@ -150,15 +150,24 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_path_refuses_inputs_that_require_grad():
+    """The kernel path no longer refuses inputs that require grad: its
+    autograd.Function's backward is the plain version's VJP, so qf, kf, v
+    and log_gamma get the plain path's grads through num and den; under
+    no_grad it runs as before."""
     rng = np.random.default_rng(0)
     qf, kf, v = (_t(a) for a in _features(rng, 1, 2, 20, 4, 8))
-    lg = torch.zeros(2)
-    qf.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.linear_attention(qf, kf, v, lg)
-    num, den = ops.linear_attention(qf, kf, v, lg, use_kernel=False)
-    (num.sum() + den.sum()).backward()
-    assert qf.grad is not None
+    lg = torch.tensor([-0.05, -0.2])
+    wn = _t(rng.normal(size=v.shape))
+    wd = _t(rng.normal(size=v.shape[:3]))
+    grads = []
+    for use_kernel in (True, False):
+        ins = [t.clone().requires_grad_(True) for t in (qf, kf, v, lg)]
+        num, den = ops.linear_attention(*ins, use_kernel=use_kernel)
+        ((num * wn).sum() + (den * wd).sum()).backward()
+        grads.append([t.grad for t in ins])
+    for got, want in zip(*grads):
+        assert float(want.abs().max()) > 0
+        assert torch.equal(got, want)
     with torch.no_grad():
         ops.linear_attention(qf, kf, v, lg)
 

@@ -180,20 +180,28 @@ def test_wrapper_refusals():
 
 
 def test_wrapper_refuses_grad_on_the_kernel_path():
-    """The kernel has no backward (ROADMAP A8): with grad on, the kernel
-    path refuses inputs that require grad, on any device; the plain
-    version differentiates, and under no_grad the wrapper runs."""
-    u, dt, A, B, C, D = (torch.from_numpy(a) for a in _inputs(
-        np.random.default_rng(9), 1, 16, 8, 4))
-    u.requires_grad_(True)
+    """The kernel path no longer refuses inputs that require grad: its
+    autograd.Function's backward is the plain chunked scan's VJP, so u,
+    dt, A, B, C, D and h0 get the plain path's grads through y and
+    h_final; under no_grad the wrapper runs, and CPU tensors never reach
+    the kernel."""
+    rng = np.random.default_rng(9)
+    ins = [torch.from_numpy(a) for a in _inputs(rng, 1, 16, 8, 4)]
+    ins.append(torch.from_numpy(rng.normal(size=(1, 8, 4)).astype(
+        np.float32)))  # h0
+    wy = torch.from_numpy(rng.normal(size=(1, 16, 8)).astype(np.float32))
     before = ops.LAUNCHES
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.scan(u, dt, A, B, C, D)
-    y, h = ops.scan(u, dt, A, B, C, D, use_kernel=False)
-    (y.sum() + h.sum()).backward()
-    assert u.grad is not None and bool(torch.isfinite(u.grad).all())
+    grads = []
+    for use_kernel in (True, False):
+        args = [t.clone().requires_grad_(True) for t in ins]
+        y, h = ops.scan(*args[:6], h0=args[6], use_kernel=use_kernel)
+        ((y * wy).sum() + h.sum()).backward()
+        grads.append([t.grad for t in args])
+    for got, want in zip(*grads):
+        assert float(want.abs().max()) > 0
+        assert torch.equal(got, want)
     with torch.no_grad():
-        ops.scan(u, dt, A, B, C, D)
+        ops.scan(*ins[:6])
     assert ops.LAUNCHES == before  # CPU tensors never reach the kernel
 
 

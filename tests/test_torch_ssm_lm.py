@@ -237,20 +237,27 @@ def test_full_width_config_is_the_reference_one():
                                         device="meta")) == ref_blocks
 
 
+def _grads(cfg, model, toks):
+    model.zero_grad(set_to_none=True)
+    TLM.forward_prefill(cfg, model, {"tokens": toks}).square().sum().backward()
+    return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
 def test_kernel_path_refuses_grad_in_the_model():
-    """Training through the kernel needs the backward of ROADMAP A8: with
-    grad on, attn_impl "cuda" refuses; the serving entry points run
-    without grad, and "chunked" differentiates."""
+    """With grad on, attn_impl "cuda" no longer refuses: it goes through
+    the scan wrapper's autograd.Function, whose backward is the plain
+    chunked scan's VJP, so every parameter gets the grad "chunked" gives
+    it; the serving entry points still run without grad."""
     cfg = _cfg("cuda")
     model = TA.init_params(cfg, 0, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A8"):
-        model(toks)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, 512, (2, 12)))
+    got = _grads(cfg, model, toks)
+    want = _grads(cfg.replace(attn_impl="chunked"), model, toks)
+    for name, g in want.items():
+        assert float(g.abs().max()) > 0, name
+        assert float((got[name] - g).abs().max()) <= 1e-6 * float(
+            g.abs().max()), name
     TA.prefill_fn(cfg, model, {"tokens": toks}, device="cpu")
-    out = TLM.forward_prefill(cfg.replace(attn_impl="chunked"), model,
-                              {"tokens": toks})
-    out.sum().backward()
-    assert model.blocks[0].ssm.in_proj.grad is not None
 
 
 def test_an_unknown_scan_impl_raises():

@@ -291,23 +291,35 @@ def test_sweep_wrapper_rejects_what_the_kernel_does_not_take(bad):
 
 
 def test_kernel_path_refuses_inputs_that_require_grad():
-    """A ctypes launch would cut the autograd graph silently: the kernel
-    path raises instead, naming the roadmap item that brings the backward;
-    the plain sweep differentiates."""
+    """A ctypes launch would cut the autograd graph silently: the raw
+    sweep refuses inputs that require grad, naming the fused entry; the
+    fused entry's kernel path is the reference's custom VJP (kernel
+    forward, the plain sweep's VJP backward), so qf, kf, v and the mask
+    coefficients get the plain path's grads, causal and bidirectional, in
+    decay and rank mode."""
     rng = np.random.default_rng(0)
     qf, kf, v = (_t(a) for a in _features(rng, 1, 2, 20, 4, 8))
-    cs = _t(_coeffs(rng, (3,))).requires_grad_()
     kw = dict(dist_scale=1.0 / 20)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.topo_linear_attention(qf, kf, v, cs, use_kernel=True, **kw)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.topo_linear_attention(qf.requires_grad_(), kf, v, cs.detach(),
-                                  use_kernel=True, **kw)
-    out = ops.topo_linear_attention(qf, kf, v, cs, use_kernel=False, **kw)
-    out.sum().backward()
-    assert cs.grad is not None and bool(torch.isfinite(cs.grad).all())
+    with pytest.raises(NotImplementedError, match="topo_linear_attention"):
+        ops.topo_attention_sweep(qf.clone().requires_grad_(), kf, v,
+                                 torch.tril(torch.ones(2, 20, 20)),
+                                 log_gamma=torch.zeros(2))
+    u = _t(rng.normal(size=v.shape))
+    for cs0 in (_t(_coeffs(rng, (2,))), _t(_coeffs(rng, (2, 3)))):
+        for causal in (True, False):
+            grads = []
+            for use_kernel in (True, False):
+                ins = [t.clone().requires_grad_(True)
+                       for t in (qf, kf, v, cs0)]
+                (ops.topo_linear_attention(*ins, use_kernel=use_kernel,
+                                           causal=causal, **kw)
+                 * u).sum().backward()
+                grads.append([t.grad for t in ins])
+            for got, want in zip(*grads):
+                assert bool(torch.isfinite(want).all())
+                assert torch.equal(got, want)
     with torch.no_grad():  # no graph to cut
-        ops.topo_linear_attention(qf, kf, v, cs, use_kernel=True, **kw)
+        ops.topo_linear_attention(qf, kf, v, cs0, use_kernel=True, **kw)
 
 
 def test_topo_kernel_source_names_the_tpu_kernel_and_its_bound():

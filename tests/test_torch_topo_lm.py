@@ -204,20 +204,29 @@ def test_what_is_not_ported_raises_naming_the_roadmap():
         get_smoke_config("qwen2_1_5b")
 
 
+def _grads(cfg, model, toks):
+    model.zero_grad(set_to_none=True)
+    TLM.forward_prefill(cfg, model, {"tokens": toks}).square().sum().backward()
+    return {n: p.grad.clone() for n, p in model.named_parameters()}
+
+
 def test_kernel_path_refuses_grad_in_the_model():
-    """Training through the kernel needs the backward of ROADMAP A8: with
-    grad on, the "cuda" impl refuses; the serving entry points run without
-    grad, and the "torch" impl differentiates."""
-    cfg = get_smoke_config("llama3_2_1b", topo_attn_impl="cuda", **OVER)
+    """With grad on, the "cuda" impl no longer refuses: it goes through
+    the fused entry's autograd.Function (the reference's custom VJP),
+    whose backward is the plain sweep's VJP, so every parameter, the mask
+    scalars included, gets the grad the "torch" impl gives it; the serving
+    entry points still run without grad."""
+    cfg = get_smoke_config("llama3_2_1b", topo_attn_impl="cuda",
+                           topo_degree=2, **OVER)
     model = TA.init_params(cfg, 0, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="A8"):
-        model(toks)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, 512, (2, 12)))
+    got = _grads(cfg, model, toks)
+    want = _grads(cfg.replace(topo_attn_impl="torch"), model, toks)
+    for name, g in want.items():
+        assert float((got[name] - g).abs().max()) <= 1e-6 * float(
+            g.abs().max()), name
+    assert float(want["blocks.0.topo.coeffs"][1:].abs().min()) > 0
     TA.prefill_fn(cfg, model, {"tokens": toks}, device="cpu")
-    out = TLM.forward_prefill(cfg.replace(topo_attn_impl="torch"), model,
-                              {"tokens": toks})
-    out.sum().backward()
-    assert model.blocks[0].topo.coeffs.grad is not None
 
 
 def test_entry_points_refuse_the_cpu_by_default():
@@ -281,7 +290,7 @@ def test_import_scan_covers_the_new_modules():
              for p in (ROOT / "src" / "repro_torch").rglob("*.py")}
     assert {"models/attention.py", "models/lm.py", "models/api.py",
             "models/convert.py", "models/layers.py", "configs/base.py",
-            "core/masks.py", "kernels/_nvcc.py",
+            "core/masks.py", "kernels/_nvcc.py", "kernels/_vjp.py",
             "kernels/topo_linear_attention/ops.py",
             "kernels/topo_linear_attention/kernel.py",
             "kernels/topo_linear_attention/ref.py",
@@ -290,4 +299,7 @@ def test_import_scan_covers_the_new_modules():
             "kernels/flash_attention/ref.py",
             "kernels/linear_attention/ops.py",
             "kernels/linear_attention/kernel.py",
-            "kernels/linear_attention/ref.py"} <= files
+            "kernels/linear_attention/ref.py",
+            "optim/adamw.py", "optim/compress.py", "train/loop.py",
+            "data/synthetic.py", "checkpoint/manager.py",
+            "launch/train.py"} <= files
