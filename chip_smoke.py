@@ -82,6 +82,22 @@ bf16, batch 4 x 2048) for 6 steps through `train.loop.run_training`:
 losses, step time, tokens/s, peak memory, the checkpoint's save time and
 a bit-exact restore, and a profiled step.
 
+Learnable metrics and plan maintenance (configuration (j): cell (a)'s
+graph, its MST built reweightable): 4g holds `apply` on `ftfi.reweight`
+of the build weights against the birth params, and the relative error of
+the tree kernel's action against exp(lam D_G) X and its gradient in the
+edge weights, "cuda" against "torch"; trains the edge weights 50 AdamW
+steps on "cuda" (bench_learnable_f's flow; B1 counted per forward) and
+fits the rational f of Sec 4.3 beside it. 4h edits the plan 64 times
+through `update_plan` against a fresh build, round-trips it through the
+disk plan cache (miss, bit-exact hit, corrupted entry rebuilt), runs the
+plan guard, and injects a kernel failure and a NaN output into the
+degradation ladder: on the card each raises (the ladder never moves card
+tensors off the kernel), on a CPU copy of the plan each demotes once to
+"torch" (the run fails on any other demotion). 5g times the step and its parts, `graph_all_pairs`,
+`update_plan` against a rebuild, a cache hit against a build, and `apply`
+"cuda" against "torch" for the `backend="auto"` threshold.
+
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
 
@@ -96,6 +112,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1001,10 +1018,12 @@ def phase_serve(label, cfg, ops, device, card):
     return out
 
 
-def phase_calls_profile(label, fn, calls=1):
+def phase_calls_profile(label, fn, calls=1, kinds=None):
     """torch.profiler over `calls` calls of fn(): device busy share of the
     window and the top device ops with their share of device time (per
-    call)."""
+    call); with `kinds` ({kind: substrings of op names}), also the device
+    ms of every op by kind (the first kind that matches; "other" for
+    none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1029,6 +1048,12 @@ def phase_calls_profile(label, fn, calls=1):
     out = {"wall_ms": wall_ms, "device_ms": dev_ms,
            "busy": dev_ms / wall_ms, "launches": sum(k["calls"] for k in ops_),
            "ops": ops_[:12]}
+    if kinds:
+        out["kinds"] = {k: 0.0 for k in list(kinds) + ["other"]}
+        for o in ops_:
+            kind = next((k for k, subs in kinds.items()
+                         if any(x in o["name"] for x in subs)), "other")
+            out["kinds"][kind] += o["ms"]
     print(f"[profile {label}] wall {wall_ms:.2f} ms per call under the "
           f"profiler, device {dev_ms:.2f} ms, busy share {out['busy']:.2f}, "
           f"{out['launches']:.0f} device ops; top: " + "; ".join(
@@ -2482,6 +2507,596 @@ def phase_train(card, device, bwd_rank16_ms):
     return out
 
 
+# ----------------------------------------------------------------------------
+# slice 10: learnable tree metrics (A8c) and plan maintenance (A9a)
+# ----------------------------------------------------------------------------
+
+# configuration (j): bench_learnable_f._train_edges_case at cell (a)'s graph,
+# full size: edge weights -> ftfi.reweight -> fastmult -> the relative error
+# against the graph kernel's action, 50 AdamW steps on backend "cuda"; the
+# rational fit beside it; 64 plan edits; the "auto" crossover grid
+LEARN = {"n": 10000, "extra": 5000, "leaf": 64, "d": 8, "steps": 50,
+         "lr": 5e-2, "warmup": 5, "clip": 10.0,
+         "fit": {"num_deg": 2, "den_deg": 2, "num_pairs": 100,
+                 "steps": 300},
+         "edits": 64, "edit_seed": 22,
+         "auto_ns": (100, 250, 500, 1000, 2000, 4000, 10000),
+         "auto_widths": (4, 64),
+         "reps": 20}
+LEARN_GRAD_TOL = 1e-4  # phase 4f's bound, relative to the grad's max
+UPDATE_TOL = 2e-5  # tests/test_plan_update.py:19 (TOL)
+
+
+def _learn_problem(cfg, device):
+    """(graph, MST, spec, birth params, D_G, lam, X, target) of (j): the
+    plan built reweightable at leaf 64, D_G by `graph_all_pairs`, f =
+    exp(lam s) with lam = -2 / mean(D_G), X (n, d) from default_rng(0), the
+    target exp(lam D_G) @ X in float32 as the reference computes it."""
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.graphs.graph import synthetic_graph
+    from repro_torch.graphs.mst import minimum_spanning_tree
+    from repro_torch.graphs.traverse import graph_all_pairs
+
+    g = synthetic_graph(cfg["n"], cfg["extra"], seed=1)
+    tree = minimum_spanning_tree(g)
+    t0 = time.perf_counter()
+    spec, params = ftfi.build(tree, leaf_size=cfg["leaf"], reweightable=True,
+                              device=device, use_cache=False)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    D_g = graph_all_pairs(g)
+    apsp_s = time.perf_counter() - t0
+    lam = -2.0 / float(np.mean(D_g))
+    X = np.random.default_rng(0).normal(size=(cfg["n"], cfg["d"])).astype(
+        np.float32)
+    Yt = torch.tensor(np.exp(lam * D_g).astype(np.float32) @ X,
+                      device=device)
+    return {"g": g, "tree": tree, "spec": spec, "params": params, "D_g": D_g,
+            "lam": lam, "X": torch.tensor(X, device=device), "Yt": Yt,
+            "build_s": build_s, "apsp_s": apsp_s}
+
+
+def _rel_err_fn(prob, backend, device):
+    """theta -> ||fastmult(reweight(softplus(theta))) - Yt|| / ||Yt||."""
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.core import cordial as C
+
+    spec, X, Yt = prob["spec"], prob["X"], prob["Yt"]
+    fm = ftfi.fastmult(spec, C.Exponential(prob["lam"]), backend=backend,
+                       device=device)
+    y_norm = torch.linalg.norm(Yt)
+
+    def rel_err(th):
+        pred = fm(ftfi.reweight(spec, torch.nn.functional.softplus(th)), X)
+        return torch.linalg.norm(pred - Yt) / y_norm
+
+    return rel_err
+
+
+def phase_learn_gate(cfg, device):
+    """4g: the learnable-metric gates on (j) in float32, every call on
+    backend "cuda" directly (never through the ladder): `apply` on
+    `reweight(spec, w0)` against the birth params (<= 1e-5); the relative
+    error and the theta-gradient of the loss, "cuda" against "torch" at the
+    same theta (<= 1e-5; <= 1e-4 of the grad's max); B1 launched once per
+    cross bucket in each forward and not in the backward (X needs no
+    grad)."""
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.core import cordial as C
+    from repro_torch.kernels.fdist_matvec import ops
+
+    prob = _learn_problem(cfg, device)
+    spec, params, tree = prob["spec"], prob["params"], prob["tree"]
+    nb = len(spec.cross_tgt_d0)
+    fn = C.Exponential(prob["lam"])
+    w0 = torch.tensor(tree.weights, dtype=torch.float32, device=device)
+    birth = ftfi.apply(spec, params, fn, prob["X"], backend="cuda",
+                       device=device)
+    rew = ftfi.apply(spec, ftfi.reweight(spec, w0), fn, prob["X"],
+                     backend="cuda", device=device)
+    e_birth = rel_err(rew, birth)
+    if not e_birth <= EXACT_TOL:
+        raise AssertionError(f"(j) apply on reweight(w0) vs birth params: "
+                             f"{e_birth:.3e} > {EXACT_TOL}")
+    theta0 = torch.log(torch.expm1(w0))
+    got = {}
+    for backend in ("cuda", "torch"):
+        f = _rel_err_fn(prob, backend, device)
+        th = theta0.clone().requires_grad_(True)
+        before = ops.LAUNCHES
+        err = f(th)
+        fwd = ops.LAUNCHES - before
+        (grad,) = torch.autograd.grad(err ** 2, th)
+        torch.cuda.synchronize()
+        got[backend] = (err.detach(), grad, fwd, ops.LAUNCHES - before - fwd)
+    e_err = rel_err(got["cuda"][0], got["torch"][0])
+    e_grad = rel_err(got["cuda"][1], got["torch"][1])
+    launches = got["cuda"][2:]
+    if not (e_err <= EXACT_TOL and e_grad <= LEARN_GRAD_TOL
+            and launches == (nb, 0) and got["torch"][2:] == (0, 0)
+            and bool(torch.isfinite(got["cuda"][1]).all())):
+        raise AssertionError(
+            f"(j) cuda vs torch: rel err {e_err:.3e} (<= {EXACT_TOL}), "
+            f"theta-grad {e_grad:.3e} (<= {LEARN_GRAD_TOL}); B1 launches "
+            f"forward/backward {launches} (expected ({nb}, 0)), torch "
+            f"{got['torch'][2:]}")
+    out = {"n": spec.n, "cross_buckets": nb,
+           "bucket_shapes": [(int(x.shape[0]), int(x.shape[1]),
+                              int(y.shape[1])) for x, y in
+                             zip(params.cross_tgt_d, params.cross_src_d)],
+           "num_edges": spec.num_edges, "lam": prob["lam"],
+           "build_s": prob["build_s"], "graph_all_pairs_s": prob["apsp_s"],
+           "reweight_vs_birth": e_birth, "err_cuda_vs_torch": e_err,
+           "grad_cuda_vs_torch": e_grad, "launches_per_forward": launches[0],
+           "err0": float(got["cuda"][0])}
+    print(f"[learnable gate] (j) n={spec.n}, {nb} cross buckets "
+          f"{out['bucket_shapes']}, {spec.num_edges} edges; reweightable "
+          f"build {prob['build_s']:.2f} s, graph_all_pairs "
+          f"{prob['apsp_s']:.1f} s on the host; apply(reweight(w0)) vs birth "
+          f"{e_birth:.2e}; cuda vs torch: rel err {e_err:.2e}, theta-grad "
+          f"{e_grad:.2e} of its max; B1 {launches[0]} launches a forward, "
+          f"{launches[1]} in the backward", flush=True)
+    return prob, out
+
+
+def phase_learn_train(prob, cfg, device, card):
+    """4g/5g, (j)'s main path: 50 AdamW steps (lr 5e-2, wd 0, warmup 5,
+    clip 10: the reference bench's) of the edge weights on backend "cuda",
+    B1's count from 0 just before and read just after; err0 and errT
+    finite, errT < err0; step time (median of steps 2 on) by the host clock
+    and by CUDA events; then the parts of one step timed apart (reweight,
+    the forward, forward + backward, AdamW) and one step profiled."""
+    import torch
+    from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_init,
+                                         adamw_update)
+
+    f = _rel_err_fn(prob, "cuda", device)
+    w0 = torch.tensor(prob["tree"].weights, dtype=torch.float32,
+                      device=device)
+    theta = {"theta": torch.log(torch.expm1(w0)).requires_grad_(True)}
+    ocfg = AdamWConfig(lr=cfg["lr"], weight_decay=0.0,
+                       warmup_steps=cfg["warmup"], total_steps=cfg["steps"],
+                       clip_norm=cfg["clip"])
+    state = adamw_init(theta)
+    err0 = float(f(theta["theta"]).detach())
+
+    def step(st):
+        (grad,) = torch.autograd.grad(f(theta["theta"]) ** 2,
+                                      theta["theta"])
+        st, _ = adamw_update({"theta": grad}, st, theta, ocfg)
+        return st
+
+    host, dev = [], []
+    torch.cuda.synchronize()
+    ops.LAUNCHES = 0
+    for _ in range(cfg["steps"]):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        ev0.record()
+        state = step(state)
+        ev1.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        dev.append(ev0.elapsed_time(ev1))
+    launches = ops.LAUNCHES
+    errT = float(f(theta["theta"]).detach())
+    nb = len(prob["spec"].cross_tgt_d0)
+    if not (np.isfinite(err0) and np.isfinite(errT) and errT < err0
+            and launches == cfg["steps"] * nb):
+        raise AssertionError(f"(j) training: err0 {err0}, errT {errT}, "
+                             f"{launches} B1 launches for {cfg['steps']} "
+                             f"steps of {nb} buckets")
+    th = theta["theta"].detach().clone()
+    thg = th.clone().requires_grad_(True)
+
+    def fwd():
+        with torch.no_grad():
+            f(th)
+
+    def fwd_bwd():
+        torch.autograd.grad(f(thg) ** 2, thg)
+
+    def rew():
+        from repro_torch import ftfi
+
+        with torch.no_grad():
+            ftfi.reweight(prob["spec"], torch.nn.functional.softplus(th))
+
+    g_fix = torch.autograd.grad(f(thg) ** 2, thg)[0]
+    scratch = {"theta": th.clone()}
+    st2 = adamw_init(scratch)
+
+    def adam():
+        adamw_update({"theta": g_fix}, st2, scratch, ocfg)
+
+    parts = {"reweight_ms": device_ms(rew, cfg["reps"]),
+             "forward_ms": device_ms(fwd, cfg["reps"]),
+             "forward_backward_ms": device_ms(fwd_bwd, cfg["reps"]),
+             "adamw_ms": device_ms(adam, cfg["reps"])}
+    parts["backward_ms"] = (parts["forward_backward_ms"]
+                            - parts["forward_ms"])
+    holder = {"st": state}
+
+    def one_step():
+        holder["st"] = step(holder["st"])
+
+    prof = phase_calls_profile("learnable step (j)", one_step, kinds={
+        "B1": ("fdist",), "index": ("index", "Index", "gather", "scatter"),
+        "gemm": ("gemm", "Gemm", "gemv"), "reduce": ("reduce",),
+        "sort": ("Radix", "sort"), "elementwise": ("elementwise",)})
+    b1_ms = prof["kinds"]["B1"]
+    out = {"card": card, "steps": cfg["steps"], "err0": err0, "errT": errT,
+           "launches": launches,
+           "step_host_ms": float(np.median(host[1:])),
+           "step_device_ms": float(np.median(dev[1:])),
+           "step_host_ms_all": host, **parts, "profile": prof,
+           "b1_forward_ms_profiled": b1_ms}
+    print(f"[learnable train] (j) {cfg['steps']} AdamW steps on cuda: err "
+          f"{err0:.4f} -> {errT:.4f}; {launches} B1 launches; step "
+          f"{out['step_host_ms']:.2f} ms host, {out['step_device_ms']:.2f} "
+          f"ms CUDA events (median of steps 2-{cfg['steps']}); parts, device "
+          f"ms: reweight {parts['reweight_ms']:.3f}, forward "
+          f"{parts['forward_ms']:.3f}, backward {parts['backward_ms']:.3f}, "
+          f"AdamW {parts['adamw_ms']:.3f}; the profiled step's device ms "
+          f"by kind: " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                   prof["kinds"].items()) + f" | {card}",
+          flush=True)
+    return out
+
+
+def phase_fit(prob, cfg, device):
+    """4g: `fit_rational_f` on (j)'s graph and tree (degrees 2/2, 100
+    pairs, 300 steps) with its relative Frobenius error against the
+    identity f's (D_T and D_G computed once and passed in)."""
+    from repro_torch.core.fit import (fit_rational_f,
+                                      tree_metric_frobenius_error)
+    from repro_torch.graphs.traverse import tree_all_pairs
+
+    fc = cfg["fit"]
+    t0 = time.perf_counter()
+    dists = (tree_all_pairs(prob["tree"]), prob["D_g"])
+    t_dt = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = fit_rational_f(prob["g"], prob["tree"], num_deg=fc["num_deg"],
+                         den_deg=fc["den_deg"], num_pairs=fc["num_pairs"],
+                         steps=fc["steps"], seed=0, eval_frobenius=True,
+                         device=device, dists=dists)
+    fit_s = time.perf_counter() - t0
+    ident = tree_metric_frobenius_error(prob["g"], prob["tree"], dists=dists)
+    if not (np.isfinite(res.rel_frobenius)
+            and res.rel_frobenius < ident):
+        raise AssertionError(f"rational fit: frob err {res.rel_frobenius} "
+                             f"not below the identity's {ident}")
+    out = {"frob_err": res.rel_frobenius, "identity_frob_err": ident,
+           "loss0": float(res.losses[0]), "lossT": float(res.losses[-1]),
+           "fit_s": fit_s, "tree_all_pairs_s": t_dt}
+    print(f"[learnable fit] rational {fc['num_deg']}/{fc['den_deg']}, "
+          f"{fc['num_pairs']} pairs, {fc['steps']} steps in {fit_s:.1f} s: "
+          f"loss {out['loss0']:.4f} -> {out['lossT']:.5f}; frob err "
+          f"{res.rel_frobenius:.4f} vs identity {ident:.4f}", flush=True)
+    return out
+
+
+class _Edits:
+    """The edited tree beside update_plan's id semantics (one tree): an
+    insert appends vertex n_t, a delete leaves a ghost row."""
+
+    def __init__(self, tree):
+        self.n = tree.num_vertices
+        self.edges = [(int(u), int(v), float(w)) for u, v, w in
+                      zip(tree.edges_u, tree.edges_v, tree.weights)]
+        self.deg = np.bincount(np.r_[tree.edges_u, tree.edges_v],
+                               minlength=self.n).tolist()
+        self.ghosts = set()
+
+    def insert(self, parent, w):
+        self.edges.append((parent, self.n, float(w)))
+        self.deg[parent] += 1
+        self.deg.append(1)
+        self.n += 1
+
+    def leaves(self):
+        return [v for v in range(1, self.n)
+                if self.deg[v] == 1 and v not in self.ghosts]
+
+    def delete(self, v):
+        (e,) = [e for e in self.edges if v in e[:2]]
+        self.edges.remove(e)
+        self.deg[e[0]] -= 1
+        self.deg[e[1]] -= 1
+        self.ghosts.add(v)
+
+    def rebuild(self):
+        from repro_torch.graphs.graph import WeightedTree
+
+        live = [v for v in range(self.n) if v not in self.ghosts]
+        relab = {v: i for i, v in enumerate(live)}
+        return WeightedTree(len(live), [relab[u] for u, _, _ in self.edges],
+                            [relab[v] for _, v, _ in self.edges],
+                            [w for _, _, w in self.edges]), np.asarray(live)
+
+
+def phase_maintenance(prob, cfg, device, card):
+    """4h/5g on (j)'s plan: 64 seeded edits through `update_plan` (inserts,
+    deletes, one reweight) held on "cuda" against a fresh reweightable
+    build of the edited tree on the live rows (<= 2e-5), ghost rows
+    exactly 0; the disk plan cache in a temp dir (miss, hit, the hit's
+    apply bit for bit the fresh build's, a corrupted entry rejected and
+    rebuilt); `validate` on the healthy plan and on a flipped index; the
+    ladder: an injected raise at ladder.cuda and a NaN output at
+    ladder.out.cuda each raise `DeviceRungError` on the card (no demotion
+    there) and each demote once to "torch" on a CPU copy of the plan
+    (output within 1e-5 of the CPU's direct "cuda" output and of the
+    card's), and an uninjected resilient fastmult on the card stays on the
+    kernel. Host times: update_plan per op against a rebuild, cache hit
+    against a build."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.core import cordial as C
+    from repro_torch.core import ladder, plan_cache
+    from repro_torch.core.integrate import clear_plan_cache
+    from repro_torch.core.itree_flat import clear_flat_cache
+    from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.testing import faults
+
+    spec, params, tree = prob["spec"], prob["params"], prob["tree"]
+    fn = C.Exponential(prob["lam"])
+    rng = np.random.default_rng(cfg["edit_seed"])
+    model = _Edits(tree)
+    ops_list = []
+    for k in range(cfg["edits"]):
+        if k == cfg["edits"] // 2:
+            w = rng.uniform(0.1, 1.0, len(model.edges))
+            model.edges = [(u, v, float(x)) for (u, v, _), x in
+                           zip(model.edges, w)]
+            ops_list.append(("reweight", w))
+        elif rng.random() < 0.6:
+            parent = int(rng.choice([v for v in range(model.n)
+                                     if v not in model.ghosts]))
+            w = float(rng.uniform(0.1, 1.0))
+            model.insert(parent, w)
+            ops_list.append(("insert_leaf", parent, w))
+        else:
+            v = int(rng.choice(model.leaves()))
+            model.delete(v)
+            ops_list.append(("delete_leaf", v))
+    t0 = time.perf_counter()
+    s2, p2 = ftfi.update_plan(spec, params, ops_list)
+    torch.cuda.synchronize()
+    upd_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    s1, p1 = ftfi.update_plan(spec, params, [ops_list[0]])
+    torch.cuda.synchronize()
+    upd1_ms = (time.perf_counter() - t0) * 1e3
+    edited, rows = model.rebuild()
+    t0 = time.perf_counter()
+    rs, rp = ftfi.build(edited, leaf_size=cfg["leaf"], reweightable=True,
+                        device=device, use_cache=False)
+    torch.cuda.synchronize()
+    rebuild_ms = (time.perf_counter() - t0) * 1e3
+    X = torch.tensor(np.random.default_rng(4).normal(size=(s2.n, 4)),
+                     dtype=torch.float32, device=device)
+    rows_t = torch.as_tensor(rows, device=device)
+    before = ops.LAUNCHES
+    got = ftfi.apply(s2, p2, fn, X, backend="cuda", device=device)
+    want = ftfi.apply(rs, rp, fn, X[rows_t], backend="cuda", device=device)
+    upd_launches = ops.LAUNCHES - before
+    e_upd = rel_err(got[rows_t], want)
+    ghost = torch.ones(s2.n, dtype=torch.bool, device=device)
+    ghost[rows_t] = False
+    ghost_max = float(got[ghost].abs().max()) if bool(ghost.any()) else 0.0
+    if not (e_upd <= UPDATE_TOL and ghost_max == 0.0
+            and s2.ghosts.size == len(model.ghosts)):
+        raise AssertionError(f"update_plan vs rebuild: {e_upd:.3e} (<= "
+                             f"{UPDATE_TOL}), ghost rows max {ghost_max}")
+    n_ins = sum(op[0] == "insert_leaf" for op in ops_list)
+    n_del = sum(op[0] == "delete_leaf" for op in ops_list)
+
+    # the disk plan cache: miss + store, hit, corrupt -> rejected, rebuilt
+    cache = tempfile.mkdtemp(prefix="chip_smoke_plans_")
+    Xc = prob["X"]
+    try:
+        plan_cache.configure(cache, max_mb=1024)
+        clear_plan_cache()
+        clear_flat_cache()
+        st0 = plan_cache.stats()
+        t0 = time.perf_counter()
+        ftfi.build(tree, leaf_size=cfg["leaf"], reweightable=True,
+                   device=device)
+        torch.cuda.synchronize()
+        miss_ms = (time.perf_counter() - t0) * 1e3
+        clear_plan_cache()
+        clear_flat_cache()
+        t0 = time.perf_counter()
+        hs, hp = ftfi.build(tree, leaf_size=cfg["leaf"], reweightable=True,
+                            device=device)
+        torch.cuda.synchronize()
+        hit_ms = (time.perf_counter() - t0) * 1e3
+        st1 = plan_cache.stats()
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")  # cuBLAS: no deterministic flag
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                y_fresh = ftfi.apply(spec, params, fn, Xc, backend="cuda",
+                                     device=device)
+                y_hit = ftfi.apply(hs, hp, fn, Xc, backend="cuda",
+                                   device=device)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        bitwise = bool(torch.equal(y_fresh, y_hit))
+        [entry] = [os.path.join(cache, f) for f in os.listdir(cache)]
+        faults.corrupt_file(entry, flip_bytes=64, seed=5)
+        clear_plan_cache()
+        clear_flat_cache()
+        cs, cp = ftfi.build(tree, leaf_size=cfg["leaf"], reweightable=True,
+                            device=device)
+        st2 = plan_cache.stats()
+    finally:
+        plan_cache.configure(None)
+        shutil.rmtree(cache, ignore_errors=True)
+        clear_plan_cache()
+        clear_flat_cache()
+    cache_ok = (st1["misses"] - st0["misses"] == 1
+                and st1["stores"] - st0["stores"] == 1
+                and st1["hits"] - st0["hits"] == 1 and bitwise
+                and hs.digest == spec.digest
+                and st2["errors"] - st1["errors"] == 1
+                and st2["hits"] == st1["hits"]
+                and st2["stores"] - st1["stores"] == 1
+                and cs.digest == spec.digest)
+    if not cache_ok:
+        raise AssertionError(f"plan cache: stats {st0} -> {st1} -> {st2}, "
+                             f"hit apply bit for bit {bitwise}")
+
+    # the guard
+    healthy = ftfi.validate(spec, params)
+    try:
+        ftfi.validate(faults.flip_index(spec), params)
+        flagged = False
+    except ftfi.PlanValidationError:
+        flagged = True
+    if not (healthy and flagged):
+        raise AssertionError(f"validate: healthy {healthy}, flipped index "
+                             f"flagged {flagged}")
+
+    # the ladder: each injected fault raises on the card and demotes once
+    # on a CPU copy of the plan; then one clean kernel run on the card
+    ref = ftfi.apply(spec, params, fn, Xc, backend="cuda", device=device)
+    cpu = torch.device("cpu")
+    hs_, hp_ = ftfi.build(tree, leaf_size=cfg["leaf"], reweightable=True,
+                          device=cpu, use_cache=False)
+    Xh = Xc.cpu()
+    ref_h = ftfi.apply(hs_, hp_, fn, Xh, backend="cuda", device=cpu)
+    lad = {}
+    for label, point, handler in (
+            ("raise", "ladder.cuda", faults.always_raise(
+                RuntimeError, "injected kernel launch failure")),
+            ("nan", "ladder.out.cuda", faults.nan_output())):
+        fm = ftfi.resilient_fastmult(spec, fn, backend="cuda", device=device)
+        raised = None
+        with faults.injected(point, handler), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                fm(params, Xc)
+            except ftfi.DeviceRungError as e:
+                raised = str(e)
+        card_warned = sum(issubclass(w.category, ftfi.BackendDemotionWarning)
+                          for w in caught)
+        fmh = ftfi.resilient_fastmult(hs_, fn, backend="cuda", device=cpu)
+        with faults.injected(point, handler), \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            y = fmh(hp_, Xh)
+        warned = sum(issubclass(w.category, ftfi.BackendDemotionWarning)
+                     for w in caught)
+        lad[label] = {"card_raised": raised, "card_level": fm.level,
+                      "card_demotions": len(fm.demotions),
+                      "card_warnings": card_warned, "cpu_level": fmh.level,
+                      "cpu_rel_err": rel_err(y, ref_h),
+                      "cpu_rel_err_vs_card": rel_err(y, ref.cpu()),
+                      "cpu_warnings": warned}
+        if not (raised and fm.level == "cuda" and not fm.demotions
+                and card_warned == 0 and fmh.level == "torch"
+                and lad[label]["cpu_rel_err"] <= EXACT_TOL
+                and lad[label]["cpu_rel_err_vs_card"] <= EXACT_TOL
+                and warned == 1):
+            raise AssertionError(f"ladder {label}: {lad[label]}")
+    fm = ftfi.resilient_fastmult(spec, fn, backend="cuda", device=device)
+    before = ops.LAUNCHES
+    y = fm(params, Xc)
+    clean = ops.LAUNCHES - before
+    # (two applies differ in the last bits: index_add_'s atomics)
+    e_clean = rel_err(y, ref)
+    if not (fm.level == "cuda" and clean == len(spec.cross_tgt_d0)
+            and e_clean <= EXACT_TOL):
+        raise AssertionError(f"uninjected ladder: level {fm.level}, "
+                             f"{clean} B1 launches, rel err {e_clean:.3e}")
+    out = {"card": card, "edits": len(ops_list), "inserts": n_ins,
+           "deletes": n_del, "reweights": 1, "n_after": s2.n,
+           "rel_err_vs_rebuild": e_upd, "ghost_rows": int(s2.ghosts.size),
+           "ghost_max": ghost_max, "apply_launches": upd_launches,
+           "update_ms": upd_ms, "update_ms_per_op": upd_ms / len(ops_list),
+           "update_one_op_ms": upd1_ms, "rebuild_ms": rebuild_ms,
+           "cache_miss_build_ms": miss_ms, "cache_hit_ms": hit_ms,
+           "cache_hit_bitwise": bitwise, "cache_stats": st2,
+           "validate_healthy": healthy, "validate_flagged": flagged,
+           "ladder": lad, "ladder_clean_launches": clean,
+           "ladder_clean_rel_err": e_clean,
+           "ladder_stats": ladder.stats()}
+    print(f"[maintenance] update_plan: {len(ops_list)} edits ({n_ins} "
+          f"inserts, {n_del} deletes, 1 reweight) in {upd_ms:.1f} ms "
+          f"({out['update_ms_per_op']:.2f} ms an op; one insert alone "
+          f"{upd1_ms:.1f} ms) vs a reweightable rebuild {rebuild_ms:.1f} ms; "
+          f"cuda apply vs rebuild on the live rows {e_upd:.2e}, "
+          f"{s2.ghosts.size} ghost rows max {ghost_max}; plan cache: build "
+          f"+ store {miss_ms:.1f} ms, hit {hit_ms:.1f} ms, hit apply bit for "
+          f"bit {bitwise}, corrupted entry rejected and rebuilt; validate "
+          f"ok/flagged; ladder on the card: raise and NaN each raised "
+          f"DeviceRungError; on the CPU copy: raise -> "
+          f"{lad['raise']['cpu_level']} ({lad['raise']['cpu_rel_err']:.1e})"
+          f", NaN -> {lad['nan']['cpu_level']} "
+          f"({lad['nan']['cpu_rel_err']:.1e}); clean card run {clean} B1 "
+          "launches; "
+          f"stats {out['ladder_stats']} | {card}", flush=True)
+    return out
+
+
+def phase_auto_crossover(cfg, device, card):
+    """5g: `apply` host ms, "cuda" against "torch", Exponential(-0.5) (the
+    reference threshold's family) on synthetic-graph MSTs, for the
+    `backend="auto"` threshold. The crossover at width d is the smallest
+    measured n from which "cuda" is at least as fast at every larger
+    measured n (None: "torch" wins somewhere at the top)."""
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.core import cordial as C
+    from repro_torch.core import ladder
+    from repro_torch.graphs.graph import synthetic_graph
+    from repro_torch.graphs.mst import minimum_spanning_tree
+
+    fn = C.Exponential(-0.5)
+    rows = []
+    for n in cfg["auto_ns"]:
+        tree = minimum_spanning_tree(synthetic_graph(n, n // 2, seed=1))
+        spec, params = ftfi.build(tree, leaf_size=cfg["leaf"], device=device)
+        for d in cfg["auto_widths"]:
+            X = torch.tensor(np.random.default_rng(n + d).normal(size=(n, d)),
+                             dtype=torch.float32, device=device)
+            row = {"n": n, "d": d}
+            for backend in ("cuda", "torch"):
+                row[backend + "_ms"] = host_ms(
+                    lambda: ftfi.apply(spec, params, fn, X, backend=backend,
+                                       device=device), cfg["reps"])
+            rows.append(row)
+    cross = {}
+    for d in cfg["auto_widths"]:
+        at_d = [r for r in rows if r["d"] == d]
+        cross[d] = None
+        for r in reversed(at_d):
+            if r["cuda_ms"] > r["torch_ms"]:
+                break
+            cross[d] = r["n"]
+    out = {"card": card, "rows": rows, "crossover": cross,
+           "committed_default": ladder.AUTO_CUDA_MIN_N}
+    print("[auto crossover] apply host ms cuda/torch, Exponential(-0.5): "
+          + "; ".join(f"n={r['n']} d={r['d']} {r['cuda_ms']:.3f}/"
+                      f"{r['torch_ms']:.3f}" for r in rows)
+          + f" | measured crossover {cross} vs committed default "
+          f"FTFI_AUTO_CUDA_MIN_N={ladder.AUTO_CUDA_MIN_N} | {card}",
+          flush=True)
+    return out
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -2709,6 +3324,33 @@ def run(cfg, device, out_path=None) -> dict:
                  backward_at=row["case"])
         if k["name"] == "topo_attention_sweep[rank16]":
             k["train_launches"] = trainer["launches"]
+    # slice 10: learnable tree metrics (4g; (j)'s training is the slice's
+    # main path, B1's count from 0 around it) and plan maintenance (4h);
+    # 5g's times. Only 4h's injected faults may reach the ladder: two
+    # raised on the card, two demotions on the CPU copy.
+    torch.cuda.empty_cache()
+    from repro_torch.core import ladder
+
+    ladder.reset_stats()
+    prob, learn_gate = phase_learn_gate(LEARN, device)
+    learn = phase_learn_train(prob, LEARN, device, card)
+    fit = phase_fit(prob, LEARN, device)
+    maint = phase_maintenance(prob, LEARN, device, card)
+    del prob
+    torch.cuda.empty_cache()
+    auto = phase_auto_crossover(LEARN, device, card)
+    for k in kernels:
+        if k["name"].startswith("fdist_matvec_batched"):
+            k.update(learn_launches=learn["launches"], learn_at=(
+                f"(j): {LEARN['steps']} training steps, one launch per "
+                f"cross bucket a forward (all d-tiles, d={LEARN['d']}); the "
+                "backward runs the plain VJP (x, y grads)"),
+                learn_backward_ms=learn["backward_ms"])
+    want = {"demotions": 2, "errors": 2, "nonfinite": 2, "blocked": {}}
+    if ladder.stats() != want:
+        raise AssertionError(f"ladder: {ladder.stats()} at the end of the "
+                             f"run; only 4h's injected demotions ({want}) "
+                             f"may reach it")
     record = {"device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
@@ -2721,6 +3363,8 @@ def run(cfg, device, out_path=None) -> dict:
               "topo_fft": topo_fft, "vit_gate": vit_gate,
               "vit_serve": vit_serve, "kernel_grads": grad_rows,
               "train_gates": train_gates, "trainer": trainer,
+              "learn_gate": learn_gate, "learn_train": learn, "fit": fit,
+              "maintenance": maint, "auto_crossover": auto,
               "kernels": kernels}
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)

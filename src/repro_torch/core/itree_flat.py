@@ -146,6 +146,10 @@ class FlatIT:
 _CACHE = BoundedLRU(32)
 
 
+def clear_flat_cache() -> None:
+    _CACHE.clear()
+
+
 def tree_fingerprint(tree: WeightedTree) -> str:
     """Content hash of a tree's topology + weights (plan/IT cache key)."""
     h = hashlib.sha1()

@@ -195,7 +195,7 @@ def _plan_pair(plan):
     raise TypeError(
         f"make_tree_fastmult takes a (PlanSpec, PlanParams) pair from "
         f"ftfi.build / ftfi.load_plan, got {type(plan).__name__}: the "
-        "Integrator facade is not ported yet (ROADMAP A9)")
+        "Integrator facade is not ported yet (ROADMAP A9b)")
 
 
 def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,

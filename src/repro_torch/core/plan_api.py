@@ -16,15 +16,28 @@ Entry points (also exposed as `repro_torch.ftfi`):
   build(tree_or_forest, ...)      -> (spec, params)
   apply(spec, params, fn, X)      -> Y
   fastmult(spec, fn)              -> (params, X) -> Y
+  reweight(spec, edge_w)          -> PlanParams   (differentiable in edge_w)
+  update_plan(spec, params, ops)  -> (spec', params')  incremental edits
   describe(spec, fn)              -> engine choice
-  save_plan / load_plan           npz round trip, the reference's format
+  save_plan / load_plan           npz round trip, the reference's format,
+                                  bounds-checked by `plan_guard` on load
   from_numpy(spec_fields, params_fields) -> (spec, params) from the numpy
                                      arrays of a live reference pair
 
 Backends: "torch" runs the plain engines (the reference's "plan");
 "cuda" runs the fdist_matvec kernel for the in-kernel families
 (`KERNEL_MODES`) and the plain engines for the rest (the reference's
-"pallas"). Every entry point takes `device=None`, meaning the CUDA card.
+"pallas"); "auto" picks one of the two by the plan's size
+(`ladder.auto_backend`). Every entry point takes
+`device=None`, meaning the CUDA card.
+
+Reweight exactness: the IT decomposition is purely combinatorial (it covers
+every vertex pair regardless of weights), so recomputing distances as
+d(u,v) = depth[u] + depth[v] - 2 depth[lca(u,v)] with depth = root-path edge
+sums yields the TRUE integration for ANY positive edge weights — provided
+each distance slot maps to one vertex. `build(..., reweightable=True)`
+therefore expands distance groups to per-vertex slots (and disables the
+grid/Hankel engine, whose integer grid would not survive retraining).
 """
 from __future__ import annotations
 
@@ -37,20 +50,21 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.core import plan_guard
 from repro_torch.core.engines.spec import FamilySpec, spec_of
-from repro_torch.core.integrate import (IntegrationPlan, compile_forest_plan,
+from repro_torch.core.integrate import (CrossBucket, IntegrationPlan,
+                                        LeafBucket, compile_forest_plan,
                                         compile_plan)
+from repro_torch.core.plan_guard import PlanValidationError  # noqa: F401
 from repro_torch.device import resolve_device
 
 KERNEL_MODES = ("poly", "exp", "expq", "rational")
-BACKENDS = ("torch", "cuda")
+BACKENDS = ("torch", "cuda", "auto")
 
 _SAVE_VERSION = 1
-
-
-class PlanValidationError(ValueError):
-    """A plan artifact is malformed (torn zip, missing members, bad
-    metadata) and MUST NOT reach the executor."""
+# PlanSpec field-layout generation, mixed into disk-cache keys (the
+# reference's: a cache directory is shared between the two packages)
+_SPEC_SCHEMA = 4
 
 
 # ----------------------------------------------------------------------------
@@ -93,27 +107,28 @@ class PlanSpec:
     tgt_scatter: np.ndarray
     n_tgt_groups: int
     num_cross_jobs: int
-    # reweight tables (reweightable builds: not ported yet)
+    # reweight tables (only for reweightable builds)
     num_edges: int = 0
-    path_rows: np.ndarray | None = None
-    path_edges: np.ndarray | None = None
-    cross_piv: tuple | None = None
-    cross_tgt_rep: tuple | None = None
-    cross_tgt_lca: tuple | None = None
+    path_rows: np.ndarray | None = None  # (P,) vertex per root-path entry
+    path_edges: np.ndarray | None = None  # (P,) edge id per entry
+    cross_piv: tuple | None = None  # of (B,) pivot vertex per job row
+    cross_tgt_rep: tuple | None = None  # of (B, Ut) representative vertex
+    cross_tgt_lca: tuple | None = None  # of (B, Ut) lca(piv, rep)
     cross_src_rep: tuple | None = None
     cross_src_lca: tuple | None = None
-    leaf_lca: tuple | None = None
-    # update tables (IT skeleton + job/leaf coordinates)
-    children: np.ndarray | None = None
-    root_refs: np.ndarray | None = None
-    job_bucket: np.ndarray | None = None
-    job_row: np.ndarray | None = None
-    leaf_bucket: np.ndarray | None = None
-    leaf_row: np.ndarray | None = None
-    edges_u: np.ndarray | None = None
+    leaf_lca: tuple | None = None  # of (B, K, K) lca(ids_i, ids_j)
+    # update tables (IT skeleton + job/leaf coordinates; `update_plan`
+    # patches single leaves with them)
+    children: np.ndarray | None = None  # (I, 2) canonical IT child refs
+    root_refs: np.ndarray | None = None  # (num_trees,) per-tree root ref
+    job_bucket: np.ndarray | None = None  # (2I,) bucket index per cross job
+    job_row: np.ndarray | None = None  # (2I,) row within bucket
+    leaf_bucket: np.ndarray | None = None  # (L,) bucket per leaf node
+    leaf_row: np.ndarray | None = None  # (L,) row within leaf bucket
+    edges_u: np.ndarray | None = None  # (E,) packed edge endpoints (global)
     edges_v: np.ndarray | None = None
-    edge_w0: np.ndarray | None = None
-    ghosts: np.ndarray | None = None
+    edge_w0: np.ndarray | None = None  # (E,) build-time edge weights
+    ghosts: np.ndarray | None = None  # deleted-vertex ids (update_plan)
     # mesh/device provenance of sharded artifacts (0/empty = not sharded)
     mesh_devices: int = 0
     mesh_axes: tuple = ()
@@ -230,6 +245,31 @@ def _device_tables(spec: PlanSpec, device: torch.device) -> dict:
     return t
 
 
+def _reweight_tables(spec: PlanSpec, device: torch.device) -> dict:
+    """The reweight tables of a reweightable spec on `device` (int64), made
+    once per (spec, device) beside `_device_tables`."""
+    t = _device_tables(spec, device)
+    hit = t.get("rw")
+    if hit is not None:
+        return hit
+
+    def idx(a):
+        return torch.from_numpy(np.asarray(a, np.int64)).to(device)
+
+    t["rw"] = rw = {
+        "path_rows": idx(spec.path_rows),
+        "path_edges": idx(spec.path_edges),
+        "cross": [(idx(p[:, None]), idx(tr), idx(tl), idx(sr), idx(sl))
+                  for p, tr, tl, sr, sl in zip(
+                      spec.cross_piv, spec.cross_tgt_rep,
+                      spec.cross_tgt_lca, spec.cross_src_rep,
+                      spec.cross_src_lca)],
+        "leaf": [(idx(ids[:, :, None]), idx(ids[:, None, :]), idx(lca))
+                 for ids, lca in zip(spec.leaf_ids, spec.leaf_lca)],
+    }
+    return rw
+
+
 # ----------------------------------------------------------------------------
 # specialize: IntegrationPlan -> (PlanSpec, PlanParams)
 # ----------------------------------------------------------------------------
@@ -241,8 +281,15 @@ def specialize(plan: IntegrationPlan, device=None):
     one spec (and so one set of device tables); params are fresh tensors
     on `device`."""
     dev = resolve_device(device)
+    spec = _plan_spec(plan)
+    return spec, _birth_params(spec, dev)
+
+
+def _plan_spec(plan: IntegrationPlan) -> PlanSpec:
+    """The plan's PlanSpec, made once and memoized on the plan."""
     spec = getattr(plan, "_spec", None)
     if spec is None:
+        rw = plan.rw or {}
         upd = plan.upd or {}
         spec = PlanSpec(
             n=plan.n,
@@ -270,16 +317,31 @@ def specialize(plan: IntegrationPlan, device=None):
             tgt_scatter=plan.tgt_scatter,
             n_tgt_groups=plan.n_tgt_groups,
             num_cross_jobs=plan.num_cross_jobs,
+            num_edges=int(rw.get("num_edges", 0)),
+            path_rows=rw.get("path_rows"),
+            path_edges=rw.get("path_edges"),
+            cross_piv=(tuple(cb.piv for cb in plan.cross_buckets)
+                       if rw else None),
+            cross_tgt_rep=(tuple(cb.tgt_rep for cb in plan.cross_buckets)
+                           if rw else None),
+            cross_tgt_lca=tuple(rw["cross_tgt_lca"]) if rw else None,
+            cross_src_rep=(tuple(cb.src_rep for cb in plan.cross_buckets)
+                           if rw else None),
+            cross_src_lca=tuple(rw["cross_src_lca"]) if rw else None,
+            leaf_lca=tuple(rw["leaf_lca"]) if rw else None,
             children=upd.get("children"),
             root_refs=upd.get("root_refs"),
             job_bucket=upd.get("job_bucket"),
             job_row=upd.get("job_row"),
             leaf_bucket=upd.get("leaf_bucket"),
             leaf_row=upd.get("leaf_row"),
+            edges_u=rw.get("edges_u"),
+            edges_v=rw.get("edges_v"),
+            edge_w0=rw.get("edge_w0"),
             ghosts=np.zeros(0, np.int32) if upd else None,
         )
         plan._spec = spec
-    return spec, _birth_params(spec, dev)
+    return spec
 
 
 def _birth_params(spec: PlanSpec, device: torch.device) -> PlanParams:
@@ -290,11 +352,62 @@ def _birth_params(spec: PlanSpec, device: torch.device) -> PlanParams:
                                  leaf_dists=spec.leaf_dists0), device)
 
 
+def plan_from_spec(spec: PlanSpec) -> IntegrationPlan:
+    """Reconstruct an `IntegrationPlan` from a spec — the path of loaded
+    artifacts and disk-cache hits: zero IT rebuild by construction. The
+    spec is memoized on the plan, so `specialize` hands it back as is, with
+    params made on the caller's device from the spec's build-time
+    distances (the float32 bits `save_plan` stored)."""
+    cbs = []
+    for i in range(len(spec.cross_tgt_d0)):
+        cbs.append(CrossBucket(
+            tgt_d=spec.cross_tgt_d0[i], tgt_d_mask=spec.cross_tgt_mask[i],
+            src_d=spec.cross_src_d0[i], src_d_mask=spec.cross_src_mask[i],
+            src_off=spec.cross_src_off[i], tgt_off=spec.cross_tgt_off[i],
+            piv=spec.cross_piv[i] if spec.cross_piv else None,
+            tgt_rep=spec.cross_tgt_rep[i] if spec.cross_tgt_rep else None,
+            src_rep=spec.cross_src_rep[i] if spec.cross_src_rep else None,
+        ))
+    lbs = [LeafBucket(ids=spec.leaf_ids[i], mask=spec.leaf_mask[i],
+                      dists=spec.leaf_dists0[i])
+           for i in range(len(spec.leaf_ids))]
+    plan = IntegrationPlan(
+        n=spec.n, cross_buckets=cbs, leaf_buckets=lbs, pivots=spec.pivots,
+        grid_h=spec.grid_h, src_gather=spec.src_gather, src_seg=spec.src_seg,
+        n_src_groups=spec.n_src_groups, tgt_gather=spec.tgt_gather,
+        tgt_scatter=spec.tgt_scatter, n_tgt_groups=spec.n_tgt_groups,
+        num_cross_jobs=spec.num_cross_jobs, fingerprint=spec.fingerprint,
+        leaf_size=spec.leaf_size, seed=spec.seed,
+        tree_sizes=spec.tree_sizes, reweightable=spec.reweightable)
+    if spec.path_rows is not None:
+        plan.rw = {"path_rows": spec.path_rows,
+                   "path_edges": spec.path_edges,
+                   "num_edges": spec.num_edges,
+                   "cross_tgt_lca": list(spec.cross_tgt_lca),
+                   "cross_src_lca": list(spec.cross_src_lca),
+                   "leaf_lca": list(spec.leaf_lca)}
+        if spec.edges_u is not None:
+            plan.rw.update(edges_u=spec.edges_u, edges_v=spec.edges_v,
+                           edge_w0=spec.edge_w0)
+    if spec.children is not None:
+        plan.upd = {"children": spec.children, "root_refs": spec.root_refs,
+                    "job_bucket": spec.job_bucket, "job_row": spec.job_row,
+                    "leaf_bucket": spec.leaf_bucket,
+                    "leaf_row": spec.leaf_row}
+    plan._spec = spec
+    return plan
+
+
 def build(tree_or_forest, *, leaf_size: int = 64, seed: int = 0,
           reweightable: bool = False, detect_grid_spacing: bool = True,
           use_cache: bool = True, device=None):
     """Compile a tree or `Forest` into a functional (spec, params) pair with
-    params on `device`. `reweightable=True` is not ported yet (raises)."""
+    params on `device`.
+
+    `reweightable=True` additionally records the (pivot, representative,
+    LCA) tables and root-path edge CSR that let `reweight(spec, edge_w)`
+    re-derive `params` differentiably from edge weights — at the cost of
+    per-vertex (uncollapsed) distance groups and no grid/Hankel engine."""
     from repro_torch.graphs.graph import Forest
 
     dev = resolve_device(device)
@@ -381,10 +494,16 @@ def _powers_b(x, B):
 def exponential_batched_matvec(lam, scale, tgt_d, tgt_mask, src_d, src_mask,
                                Xp):
     """Exact rank-1 multiply for f = scale * exp(lam s), numerically shifted.
-    Padded source groups carry zero mass in Xp, so no source mask is needed."""
+    Padded source groups carry zero mass in Xp. The shift m is taken over
+    the live groups; padded groups are evaluated at the shift itself
+    (exp(0)) before the mask zeroes them, and a row with no live group (a
+    job emptied by `update_plan`'s deletes) shifts by 0, so no exp
+    overflows into an inf * 0 in the values or in their gradient."""
     ly = lam * src_d  # (B, Us)
     m = torch.where(src_mask, ly, -math.inf).amax(dim=1, keepdim=True)
-    t = torch.einsum("bu,bud->bd", torch.exp(ly - m) * src_mask, Xp)  # (B, d)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    e = torch.exp(torch.where(src_mask, ly, m) - m) * src_mask
+    t = torch.einsum("bu,bud->bd", e, Xp)  # (B, d)
     return scale * torch.exp(lam * tgt_d + m)[:, :, None] * t[:, None, :]
 
 
@@ -426,11 +545,19 @@ def select_cross(spec: PlanSpec, fspec: FamilySpec, backend: str = "torch",
 
     cross_multiply(i, tgt_d, tgt_mask, src_d, src_mask, Xp) -> (B, Ut, d)
     receives the bucket index plus the *params* distance arrays and the
-    device tables' masks."""
+    device tables' masks, so every engine but the grid/Hankel one
+    differentiates into reweighted distances.
+
+    `backend="auto"` resolves by the plan's size alone
+    (`ladder.auto_backend`): "cuda" from `ladder.AUTO_CUDA_MIN_N` vertices
+    up, else "torch"."""
     if backend not in BACKENDS:
         raise ValueError(
-            f"unknown backend {backend!r}: choose from {BACKENDS} (an 'auto' "
-            f"backend comes with the degradation ladder, ROADMAP A9)")
+            f"unknown backend {backend!r}: choose from {BACKENDS}")
+    if backend == "auto":
+        from repro_torch.core import ladder
+
+        backend = ladder.auto_backend(spec.n)
     if backend == "cuda" and fspec.mode in KERNEL_MODES:
         from repro_torch.kernels.fdist_matvec.ops import fdist_matvec_batched
 
@@ -581,6 +708,58 @@ def describe(spec: PlanSpec, fn, backend: str = "torch", degree: int = 32
 
 
 # ----------------------------------------------------------------------------
+# reweight: edge weights -> PlanParams (differentiable)
+# ----------------------------------------------------------------------------
+
+
+def reweight(spec: PlanSpec, edge_w, tree_w=None) -> PlanParams:
+    """Re-derive every plan distance from edge weights, differentiably.
+
+    depth[v] = sum of edge weights on v's root path (one gather +
+    `index_add_` over the spec's root-path CSR), then every distance slot
+    is d(u, v) = depth[u] + depth[v] - 2 depth[lca(u, v)] via the
+    build-time (pivot, representative, LCA) tables. Exact for ANY positive
+    weights on the same topology — the IT decomposition is combinatorial —
+    so tree metrics become learnable parameters: the result feeds `apply`
+    / `fastmult` on either backend, and autograd carries the loss back into
+    `edge_w`. Requires `build(..., reweightable=True)`.
+
+    `edge_w` is a (num_edges,) tensor (or array) in packed per-tree edge
+    order (the concatenation of each tree's `weights` array); the params
+    land on its device, in its dtype. `tree_w` optionally sets per-tree
+    output weights on the returned params."""
+    if spec.path_rows is None:
+        raise ValueError(
+            "spec was not built with reweightable=True: rebuild via "
+            "ftfi.build(tree, reweightable=True) to record the distance "
+            "derivation tables")
+    edge_w = torch.as_tensor(edge_w)
+    if tuple(edge_w.shape) != (spec.num_edges,):
+        raise ValueError(
+            f"edge_w must have shape ({spec.num_edges},) — packed per-tree "
+            f"edge order — got {tuple(edge_w.shape)}")
+    t = _reweight_tables(spec, edge_w.device)
+    depth = edge_w.new_zeros(spec.n + 1).index_add_(
+        0, t["path_rows"], edge_w.index_select(0, t["path_edges"]))
+    # (row n: the pad, depth 0.) Gathers by index_select: its backward is
+    # one index_add_, where a subscript's (index_put_ with accumulate)
+    # sorts its indices and serializes the many repeats of a pivot
+
+    def _at(idx):
+        return depth.index_select(0, idx.reshape(-1)).view(idx.shape)
+
+    def _pair(u, v, l):
+        return _at(u) + _at(v) - 2.0 * _at(l)
+
+    ctd = tuple(_pair(p, tr, tl) for p, tr, tl, _, _ in t["cross"])
+    csd = tuple(_pair(p, sr, sl) for p, _, _, sr, sl in t["cross"])
+    ld = tuple(_pair(u, v, l) for u, v, l in t["leaf"])
+    return PlanParams(cross_tgt_d=ctd, cross_src_d=csd, leaf_dists=ld,
+                      tree_w=None if tree_w is None
+                      else torch.as_tensor(tree_w, device=edge_w.device))
+
+
+# ----------------------------------------------------------------------------
 # serialization: the reference's npz artifact (schema 4, no pickle)
 # ----------------------------------------------------------------------------
 
@@ -639,14 +818,17 @@ def _to_numpy(a) -> np.ndarray:
     return np.asarray(a)
 
 
-def load_plan(path, device=None):
+def load_plan(path, device=None, validate: bool = True):
     """Deserialize a `save_plan` artifact (this package's or the
     reference's) -> (spec, params on `device`). Never touches the IT/plan
     builders.
 
     The artifact is untrusted input: a torn zip, a missing member or
-    mangled metadata raises `PlanValidationError`. The reference's full
-    bounds/consistency pass (plan_guard) is not ported yet (ROADMAP A9)."""
+    mangled metadata always raises `PlanValidationError`. Index tables
+    saved as int64 (the reference's schema <= 3) are downcast to int32,
+    bounds-guarded. `validate=True` (default) then runs the full
+    `plan_guard` bounds/consistency pass under the configured policy
+    (`FTFI_PLAN_GUARD`), before any params reach the device."""
     dev = resolve_device(device)
     try:
         with np.load(path, allow_pickle=False) as z:
@@ -688,7 +870,11 @@ def load_plan(path, device=None):
         raise PlanValidationError(
             f"load_plan({path!s}): corrupt or truncated plan artifact "
             f"({type(e).__name__}: {e})") from e
-    return spec, _params_on(PlanParams(**fields), dev)
+    spec, _ = plan_guard.coerce_index_dtypes(spec)
+    params = PlanParams(**fields)
+    if validate:
+        plan_guard.validate(spec, params, where=f"load_plan({path!s})")
+    return spec, _params_on(params, dev)
 
 
 def from_numpy(spec_fields: dict, params_fields: dict, device=None):
@@ -719,3 +905,8 @@ def from_numpy(spec_fields: dict, params_fields: dict, device=None):
            for k in _PARAM_TUPLE_FIELDS},
         tree_w=None if tree_w is None else np.asarray(tree_w))
     return spec, _params_on(params, resolve_device(device))
+
+
+# incremental edits live in their own module but belong to this API surface
+# (imported at the bottom: plan_update imports this module)
+from repro_torch.core.plan_update import update_plan  # noqa: E402,F401

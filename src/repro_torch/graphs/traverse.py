@@ -1,17 +1,23 @@
-"""Traversals: tree distances (sampled-pair, all-pairs).
+"""Traversals: tree distances (single-source, sampled-pair, all-pairs),
+Dijkstra.
 
-Host-side numpy. Sampled pairs use binary-lifting LCA (O(N log N) build,
-O(log N)/query); all-pairs is the BTFI/oracle path,
-O(N^2) time and memory, computed row-blocked with the Euler-interval update
+Host-side numpy. Tree single-source is O(N); sampled pairs use
+binary-lifting LCA (O(N log N) build, O(log N)/query); all-pairs is the
+BTFI/oracle path, O(N^2) time and memory, computed row-blocked with the
+Euler-interval update
   dist(v, u) = dist(parent(v), u) ± w(v, parent)
 (minus inside subtree(v), plus outside) — used only for validation and the
-brute-force baselines the paper compares against.
+brute-force baselines the paper compares against. Graph all-pairs runs
+scipy's compiled Dijkstra over the graph's CSR (one source a row, the
+same relaxations as `dijkstra`, so the same float64 sums).
 """
 from __future__ import annotations
 
+import heapq
+
 import numpy as np
 
-from repro_torch.graphs.graph import WeightedTree
+from repro_torch.graphs.graph import Graph, WeightedTree
 
 
 def tree_bfs_order(tree: WeightedTree, root: int = 0):
@@ -39,6 +45,15 @@ def tree_bfs_order(tree: WeightedTree, root: int = 0):
     if k != n:
         raise ValueError("tree is disconnected")
     return order, parent, parent_w
+
+
+def tree_distances_from(tree: WeightedTree, source: int) -> np.ndarray:
+    """Shortest-path distances from `source` to every vertex (O(N))."""
+    order, parent, parent_w = tree_bfs_order(tree, source)
+    dist = np.zeros(tree.num_vertices, dtype=np.float64)
+    for u in order[1:]:
+        dist[u] = dist[parent[u]] + parent_w[u]
+    return dist
 
 
 class TreeLCA:
@@ -79,6 +94,11 @@ class TreeLCA:
     def distance(self, u: np.ndarray, v: np.ndarray) -> np.ndarray:
         a = self.lca(u, v)
         return self.d_root[u] + self.d_root[v] - 2.0 * self.d_root[a]
+
+
+def tree_pair_distances(tree: WeightedTree, us: np.ndarray, vs: np.ndarray):
+    """Distances for sampled vertex pairs (Sec 4.3 training data)."""
+    return TreeLCA(tree).distance(us, vs)
 
 
 def _euler_intervals(tree: WeightedTree, root: int = 0):
@@ -138,3 +158,48 @@ def tree_all_pairs(tree: WeightedTree, dtype=np.float64) -> np.ndarray:
         dist_e[u] = r
     # un-permute columns back to vertex ids: out[u, v] = dist_e[u, euler_pos[v]]
     return dist_e[:, euler_pos]
+
+
+def dijkstra(g: Graph, source: int) -> np.ndarray:
+    """Single-source shortest paths on a weighted graph (binary heap)."""
+    indptr, indices, data = g.csr()
+    n = g.num_vertices
+    dist = np.full(n, np.inf)
+    dist[source] = 0.0
+    done = np.zeros(n, dtype=bool)
+    heap = [(0.0, source)]
+    while heap:
+        d, u = heapq.heappop(heap)
+        if done[u]:
+            continue
+        done[u] = True
+        for ei in range(indptr[u], indptr[u + 1]):
+            v = indices[ei]
+            nd = d + data[ei]
+            if nd < dist[v]:
+                dist[v] = nd
+                heapq.heappush(heap, (nd, v))
+    return dist
+
+
+def graph_all_pairs(g: Graph) -> np.ndarray:
+    """All-pairs shortest paths (n x n float64) — baseline/oracle only.
+
+    scipy.sparse.csgraph's Dijkstra from every source over the graph's
+    adjacency, parallel edges reduced to their lightest (a CSR matrix would
+    sum them). Each distance is the float64 sum of its path's weights from
+    the source outward, as `dijkstra` sums it."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra as cs_dijkstra
+
+    n = g.num_vertices
+    u = np.concatenate([g.edges_u, g.edges_v]).astype(np.int64)
+    v = np.concatenate([g.edges_v, g.edges_u]).astype(np.int64)
+    w = np.concatenate([g.weights, g.weights])
+    key = u * n + v
+    order = np.lexsort((w, key))  # by (u, v), the lightest first
+    key, w = key[order], w[order]
+    first = np.r_[True, key[1:] != key[:-1]]
+    key, w = key[first], w[first]
+    adj = csr_matrix((w, (key // n, key % n)), shape=(n, n))
+    return cs_dijkstra(adj, directed=True)

@@ -435,8 +435,9 @@ def _topo_fft_attention(cfg, qf, kf, v, coeffs, causal: bool):
 def resolve_topo_backend(cfg, backend: str | None = None) -> str:
     """Plan backend of the tree- and grid-mask fastmults (the ViT path):
     the explicit `backend`, else cfg.topo_backend, else "cuda" where
-    cfg.topo_attn_impl is "cuda" and "torch" otherwise. (The reference's
-    degradation ladder is ROADMAP A9: nothing here falls back.)"""
+    cfg.topo_attn_impl is "cuda" and "torch" otherwise, used as given: a
+    rung blocked by `ladder.block_backend` is not skipped here, since the
+    degradation ladder never moves a card path off its kernel."""
     return (backend or cfg.topo_backend
             or ("cuda" if cfg.topo_attn_impl == "cuda" else "torch"))
 

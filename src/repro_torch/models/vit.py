@@ -12,8 +12,10 @@ path launches none of the port's CUDA kernels.
 `TopoViT` holds the reference's param tree with the layer axis unstacked
 (`blocks/attn/wq[l]` -> `blocks.{l}.attn.wq`), in the reference's (in,
 out) layout, so `convert.vit_from_reference` is a renaming. Blocks run in
-a Python loop. The reference's backend health probe and degradation
-ladder (vit.py:66-77) are ROADMAP A9: nothing here falls back.
+a Python loop. The plan backend comes from
+`attention.resolve_topo_backend`, as given. The reference's build-time
+health probe (vit.py:66-77) is ROADMAP A9b: nothing here probes or
+falls back.
 """
 from __future__ import annotations
 

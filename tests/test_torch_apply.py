@@ -169,12 +169,20 @@ def test_load_plan_rejects_malformed_artifacts(tmp_path):
 
 
 def test_unknown_backend_raises():
+    """The reference's backend names are not the port's; "auto" is one of
+    the port's since the degradation ladder came (it resolves by size)."""
     spec, params = T.build(TG.random_tree(40, seed=0), leaf_size=8,
                            device="cpu")
-    for backend in ("auto", "plan", "pallas"):
+    for backend in ("plan", "pallas", "host"):
         with pytest.raises(ValueError, match="unknown backend"):
             T.apply(spec, params, TC.Exponential(-0.5), np.ones(40),
                     backend=backend, device="cpu")
+    before = ops.LAUNCHES
+    got = T.apply(spec, params, TC.Exponential(-0.5), np.ones(40),
+                  backend="auto", device="cpu")
+    want = T.apply(spec, params, TC.Exponential(-0.5), np.ones(40),
+                   backend="torch", device="cpu")
+    assert torch.equal(got, want) and ops.LAUNCHES == before
 
 
 def test_no_device_means_the_card_and_never_the_cpu(monkeypatch):

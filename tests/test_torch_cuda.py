@@ -832,3 +832,106 @@ def test_topovit_cuda_matches_ref_and_cpu(cuda_device):
     assert got.device.type == "cuda" and got.shape == (3, 10)
     assert _rel(got, ref) <= 1e-3
     assert _rel(got, cpu) <= 1e-4
+
+
+# --- the learnable tree metric (cell (j) of chip_smoke.py, cut to n = 2000) --
+
+
+@pytest.mark.cuda
+def test_learnable_metric_cuda_matches_torch(cuda_device):
+    """bench_learnable_f's edge-training flow on the card at n = 2000:
+    theta -> softplus -> `ftfi.reweight` -> `fastmult` -> relative error
+    against exp(lam D_G) X. Backend "cuda" (B1, one launch per cross
+    bucket each forward, none in the backward: X needs no grad) against
+    "torch": the error within 1e-5 relative, the theta-gradient within
+    1e-4 of its max (chip_smoke.py phase 4g's bounds)."""
+    from repro_torch.graphs.graph import synthetic_graph
+    from repro_torch.graphs.mst import minimum_spanning_tree
+    from repro_torch.graphs.traverse import graph_all_pairs
+
+    g = synthetic_graph(2000, 1000, seed=1)
+    tree = minimum_spanning_tree(g)
+    spec, _ = ftfi.build(tree, leaf_size=64, reweightable=True,
+                         device=cuda_device)
+    D_g = graph_all_pairs(g)
+    lam = -2.0 / float(np.mean(D_g))
+    X = np.random.default_rng(0).normal(size=(2000, 8)).astype(np.float32)
+    Yt = torch.tensor(np.exp(lam * D_g).astype(np.float32) @ X,
+                      device=cuda_device)
+    Xt = torch.tensor(X, device=cuda_device)
+    w0 = torch.tensor(tree.weights, dtype=torch.float32, device=cuda_device)
+    theta0 = torch.log(torch.expm1(w0))
+    out = {}
+    for backend in ("cuda", "torch"):
+        fm = ftfi.fastmult(spec, C.Exponential(lam), backend=backend,
+                           device=cuda_device)
+        th = theta0.clone().requires_grad_(True)
+        before = ops.LAUNCHES
+        err = torch.linalg.norm(
+            fm(ftfi.reweight(spec, torch.nn.functional.softplus(th)), Xt)
+            - Yt) / torch.linalg.norm(Yt)
+        forward = ops.LAUNCHES - before
+        (err ** 2).backward()
+        torch.cuda.synchronize()
+        launches = (forward, ops.LAUNCHES - before - forward)
+        assert launches == ((len(spec.cross_tgt_d0), 0)
+                            if backend == "cuda" else (0, 0))
+        out[backend] = (err.detach(), th.grad)
+    assert torch.isfinite(out["cuda"][0]) and torch.isfinite(
+        out["cuda"][1]).all()
+    assert _rel(out["cuda"][0], out["torch"][0]) <= 1e-5
+    assert _rel(out["cuda"][1], out["torch"][1]) <= 1e-4
+
+
+# --- plan maintenance on the card --------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("point", ["ladder.cuda", "ladder.out.cuda"])
+def test_ladder_never_demotes_on_the_card(point, cuda_device):
+    """On card tensors a fault at the kernel rung (a raise, or a NaN
+    output) raises `DeviceRungError`: no demotion, no warning, the closure
+    stays on "cuda" and no counter but the fault's own moves."""
+    import warnings
+
+    from repro_torch.core import ladder
+    from repro_torch.testing import faults
+
+    spec, params = ftfi.build(random_tree(300, seed=2), leaf_size=32,
+                              device=cuda_device)
+    X = torch.randn(300, 3, device=cuda_device)
+    handler = (faults.always_raise() if point == "ladder.cuda"
+               else faults.nan_output())
+    ladder.reset_stats()
+    fm = ftfi.resilient_fastmult(spec, C.Exponential(-0.5),
+                                 device=cuda_device)
+    with faults.injected(point, handler), \
+            warnings.catch_warnings():
+        warnings.simplefilter("error", ftfi.BackendDemotionWarning)
+        with pytest.raises(ftfi.DeviceRungError, match="on the card"):
+            fm(params, X)
+    assert fm.level == "cuda" and fm.demotions == []
+    st = ladder.stats()
+    assert st["demotions"] == 0
+    assert st["errors" if point == "ladder.cuda" else "nonfinite"] == 1
+    before = ops.LAUNCHES
+    y = fm(params, X)
+    assert ops.LAUNCHES - before == len(spec.cross_tgt_d0)
+    want = ftfi.apply(spec, params, C.Exponential(-0.5), X, backend="cuda",
+                      device=cuda_device)
+    assert _rel(y, want) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_update_plan_birth_params_land_on_the_card(cuda_device):
+    """`update_plan(spec, None, ops)` puts the edited plan's birth params on
+    the card by default, equal to those of an update from live params."""
+    spec, params = ftfi.build(random_tree(40, seed=1), leaf_size=6,
+                              reweightable=True, device=cuda_device)
+    ops_ = [("insert_leaf", 3, 0.7), ("delete_leaf", 40)]
+    s1, p1 = ftfi.update_plan(spec, None, ops_)
+    s2, p2 = ftfi.update_plan(spec, params, ops_)
+    assert s1.digest == s2.digest
+    for a, b in zip(p1.cross_tgt_d + p1.leaf_dists,
+                    p2.cross_tgt_d + p2.leaf_dists):
+        assert a.device.type == "cuda" and torch.equal(a, b)

@@ -119,8 +119,17 @@ def test_tree_distances_match():
 
 
 def test_reweightable_build_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue A item 8"):
-        T.build(TG.random_tree(30, seed=0), reweightable=True, device="cpu")
+    """Reweightable builds are ported now (the name is the refusal's it
+    replaced): the port's reweightable spec is the reference's, every
+    array field bitwise equal, on a tree and on the 55-graph forest."""
+    for name in ("random_tree", "mixed_forest55"):
+        robj, tobj, leaf = _case(name)
+        rspec, _ = R.build(robj, leaf_size=leaf, reweightable=True)
+        tspec, _ = T.build(tobj, leaf_size=leaf, reweightable=True,
+                           device="cpu")
+        assert tspec.reweightable and tspec.grid_h is None
+        assert tspec.path_rows is not None and tspec.edges_u is not None
+        assert tspec.digest == rspec.digest, name
 
 
 _NO_JAX = r"""
