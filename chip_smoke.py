@@ -98,6 +98,21 @@ tensors off the kernel), on a CPU copy of the plan each demotes once to
 `update_plan` against a rebuild, a cache hit against a build, and `apply`
 "cuda" against "torch" for the `backend="auto"` threshold.
 
+The Integrator facade (slice 11): 4i runs `Integrator(tree,
+backend="cuda")` and "torch" (device left at None: the card) at cell (a)'s
+tree, each output bit for bit `ftfi.apply`'s on the same plan and within
+1e-5 of the card's BTFI, one B1 launch per cross bucket on "cuda"; the
+"host" backend (the recursive FTFI walk, ExpMP for Exponential) within
+1e-5 of BTFI; `from_forest` on cell (c)'s forest against the host's
+per-tree loop; `from_plan` on a saved and loaded plan, and a flipped index
+refused. 4j is the paper's Fig. 4 on the card (bench_mesh_interpolation's
+meshes, known vertices and f, plus icosphere(5) for the MST rows): MST,
+random spanning tree, FRT tree and a forest of 4 FRT trees on "cuda", each
+f's prediction within 1e-5 of the host walk on the same tree and each
+method's best cosine within 1e-4 of the host's, and BTFI on the MST; 5h
+times preprocessing and one integrate on each backend against BTFI, and
+the facade against a bare `ftfi.apply`.
+
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
 
@@ -3097,6 +3112,536 @@ def phase_auto_crossover(cfg, device, card):
     return out
 
 
+# ----------------------------------------------------------------------------
+# slice 11: the Integrator facade (4i), the paper's Fig. 4 mesh
+# interpolation (4j) and the facade's times against BTFI (5h)
+# ----------------------------------------------------------------------------
+
+# benchmarks/bench_mesh_interpolation.py:40-115: three meshes (FRT rows
+# where n <= 3,000), 20% of the vertices known from one default_rng(0) in
+# mesh order, f = 1 / (1 + lam x^2), leaf 128; plus cell (b)'s icosphere(5)
+# for the MST rows
+MESH = {"meshes": (("ico3", "ico", 3), ("ico4", "ico", 4),
+                   ("torus", "torus", (48, 24)), ("ico5", "ico", 5)),
+        "mst_only": ("ico5",), "frt_max_n": 3000, "known": 0.2,
+        "lambdas": (1.0, 4.0, 16.0), "leaf": 128, "forest_trees": 4}
+COS_TOL = 1e-4  # a method's best cosine, "cuda" against the host walk
+FACADE = {"families": ("Exponential", "Rational", "Polynomial"),
+          "host_reps": 2}
+
+
+def _launches_checked(integ, fn, X, what):
+    """integ.integrate(fn, X) on the card; on backend "cuda" with a kernel
+    family, exactly one B1 launch per cross bucket of its plan."""
+    import torch
+    from repro_torch.core.engines import spec_of
+    from repro_torch.kernels.fdist_matvec import ops
+
+    before = ops.LAUNCHES
+    Y = integ.integrate(fn, X)
+    torch.cuda.synchronize()
+    launched = ops.LAUNCHES - before
+    want = (len(integ.spec.cross_tgt_d0) if integ.backend == "cuda"
+            and spec_of(fn).mode is not None else 0)
+    if launched != want:
+        raise AssertionError(f"{what}: {launched} fdist_matvec launches for "
+                             f"{want} kernel cross buckets")
+    if Y.shape != X.shape or not bool(torch.isfinite(Y).all()):
+        raise AssertionError(f"{what}: bad output {tuple(Y.shape)}")
+    return Y, launched
+
+
+def _worst(got, want) -> str:
+    """The element of the largest error, for a failed gate's message."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    i = np.unravel_index(int(np.argmax(np.abs(got - want))), got.shape)
+    return f"worst at {tuple(int(k) for k in i)}: {got[i]!r} vs {want[i]!r}"
+
+
+def _np(t):
+    import torch
+
+    return t.detach().double().cpu().numpy() if isinstance(
+        t, torch.Tensor) else np.asarray(t, np.float64)
+
+
+def phase_facade(cfg, device):
+    """4i: `Integrator` on cell (a)'s tree. "cuda" and "torch" with device
+    left at None (the card): bit for bit `ftfi.apply` on the same plan
+    (deterministic index_add_), within EXACT_TOL of the card's BTFI ("torch"
+    for its exact families), one B1 launch per cross bucket on "cuda",
+    `describe`; "host" (the FTFI walk, ExpMP for Exponential) within
+    EXACT_TOL of BTFI; `from_forest` on cell (c)'s forest, "cuda" against
+    the host's per-tree loop; `from_plan` on a saved and loaded plan, and
+    its plan guard."""
+    import shutil
+    import tempfile
+    import warnings
+
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.core import Integrator
+    from repro_torch.core.engines import spec_of
+    from repro_torch.core.integrate import BTFI
+    from repro_torch.graphs.graph import Forest
+    from repro_torch.graphs.mst import minimum_spanning_forest
+    from repro_torch.testing import faults
+
+    tree = synthetic_tree(cfg)
+    fams = families()
+    t0 = time.perf_counter()
+    integs = {b: Integrator(tree, backend=b, leaf_size=cfg["leaf"])
+              for b in ("cuda", "torch")}
+    host = Integrator(tree, backend="host", leaf_size=cfg["leaf"])
+    build_s = time.perf_counter() - t0
+    dense = BTFI(tree, device=device)
+    rng = np.random.default_rng(17)
+    rows = []
+    for d in cfg["widths"]:
+        X = torch.tensor(rng.normal(size=(tree.num_vertices, d)),
+                         dtype=torch.float32, device=device)
+        for fname, fn in fams:
+            want = dense.integrate(fn, X)
+            row = {"family": fname, "d": d}
+            for b, integ in integs.items():
+                with warnings.catch_warnings():
+                    warnings.simplefilter("ignore")  # no deterministic cuBLAS
+                    torch.use_deterministic_algorithms(True, warn_only=True)
+                    try:
+                        Y, launched = _launches_checked(
+                            integ, fn, X, f"4i {b} {fname} d={d}")
+                        Yf = ftfi.apply(integ.spec, integ.params, fn, X,
+                                        backend=b, device=X.device)
+                    finally:
+                        torch.use_deterministic_algorithms(False)
+                engine = integ.describe(fn)["cross_engine"]
+                exact = b == "cuda" or fname in ("Exponential", "Polynomial")
+                err = rel_err(Y, want)
+                if not torch.equal(Y, Yf):
+                    raise AssertionError(
+                        f"4i {b} {fname} d={d}: Integrator.integrate is not "
+                        f"ftfi.apply bit for bit ({_worst(_np(Y), _np(Yf))})")
+                if exact and not err <= EXACT_TOL:
+                    raise AssertionError(
+                        f"4i {b} {fname} d={d}: rel err {err:.3e} vs BTFI > "
+                        f"{EXACT_TOL} ({_worst(_np(Y), _np(want))})")
+                want_engine = f"fdist_matvec:{spec_of(fn).mode}"
+                if b == "cuda" and engine != want_engine:
+                    raise AssertionError(f"4i cuda {fname}: engine {engine}")
+                row.update({f"{b}_engine": engine, f"{b}_launches": launched,
+                            f"{b}_rel_err": err, f"{b}_gated": exact})
+            Yh = host.integrate(fn, X.double())
+            err = rel_err(Yh, want)
+            if (Yh.device != X.device or Yh.dtype != torch.float64
+                    or not err <= EXACT_TOL):
+                raise AssertionError(
+                    f"4i host {fname} d={d}: rel err {err:.3e} vs BTFI "
+                    f"(<= {EXACT_TOL}), {Yh.dtype} on {Yh.device} "
+                    f"({_worst(_np(Yh), _np(want))})")
+            row.update(host_engine=host.describe(fn)["cross_engine"],
+                       host_rel_err=err)
+            rows.append(row)
+            print(f"[facade] n={tree.num_vertices} d={d} {fname}: cuda "
+                  f"({row['cuda_engine']}, {row['cuda_launches']} launches) "
+                  f"{row['cuda_rel_err']:.2e} | torch ({row['torch_engine']})"
+                  f" {row['torch_rel_err']:.2e}"
+                  + ("" if row["torch_gated"]
+                     else " (approximation, not gated)")
+                  + f" | host ({row['host_engine']}) {err:.2e} vs BTFI; "
+                  "integrate == ftfi.apply bit for bit", flush=True)
+    del dense
+
+    # cell (c)'s forest: one fused plan against the host's per-tree loop
+    forest = Forest(minimum_spanning_forest(graph_dataset(cfg)))
+    fi = Integrator.from_forest(forest, backend="cuda",
+                                leaf_size=cfg["forest_leaf"])
+    fh = Integrator.from_forest(forest, backend="host",
+                                leaf_size=cfg["forest_leaf"])
+    Xf = torch.tensor(rng.normal(size=(forest.num_vertices, 8)),
+                      dtype=torch.float32, device=device)
+    forest_rows = []
+    for fname, fn in fams:
+        Y, launched = _launches_checked(fi, fn, Xf, f"4i forest {fname}")
+        want = fh.integrate(fn, _np(Xf))
+        err = rel_err(Y, torch.from_numpy(want).to(device))
+        if launched == 0 or not err <= EXACT_TOL or fi.num_trees != 90:
+            raise AssertionError(
+                f"4i forest {fname}: {launched} launches, rel err {err:.3e} "
+                f"vs the host loop, {fi.num_trees} trees "
+                f"({_worst(_np(Y), want)})")
+        forest_rows.append({"family": fname, "launches": launched,
+                            "rel_err": err})
+    print(f"[facade forest] {forest.num_trees} MSTs, leaf "
+          f"{cfg['forest_leaf']}, d=8: cuda vs the host's per-tree loop "
+          + ", ".join(f"{r['family']} {r['rel_err']:.2e} ({r['launches']} "
+                      "launches)" for r in forest_rows), flush=True)
+
+    # from_plan: a saved and loaded plan, and the plan guard
+    integ = integs["cuda"]
+    fn = fams[0][1]
+    X = torch.tensor(rng.normal(size=(tree.num_vertices, 4)),
+                     dtype=torch.float32, device=device)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_facade_")
+    try:
+        path = os.path.join(tmp, "plan.npz")
+        ftfi.save_plan(path, integ.spec, integ.params)
+        spec2, params2 = ftfi.load_plan(path)
+        loaded = Integrator.from_plan(spec2, params2, backend="cuda")
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                same = torch.equal(
+                    _launches_checked(loaded, fn, X, "4i from_plan")[0],
+                    integ.integrate(fn, X))
+            finally:
+                torch.use_deterministic_algorithms(False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    try:
+        Integrator.from_plan(faults.flip_index(integ.spec), integ.params,
+                             backend="cuda")
+        refused = False
+    except ftfi.PlanValidationError:
+        refused = True
+    if not (same and refused):
+        raise AssertionError(f"4i from_plan: loaded plan equal {same}, "
+                             f"flipped index refused {refused}")
+    print(f"[facade from_plan] save_plan / load_plan / from_plan on cuda "
+          f"equals the built Integrator bit for bit; a flipped index is "
+          f"refused (PlanValidationError); facade build {build_s:.2f} s",
+          flush=True)
+    return {"rows": rows, "forest": forest_rows, "from_plan_equal": same,
+            "flip_refused": refused, "build_s": build_s}
+
+
+def random_spanning_tree(g, seed=0):
+    """bench_mesh_interpolation's random spanning tree: the MST of the
+    graph under uniform random weights, with its true edge lengths."""
+    from repro_torch.graphs.graph import Graph, WeightedTree
+    from repro_torch.graphs.mst import minimum_spanning_tree
+
+    rng = np.random.default_rng(seed)
+    g2 = Graph(g.num_vertices, g.edges_u, g.edges_v,
+               rng.uniform(0.1, 1.0, g.num_edges))
+    t = minimum_spanning_tree(g2)
+    key = {(min(u, v), max(u, v)): w for u, v, w in
+           zip(g.edges_u, g.edges_v, g.weights)}
+    w = np.array([key[(min(u, v), max(u, v))]
+                  for u, v in zip(t.edges_u, t.edges_v)])
+    return WeightedTree(t.num_vertices, t.edges_u, t.edges_v, w)
+
+
+def _cosine(pred, normals, known) -> float:
+    """bench_mesh_interpolation._interpolate's score: the mean cosine of
+    the normalized prediction and the true normal over unknown vertices."""
+    pred = pred / np.maximum(np.linalg.norm(pred, axis=1, keepdims=True),
+                             1e-12)
+    return float(np.mean(np.sum(pred[~known] * normals[~known], axis=1)))
+
+
+def phase_mesh(device, card):
+    """4j: Fig. 4 on the card. For each mesh and method, the prediction
+    M_f F of each f through the `Integrator` on "cuda" (B1 once per cross
+    bucket) is held within EXACT_TOL of the host FTFI walk on the same
+    tree, and the method's best cosine within COS_TOL of the host's;
+    btfi_mst on the card against the host walk on the MST. Preprocessing
+    seconds are cold (plan and flat-IT caches cleared), host clock to a
+    synchronize."""
+    import torch
+    from repro_torch.core import Integrator, Rational
+    from repro_torch.core.integrate import BTFI, clear_plan_cache
+    from repro_torch.core.itree_flat import clear_flat_cache
+    from repro_torch.graphs.frt import (forest_leaf_integrate, frt_forest,
+                                        frt_tree)
+    from repro_torch.graphs.meshes import (icosphere, mesh_graph, torus_mesh,
+                                           vertex_normals)
+    from repro_torch.graphs.mst import minimum_spanning_tree
+    from repro_torch.graphs.traverse import graph_all_pairs
+    from repro_torch.kernels.fdist_matvec import ops
+
+    leaf, k = MESH["leaf"], MESH["forest_trees"]
+    fns = [Rational((1.0,), (1.0, 0.0, lam)) for lam in MESH["lambdas"]]
+    rng = np.random.default_rng(0)
+    rows = []
+
+    def cold(make):
+        clear_plan_cache()
+        clear_flat_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = make()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def leaf_field(F, n_tree):
+        Ffull = np.zeros((n_tree, 3))
+        Ffull[:F.shape[0]] = F
+        return Ffull
+
+    for name, kind, arg in MESH["meshes"]:
+        verts, faces = icosphere(arg) if kind == "ico" else torus_mesh(*arg)
+        normals = vertex_normals(verts, faces)
+        g = mesh_graph(verts, faces)
+        n = verts.shape[0]
+        known = rng.random(n) < MESH["known"]
+        F = np.where(known[:, None], normals, 0.0)
+        Fd = torch.tensor(F, dtype=torch.float32, device=device)
+        methods = []
+
+        def mk_tree(make_tree):
+            def make():
+                t = make_tree()
+                integ = Integrator(t, backend="cuda", leaf_size=leaf)
+                _ = integ.params  # the plan's distances on the card
+                return t, integ
+            return make
+
+        methods.append(("ftfi_mst", mk_tree(lambda: minimum_spanning_tree(g))))
+        if name not in MESH["mst_only"]:
+            methods.append(("ftfi_rst", mk_tree(
+                lambda: random_spanning_tree(g))))
+        for method, make in methods:
+            (tree, integ), pre_s = cold(make)
+            hint, host_pre_s = cold(lambda: Integrator(
+                tree, backend="host", leaf_size=leaf))
+            best, best_h, worst, launches = -1.0, -1.0, 0.0, 0
+            for fn in fns:
+                Y, launched = _launches_checked(integ, fn, Fd,
+                                                f"4j {name} {method}")
+                Yh = hint.integrate(fn, F)
+                err = rel_err(Y, torch.from_numpy(Yh).to(device))
+                if not err <= EXACT_TOL:
+                    raise AssertionError(
+                        f"4j {name} {method} {fn}: cuda vs host rel err "
+                        f"{err:.3e} ({_worst(_np(Y), Yh)})")
+                worst, launches = max(worst, err), launches + launched
+                best = max(best, _cosine(_np(Y), normals, known))
+                best_h = max(best_h, _cosine(Yh, normals, known))
+            rows.append({"mesh": name, "n": n, "method": method,
+                         "cos": best, "cos_host": best_h,
+                         "pre_s": pre_s, "host_pre_s": host_pre_s,
+                         "rel_err_vs_host": worst, "launches": launches,
+                         "buckets": len(integ.spec.cross_tgt_d0)})
+            if method == "ftfi_mst":  # the dense oracle on the same MST
+                (dense, pre_b) = cold(lambda: BTFI(minimum_spanning_tree(g),
+                                                   device=device))
+                best_b, worst_b = -1.0, 0.0
+                for fn in fns:
+                    Yb = dense.integrate(fn, Fd)
+                    Yh = hint.integrate(fn, F)
+                    worst_b = max(worst_b, rel_err(
+                        Yb, torch.from_numpy(Yh).to(device)))
+                    best_b = max(best_b, _cosine(_np(Yb), normals, known))
+                del dense
+                if not worst_b <= EXACT_TOL:
+                    raise AssertionError(f"4j {name} btfi_mst vs host: rel "
+                                         f"err {worst_b:.3e}")
+                rows.append({"mesh": name, "n": n, "method": "btfi_mst",
+                             "cos": best_b, "cos_host": best_h,
+                             "pre_s": pre_b, "host_pre_s": None,
+                             "rel_err_vs_host": worst_b, "launches": 0,
+                             "buckets": 0})
+        if n <= MESH["frt_max_n"]:
+            def make_frt():
+                D = graph_all_pairs(g)
+                t, lid = frt_tree(g, seed=0, D=D)
+                integ = Integrator(t, backend="cuda", leaf_size=leaf)
+                _ = integ.params
+                return D, t, lid, integ
+            (Dg, ft, lid, integ), pre_s = cold(make_frt)
+            hint, host_pre_s = cold(lambda: Integrator(ft, backend="host",
+                                                       leaf_size=leaf))
+            Ffull = leaf_field(F, ft.num_vertices)
+            Ffd = torch.tensor(Ffull, dtype=torch.float32, device=device)
+            best, best_h, worst, launches = -1.0, -1.0, 0.0, 0
+            for fn in fns:
+                Y, launched = _launches_checked(integ, fn, Ffd,
+                                                f"4j {name} ftfi_frt")
+                Yh = hint.integrate(fn, Ffull)
+                err = rel_err(Y, torch.from_numpy(Yh).to(device))
+                if not err <= EXACT_TOL:
+                    raise AssertionError(
+                        f"4j {name} ftfi_frt {fn}: cuda vs host rel err "
+                        f"{err:.3e} ({_worst(_np(Y), Yh)})")
+                worst, launches = max(worst, err), launches + launched
+                best = max(best, _cosine(_np(Y)[lid], normals, known))
+                best_h = max(best_h, _cosine(Yh[lid], normals, known))
+            rows.append({"mesh": name, "n": n, "method": "ftfi_frt",
+                         "cos": best, "cos_host": best_h, "pre_s": pre_s,
+                         "host_pre_s": host_pre_s, "rel_err_vs_host": worst,
+                         "launches": launches,
+                         "buckets": len(integ.spec.cross_tgt_d0)})
+
+            def make_forest():
+                forest, lid = frt_forest(g, k, seed=0, D=Dg)
+                integ = Integrator.from_forest(forest, backend="cuda",
+                                               leaf_size=leaf)
+                _ = integ.params
+                return forest, lid, integ
+            (forest, lid, finteg), pre_s = cold(make_forest)
+            fhost, host_pre_s = cold(lambda: Integrator.from_forest(
+                forest, backend="host", leaf_size=leaf))
+            del Dg
+            best, best_h, worst, launches = -1.0, -1.0, 0.0, 0
+            for fn in fns:
+                before = len(finteg.spec.cross_tgt_d0)
+                l0 = ops.LAUNCHES
+                P = forest_leaf_integrate(forest, lid, finteg, fn, F)
+                torch.cuda.synchronize()
+                launched = ops.LAUNCHES - l0
+                Ph = forest_leaf_integrate(forest, lid, fhost, fn, F)
+                err = rel_err(P, torch.from_numpy(Ph).to(device))
+                if launched != before or not err <= EXACT_TOL:
+                    raise AssertionError(
+                        f"4j {name} ftfi_frt_forest{k} {fn}: {launched} "
+                        f"launches for {before} buckets, cuda vs host rel "
+                        f"err {err:.3e} ({_worst(_np(P), Ph)})")
+                worst, launches = max(worst, err), launches + launched
+                best = max(best, _cosine(_np(P), normals, known))
+                best_h = max(best_h, _cosine(Ph, normals, known))
+            rows.append({"mesh": name, "n": n,
+                         "method": f"ftfi_frt_forest{k}", "cos": best,
+                         "cos_host": best_h, "pre_s": pre_s,
+                         "host_pre_s": host_pre_s, "rel_err_vs_host": worst,
+                         "launches": launches,
+                         "buckets": len(finteg.spec.cross_tgt_d0)})
+        for r in rows:
+            if r["mesh"] != name:
+                continue
+            if not abs(r["cos"] - r["cos_host"]) <= COS_TOL:
+                raise AssertionError(
+                    f"4j {name} {r['method']}: best cosine {r['cos']:.6f} "
+                    f"against the host's {r['cos_host']:.6f}")
+            print(f"[fig4] {name} n={n} {r['method']}: cos {r['cos']:.4f} "
+                  f"(host {r['cos_host']:.4f}), preprocessing "
+                  f"{r['pre_s']:.3f} s"
+                  + (f" (host {r['host_pre_s']:.3f} s)"
+                     if r["host_pre_s"] is not None else "")
+                  + f", cuda vs host rel err {r['rel_err_vs_host']:.2e}, "
+                  f"{r['launches']} B1 launches ({r['buckets']} buckets x "
+                  f"{len(fns)} f) | {card}", flush=True)
+    return rows
+
+
+def _walk_ms(fn, reps: int) -> float:
+    """Host clock per call of a host-side integrate: one warm-up call, then
+    `reps` timed."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def phase_facade_times(cfg, device, card):
+    """5h: preprocessing and one steady-state `integrate` at cell (a), d =
+    4 and 64, Exponential(-0.5), Rational and Polynomial: "cuda", "torch"
+    and "host" (the FTFI walk; ExpMP for Exponential) against the card's
+    BTFI, each backend's speedup over BTFI in total (preprocessing +
+    one integrate) and for the integrate alone, and the facade's overhead
+    over a bare `ftfi.apply` (the memo hit against a fresh bind)."""
+    import torch
+    from repro_torch import ftfi
+    from repro_torch.core import Integrator
+    from repro_torch.core import cordial as C
+    from repro_torch.core.integrate import BTFI, clear_plan_cache, compile_plan
+    from repro_torch.core.itree_flat import build_flat_it, clear_flat_cache
+
+    tree = synthetic_tree(cfg)
+    leaf, reps = cfg["leaf"], cfg["reps"]
+    clear_plan_cache()
+    clear_flat_cache()
+    pre = {}
+    t0 = time.perf_counter()
+    build_flat_it(tree, leaf_size=leaf)
+    pre["flat_it_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    compile_plan(tree, leaf_size=leaf)  # on the flat IT just built
+    pre["plan_s"] = time.perf_counter() - t0
+    integs = {}
+    for b in ("cuda", "torch"):
+        t0 = time.perf_counter()
+        integs[b] = Integrator(tree, backend=b, leaf_size=leaf)
+        _ = integs[b].params  # the plan's distances on the card
+        torch.cuda.synchronize()
+        pre[f"{b}_params_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = Integrator(tree, backend="host", leaf_size=leaf)
+    pre["host_s"] = time.perf_counter() - t0  # ITNodes + ExpMP's BFS
+    walk = Integrator(tree, backend="host", leaf_size=leaf, use_expmp=False)
+    t0 = time.perf_counter()
+    dense = BTFI(tree, device=device)
+    torch.cuda.synchronize()
+    pre["btfi_s"] = time.perf_counter() - t0  # host all-pairs + transfer
+    # what each backend pays before its first integrate (cold caches)
+    total_pre = {"cuda": pre["flat_it_s"] + pre["plan_s"]
+                 + pre["cuda_params_s"],
+                 "torch": pre["flat_it_s"] + pre["plan_s"]
+                 + pre["torch_params_s"],
+                 "host": pre["flat_it_s"] + pre["host_s"],
+                 "btfi": pre["btfi_s"]}
+    fams = {"Exponential": C.Exponential(-0.5),
+            "Rational": C.Rational((1.0,), (1.0, 0.0, 0.8)),
+            "Polynomial": C.Polynomial((0.5, -0.2, 0.1))}
+    rng = np.random.default_rng(23)
+    rows = []
+    for d in cfg["widths"]:
+        X = torch.tensor(rng.normal(size=(tree.num_vertices, d)),
+                         dtype=torch.float32, device=device)
+        Xn = X.cpu().numpy()
+        for fname in FACADE["families"]:
+            fn = fams[fname]
+            row = {"d": d, "family": fname}
+            row["btfi_ms"] = host_ms(lambda: dense.integrate(fn, X), reps)
+            row["btfi_device_ms"] = device_ms(lambda: dense.integrate(fn, X),
+                                              reps)
+            for b, integ in integs.items():
+                row[f"{b}_ms"] = host_ms(lambda: integ.integrate(fn, X), reps)
+                row[f"{b}_device_ms"] = device_ms(
+                    lambda: integ.integrate(fn, X), reps)
+                row[f"{b}_apply_ms"] = host_ms(  # a fresh bind per call
+                    lambda: ftfi.apply(integ.spec, integ.params, fn, X,
+                                       backend=b, device=device), reps)
+            row["host_ms"] = _walk_ms(lambda: host.integrate(fn, Xn),
+                                      FACADE["host_reps"])
+            row["host_engine"] = host.describe(fn)["cross_engine"]
+            if fname == "Exponential":
+                row["host_walk_ms"] = _walk_ms(
+                    lambda: walk.integrate(fn, Xn), FACADE["host_reps"])
+            for b in ("cuda", "torch", "host"):
+                row[f"{b}_speedup_integrate"] = row["btfi_ms"] / row[f"{b}_ms"]
+                row[f"{b}_speedup_total"] = (
+                    (total_pre["btfi"] * 1e3 + row["btfi_ms"])
+                    / (total_pre[b] * 1e3 + row[f"{b}_ms"]))
+            rows.append(row)
+            print(f"[facade times] n={tree.num_vertices} d={d} {fname}: "
+                  f"integrate host ms (device ms): cuda {row['cuda_ms']:.3f}"
+                  f" ({row['cuda_device_ms']:.3f}), torch "
+                  f"{row['torch_ms']:.3f} ({row['torch_device_ms']:.3f}), "
+                  f"host {row['host_ms']:.1f} ({row['host_engine']})"
+                  + (f", host walk {row['host_walk_ms']:.1f}"
+                     if "host_walk_ms" in row else "")
+                  + f", BTFI {row['btfi_ms']:.3f} "
+                  f"({row['btfi_device_ms']:.3f})"
+                  f" | speedup over BTFI, integrate / total: " + ", ".join(
+                      f"{b} {row[f'{b}_speedup_integrate']:.2f}x / "
+                      f"{row[f'{b}_speedup_total']:.2f}x"
+                      for b in ("cuda", "torch", "host"))
+                  + f" | facade (memo hit) vs ftfi.apply (fresh bind): cuda "
+                  f"{row['cuda_ms']:.3f} / {row['cuda_apply_ms']:.3f} ms, "
+                  f"torch {row['torch_ms']:.3f} / {row['torch_apply_ms']:.3f}"
+                  f" ms | {card}", flush=True)
+    print(f"[facade preprocessing] n={tree.num_vertices}, leaf {leaf}, cold: "
+          f"flat IT {pre['flat_it_s']:.3f} s, plan {pre['plan_s']:.3f} s, "
+          f"Integrator cuda {pre['cuda_params_s']:.3f} s, torch "
+          f"{pre['torch_params_s']:.3f} s (params to the card), host "
+          f"{pre['host_s']:.3f} s (ITNodes, ExpMP's BFS), BTFI all-pairs "
+          f"{pre['btfi_s']:.3f} s | {card}", flush=True)
+    return {"card": card, "preprocessing_s": pre,
+            "total_preprocessing_s": total_pre, "rows": rows}
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -3351,6 +3896,32 @@ def run(cfg, device, out_path=None) -> dict:
         raise AssertionError(f"ladder: {ladder.stats()} at the end of the "
                              f"run; only 4h's injected demotions ({want}) "
                              f"may reach it")
+    # slice 11: the Integrator facade (4i) and Fig. 4's mesh interpolation
+    # (4j), the slice's main path, B1's counts from 0 around them; 5h's
+    # times
+    torch.cuda.empty_cache()
+    ops.LAUNCHES = 0
+    ops.LAUNCHES_BY_TD.update({td: 0 for td in ops.LAUNCHES_BY_TD})
+    facade = phase_facade(cfg, device)
+    mesh_rows = phase_mesh(device, card)
+    facade_by_td = dict(ops.LAUNCHES_BY_TD)
+    for d in cfg["widths"]:
+        if facade_by_td[fdist_kernel.tile_width(d)] == 0:
+            raise AssertionError(f"4i/4j launched no fdist_matvec kernel of "
+                                 f"d-tile {d}")
+    torch.cuda.empty_cache()
+    facade_times = phase_facade_times(cfg, device, card)
+    for k in kernels:
+        for d in cfg["widths"]:
+            if k["name"] == f"fdist_matvec_batched[d={d}]":
+                k.update(facade_launches=facade_by_td[
+                    fdist_kernel.tile_width(d)], facade_at=(
+                    "4i + 4j: Integrator(..., backend='cuda') at cell (a) "
+                    "(d=4, 64), the forest of cell (c), from_plan, and the "
+                    "Fig. 4 meshes (d=3); launches of this d-tile"))
+    if ladder.stats() != want:
+        raise AssertionError(f"ladder: {ladder.stats()} after 4i-5h; they "
+                             "may not reach it")
     record = {"device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
@@ -3365,7 +3936,8 @@ def run(cfg, device, out_path=None) -> dict:
               "train_gates": train_gates, "trainer": trainer,
               "learn_gate": learn_gate, "learn_train": learn, "fit": fit,
               "maintenance": maint, "auto_crossover": auto,
-              "kernels": kernels}
+              "facade": facade, "mesh": mesh_rows,
+              "facade_times": facade_times, "kernels": kernels}
     if out_path:
         Path(out_path).parent.mkdir(parents=True, exist_ok=True)
         Path(out_path).write_text(json.dumps(record, indent=1))

@@ -1,5 +1,7 @@
-"""Tree-field integration: the BTFI oracle and the plan data (compile_plan).
-The plan *executor* lives in `repro_torch.core.plan_api`.
+"""Tree-field integration: the BTFI oracle, the recursive host FTFI, the
+ExpMP message-passing integrator, and the plan data (compile_plan). The
+plan *executor* lives in `repro_torch.core.plan_api`; the public entry
+point is `repro_torch.core.engines.Integrator`.
 
 Correctness invariant: the *additive* decomposition counts every ordered
 pair (v, j) exactly once.
@@ -17,6 +19,11 @@ pair (v, j) exactly once.
   pairs (v, v) appear once per leaf containing v = 1 + #(nodes where v is
   pivot), matched by the per-node corrections.
 
+The recursive evaluator (FTFI) follows the paper's Eq. 2-4 verbatim (pivot
+kept in the source group, subtracted via the f(left-d[tau(v)]) X'[0]
+correction); the plan executor uses the optimized masked-source form. Both
+are validated against the dense BTFI oracle.
+
 The host-side plan builder here is the reference's, array for array: the
 same tree gives a bitwise-identical plan, so `PlanSpec.digest` agrees
 across the two packages.
@@ -29,7 +36,8 @@ import hashlib
 import numpy as np
 import torch
 
-from repro_torch.core.engines.spec import spec_of
+from repro_torch.core.cordial import CordialFn
+from repro_torch.core.integrator_tree import ITNode, build_integrator_tree
 from repro_torch.core.itree_flat import (_ranges, build_flat_forest,
                                          build_flat_it, tree_fingerprint)
 from repro_torch.core.lru import BoundedLRU
@@ -54,9 +62,108 @@ class BTFI:
                                      device=resolve_device(device))
 
     def integrate(self, fn, X) -> torch.Tensor:
+        from repro_torch.core.engines.spec import spec_of
+
         X = torch.as_tensor(X, dtype=self.dists.dtype,
                             device=self.dists.device)
         return spec_of(fn).fn_eval(self.dists) @ X
+
+
+def _acc_dtype(X: np.ndarray):
+    """float32 fields stay float32 (the walks are bandwidth-bound), every
+    other dtype accumulates in float64."""
+    return X.dtype if X.dtype in (np.float32, np.float64) else np.float64
+
+
+# ----------------------------------------------------------------------------
+# FTFI: recursive exact integrator (host / numpy)
+# ----------------------------------------------------------------------------
+
+
+class FTFI:
+    """Fast tree-field integrator on the host. Preprocessing = IT
+    construction (once); `integrate(fn, X)` is exact for any CordialFn,
+    through each node's structured multiply (`fn.matvec`)."""
+
+    def __init__(self, tree: WeightedTree, leaf_size: int = 64, seed: int = 0):
+        self.n = tree.num_vertices
+        self.root = build_integrator_tree(tree, leaf_size=leaf_size, seed=seed)
+
+    def integrate(self, fn: CordialFn, X: np.ndarray) -> np.ndarray:
+        X = np.asarray(X)
+        squeeze = X.ndim == 1
+        if squeeze:
+            X = X[:, None]
+        out = np.zeros_like(X, dtype=_acc_dtype(X))
+        self._walk(self.root, fn, X, out)
+        return out[:, 0] if squeeze else out
+
+    def _walk(self, node: ITNode, fn: CordialFn, X: np.ndarray,
+              out: np.ndarray):
+        if node.is_leaf:
+            out[node.vertex_ids] += fn(node.leaf_dists) @ X[node.vertex_ids]
+            return
+        p = node.pivot
+        # the segment layouts were made at build time: ITNode is immutable,
+        # so the walk is thread-safe and plans can share one IT
+        for src_sorted, starts, tgt_ids, tgt_id_d, tgt_d, src_d in (
+            (node.right_sorted_ids, node.right_seg_starts,
+             node.left_ids, node.left_id_d, node.left_d, node.right_d),
+            (node.left_sorted_ids, node.left_seg_starts,
+             node.right_ids, node.right_id_d, node.right_d, node.left_d),
+        ):
+            # X'[u] = sum over source vertices in distance-group u (Eq. 3);
+            # the pivot IS included (group 0), per the paper.
+            Xp = np.add.reduceat(X[src_sorted], starts, axis=0).astype(
+                out.dtype)
+            # cross values per target distance-group: C @ X' (Eq. 4)
+            cross = fn.matvec(tgt_d, src_d, Xp)  # (U_tgt, d)
+            # Eq. 4 correction: remove the source-pivot column f(tgt_d) X'[0]
+            vals = cross - fn(tgt_d)[:, None] * Xp[0][None, :]
+            # targets exclude the pivot (tgt_ids[0] == pivot by construction)
+            out[tgt_ids[1:]] += vals[tgt_id_d[1:]]
+        out[p] -= fn.f0 * X[p]  # diagonal (p, p) double-count correction
+        self._walk(node.left, fn, X, out)
+        self._walk(node.right, fn, X, out)
+
+
+# ----------------------------------------------------------------------------
+# Exponential-kernel specialization: two-pass message passing
+# ----------------------------------------------------------------------------
+
+
+class ExpMP:
+    """Exact integrator for f(x) = scale * exp(lam * x) on a weighted tree
+    via the classic up/down sweep:
+
+      up[v]   = X_v + sum_c e^{lam w_c} up[c]          (subtree mass)
+      down[c] = e^{lam w_c} (down[p] + up[p] - e^{lam w_c} up[c])
+      out[v]  = up[v] + down[v]
+
+    Two passes over (N, d), O(N d) time, no IT needed: the rank-1
+    cordiality of exp pushed to its limit."""
+
+    def __init__(self, tree: WeightedTree, root: int = 0):
+        self.order, self.parent, self.parent_w = tree_bfs_order(tree, root)
+
+    def integrate(self, lam: float, X: np.ndarray, scale: float = 1.0):
+        X = np.asarray(X)
+        squeeze = X.ndim == 1
+        if squeeze:
+            X = X[:, None]
+        order, parent = self.order, self.parent
+        e = np.exp(lam * self.parent_w)  # per-vertex edge factor to parent
+        up = X.astype(_acc_dtype(X)).copy()
+        for v in order[::-1]:
+            pv = parent[v]
+            if pv >= 0:
+                up[pv] += e[v] * up[v]
+        down = np.zeros_like(up)
+        for v in order[1:]:
+            pv = parent[v]
+            down[v] = e[v] * (down[pv] + up[pv] - e[v] * up[v])
+        out = scale * (up + down)
+        return out[:, 0] if squeeze else out
 
 
 # ----------------------------------------------------------------------------

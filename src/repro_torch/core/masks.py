@@ -187,26 +187,40 @@ def make_sequence_fastmult(g: str, coeffs, L: int, causal: bool,
 FIELD_COL_CHUNK = 1 << 20
 
 
-def _plan_pair(plan):
+def _resolve_plan_handle(plan):
+    """(spec, params, backend) of an `Integrator` of backend "torch" or
+    "cuda" (or its backend object), or of a `(PlanSpec, PlanParams)` pair,
+    whose backend is None."""
     if (isinstance(plan, (tuple, list)) and len(plan) == 2
             and isinstance(plan[0], PlanSpec)
             and isinstance(plan[1], PlanParams)):
-        return plan
+        return plan[0], plan[1], None
+    impl = getattr(plan, "_impl", plan)
+    spec = getattr(impl, "spec", None)
+    if isinstance(spec, PlanSpec):
+        return spec, impl.params, impl.name
+    if getattr(impl, "name", None) == "host":
+        raise TypeError(
+            "make_tree_fastmult needs a plan: a 'host' Integrator has none; "
+            "build it with backend 'torch' or 'cuda'")
     raise TypeError(
-        f"make_tree_fastmult takes a (PlanSpec, PlanParams) pair from "
-        f"ftfi.build / ftfi.load_plan, got {type(plan).__name__}: the "
-        "Integrator facade is not ported yet (ROADMAP A9b)")
+        f"make_tree_fastmult takes an Integrator of backend 'torch' or "
+        f"'cuda' (the facade of ROADMAP A9b) or a (PlanSpec, PlanParams) "
+        f"pair from ftfi.build / ftfi.load_plan, got {type(plan).__name__}")
 
 
 def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
-                       backend: str = "torch", device=None) -> Callable:
+                       backend: str | None = None, device=None) -> Callable:
     """FastMult_M for M = [f(dist_T(i,j))] through the plan executor.
 
-    `plan` is a `(spec, params)` pair from `ftfi.build` / `ftfi.load_plan`;
-    `backend` is "torch" or "cuda" (`plan_api.fastmult`); the field and the
-    result live on `device` (None: the CUDA card). The closure takes fields
-    with any leading batch/head axes, (..., L, c): the multiply is linear,
-    so they fold into the trailing column axis of one plan execution.
+    `plan` is an `Integrator` of backend "torch" or "cuda" or a
+    `(spec, params)` pair from `ftfi.build` / `ftfi.load_plan`: both give
+    the same closure over the same plan. `backend` is "torch" or "cuda"
+    (`plan_api.fastmult`; None: the Integrator's own, "torch" for a pair);
+    the field and the result live on `device` (None: the CUDA card). The
+    closure takes fields with any leading batch/head axes, (..., L, c): the
+    multiply is linear, so they fold into the trailing column axis of one
+    plan execution.
 
     The folded field runs through the executor `FIELD_COL_CHUNK` columns
     at a time, which bounds its temporaries on the card.
@@ -214,7 +228,8 @@ def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
     The closure is built on every call (no memo: building it touches no
     device data) and captures the coeffs, so their gradients flow through
     the leaf blocks, the Hankel mask values and the diagonal correction."""
-    spec, params = _plan_pair(plan)
+    spec, params, own = _resolve_plan_handle(plan)
+    backend = backend or own or "torch"
     dev = resolve_device(device)
     base = plan_api.fastmult(spec, mask_f(g, _coeffs(coeffs, dev), dist_scale),
                              backend=backend, device=dev)
@@ -235,14 +250,14 @@ def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
 
 def make_forest_fastmult(plan, forest, g: str, coeffs,
                          dist_scale: float = 1.0, tree_weights=None, *,
-                         backend: str = "torch", device=None) -> Callable:
+                         backend: str | None = None, device=None) -> Callable:
     """Per-graph FastMult over a packed `Forest` field (..., sum_t n_t, c).
 
-    `plan` is `ftfi.build(forest)`: its plan is block-diagonal across
-    trees, so one execution applies each graph's own mask M_t =
-    [f(dist_{T_t}(i,j))] to its own rows. `tree_weights` (K,) optionally
-    scales each tree's output block (the multiply is linear, so that equals
-    scaling its mask)."""
+    `plan` is `ftfi.build(forest)` or `Integrator.from_forest(forest)`:
+    its plan is block-diagonal across trees, so one execution applies each
+    graph's own mask M_t = [f(dist_{T_t}(i,j))] to its own rows.
+    `tree_weights` (K,) optionally scales each tree's output block (the
+    multiply is linear, so that equals scaling its mask)."""
     base = make_tree_fastmult(plan, g, coeffs, dist_scale, backend=backend,
                               device=device)
     if tree_weights is None:

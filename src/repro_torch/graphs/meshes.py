@@ -51,6 +51,39 @@ def _subdivide(verts, faces):
     return np.array(new_verts), np.array(new_faces, dtype=np.int64)
 
 
+def torus_mesh(major_n: int = 48, minor_n: int = 24, R: float = 1.0,
+               r: float = 0.35) -> tuple[np.ndarray, np.ndarray]:
+    """Parametric torus triangulation."""
+    us = np.linspace(0, 2 * np.pi, major_n, endpoint=False)
+    vs = np.linspace(0, 2 * np.pi, minor_n, endpoint=False)
+    uu, vv = np.meshgrid(us, vs, indexing="ij")
+    x = (R + r * np.cos(vv)) * np.cos(uu)
+    y = (R + r * np.cos(vv)) * np.sin(uu)
+    z = r * np.sin(vv)
+    verts = np.stack([x.ravel(), y.ravel(), z.ravel()], axis=1)
+    faces = []
+    for i in range(major_n):
+        for j in range(minor_n):
+            a = i * minor_n + j
+            b = ((i + 1) % major_n) * minor_n + j
+            c = i * minor_n + (j + 1) % minor_n
+            d = ((i + 1) % major_n) * minor_n + (j + 1) % minor_n
+            faces += [[a, b, c], [b, d, c]]
+    return verts, np.array(faces, dtype=np.int64)
+
+
+def vertex_normals(verts: np.ndarray, faces: np.ndarray) -> np.ndarray:
+    """Area-weighted vertex normals from face normals."""
+    fn = np.cross(verts[faces[:, 1]] - verts[faces[:, 0]],
+                  verts[faces[:, 2]] - verts[faces[:, 0]])
+    vn = np.zeros_like(verts)
+    for k in range(3):
+        np.add.at(vn, faces[:, k], fn)
+    norms = np.linalg.norm(vn, axis=1, keepdims=True)
+    norms[norms == 0] = 1.0
+    return vn / norms
+
+
 def mesh_graph(verts: np.ndarray, faces: np.ndarray) -> Graph:
     """Edge graph of a triangle mesh; weights = Euclidean edge lengths."""
     e = np.concatenate([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]])

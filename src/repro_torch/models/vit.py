@@ -12,10 +12,13 @@ path launches none of the port's CUDA kernels.
 `TopoViT` holds the reference's param tree with the layer axis unstacked
 (`blocks/attn/wq[l]` -> `blocks.{l}.attn.wq`), in the reference's (in,
 out) layout, so `convert.vit_from_reference` is a renaming. Blocks run in
-a Python loop. The plan backend comes from
-`attention.resolve_topo_backend`, as given. The reference's build-time
-health probe (vit.py:66-77) is ROADMAP A9b: nothing here probes or
-falls back.
+a Python loop. The grid plan runs through an `Integrator`
+(`build_grid_integrator`) on `attention.resolve_topo_backend`'s backend.
+On "cuda" its first build runs a health probe (`ladder.probe_backend`)
+with a mask of the ViT's own family, so the probe exercises the engine the
+grid will serve. A failed probe raises `DeviceRungError` on the card,
+which never leaves the backend it was given; on a CPU device it blocks the
+rung and the grid is served by "torch", as the reference's ladder demotes.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.core import plan_api
+from repro_torch.core import ladder, plan_api
+from repro_torch.core.engines import Integrator
 from repro_torch.core.lru import BoundedLRU
 from repro_torch.core.masks import (make_tree_fastmult, mask_f,
                                     masked_attention_bruteforce,
@@ -40,6 +44,7 @@ VARIANTS = ("topo", "performer")
 LEAF_SIZE = 16
 
 _GRID_PLAN_CACHE = BoundedLRU(8)
+_GRID_INTEGRATOR_CACHE = BoundedLRU(8)
 _GRID_DIST_CACHE = BoundedLRU(4)
 
 
@@ -53,12 +58,14 @@ def _grid_side(n: int) -> int:
 def install_grid_plan(spec, params, device=None) -> int:
     """Adopt a prebuilt or loaded plan (e.g. an `ftfi.load_plan` artifact,
     this package's or the reference's) as the grid plan for its side
-    length: later `build_grid_plan` calls for that (side, device) return
-    it with no IT build, whatever the backend. Returns the grid side."""
+    length: later `build_grid_plan` / `build_grid_integrator` calls for
+    that (side, device) serve it with no IT build, whatever the backend.
+    The pair enters through `Integrator.from_plan`, so it passes the plan
+    guard first. Returns the grid side."""
     side = _grid_side(spec.n)
     dev = resolve_device(device)
-    _GRID_PLAN_CACHE.put((side, str(dev)),
-                         (spec, plan_api._params_on(params, dev)))
+    integ = Integrator.from_plan(spec, params, backend="torch", device=dev)
+    _GRID_PLAN_CACHE.put((side, str(dev)), (integ.spec, integ.params))
     return side
 
 
@@ -77,6 +84,50 @@ def build_grid_plan(cfg, device=None):
                               leaf_size=LEAF_SIZE, device=dev)
         _GRID_PLAN_CACHE.put(key, plan)
     return plan
+
+
+def build_grid_integrator(cfg, backend: str | None = None, device=None):
+    """`Integrator` over the grid plan of `build_grid_plan` on `backend`
+    (`attention.resolve_topo_backend`: the explicit argument, else
+    cfg.topo_backend, else the impl's), memoized per (grid side, backend,
+    device). On "cuda" a new Integrator is probed once with a mask of the
+    ViT's family before it serves: on the card a failed probe raises
+    `ladder.DeviceRungError`; on a CPU device the rung is blocked
+    (`ladder.block_backend`) and the grid is served by "torch" from then
+    on, as the reference demotes (its host rung, the plain executor on
+    the CPU, is "torch" there)."""
+    side = _grid_side(cfg.num_prefix_embeddings)
+    dev = resolve_device(device)
+    backend = A.resolve_topo_backend(cfg, backend)
+    if dev.type == "cpu":
+        backend = ladder.effective_backend(backend)
+        backend = "torch" if backend == "host" else backend
+    elif backend in ladder.stats()["blocked"]:
+        raise ladder.DeviceRungError(
+            f"grid {side}x{side}: backend {backend!r} is blocked "
+            f"({ladder.stats()['blocked'][backend]}); on the card the ladder "
+            "does not demote")
+    spec, params = build_grid_plan(cfg, dev)
+    key = (side, backend, str(dev))
+    integ = _GRID_INTEGRATOR_CACHE.get(key)
+    if integ is not None and integ.spec is spec:
+        return integ
+    integ = Integrator.from_plan(spec, params, backend=backend, device=dev)
+    if backend == "cuda":
+        reason = ladder.probe_backend(
+            integ.spec, integ.params, backend, device=dev,
+            fn=mask_f(cfg.topo_g, [0.0, -1.0], cfg.topo_dist_scale))
+        if reason is not None:
+            if dev.type != "cpu":
+                raise ladder.DeviceRungError(
+                    f"grid {side}x{side} probe of backend {backend!r} "
+                    f"failed on the card ({reason}); the ladder demotes "
+                    "only on CPU tensors")
+            ladder.block_backend(backend, f"grid {side}x{side} probe: "
+                                 f"{reason}")
+            return build_grid_integrator(cfg, "torch", dev)
+    _GRID_INTEGRATOR_CACHE.put(key, integ)
+    return integ
 
 
 def _grid_tree_distances(side: int) -> np.ndarray:
@@ -220,8 +271,9 @@ def forward(cfg, model, patches, plan=None, *, backend: str | None = None,
             device=None):
     """patches (B, L, patch_dim), numpy or tensor -> logits
     (B, num_classes), on `device` (None: the CUDA card), where the model
-    must already live. `plan` is the grid plan (default `build_grid_plan`),
-    run on `attention.resolve_topo_backend`'s backend; the "ref" impl and
+    must already live. `plan` is the grid plan, a (spec, params) pair or an
+    Integrator (default `build_grid_integrator`, probed on "cuda"), run on
+    `attention.resolve_topo_backend`'s backend; the "ref" impl and
     the "performer" variant need none. Differentiable: serving wraps it in
     `torch.no_grad()`. `cfg.topo_shard_plan` under a process group of more
     than one rank raises: the sharded plan executor is ROADMAP A12."""
@@ -242,7 +294,8 @@ def forward(cfg, model, patches, plan=None, *, backend: str | None = None,
     topo = cfg.attention_variant == "topo"
     backend = A.resolve_topo_backend(cfg, backend)
     if topo and cfg.topo_attn_impl != "ref" and plan is None:
-        plan = build_grid_plan(cfg, dev)
+        plan = build_grid_integrator(cfg, backend, dev)
+        backend = plan.backend
     x = torch.as_tensor(patches, device=dev).to(dtype_of(cfg))
     x = x @ model.patch_proj.kernel
     x = x + model.patch_proj.bias + model.pos_embed[None]
