@@ -113,6 +113,21 @@ method's best cosine within 1e-4 of the host's, and BTFI on the MST; 5h
 times preprocessing and one integrate on each backend against BTFI, and
 the facade against a bare `ftfi.apply`.
 
+The DeepSeek family and three dense configs (slice 12): 3c holds the flash
+attention kernel at MLA's head dims (q/k 192, v 128) and Gemma-7B's 256
+(the served layers, L = 4096, and L = 1000, against the dense oracle
+there) and at Qwen2's and Granite's GQA/MQA, f32 and bf16, against its
+plain version; 4b gates, in float32 at full width and 2 layers, "cuda"
+against "chunked" for DeepSeek-V2-Lite (2 requests, the MoE routing of
+both runs equal first) and for Qwen2-1.5B, Gemma-7B and Granite-34B; 4f
+gates DeepSeek-V3's `loss_fn` with MTP and its grads (2 layers, 16
+experts); 5b serves DeepSeek-V2-Lite-16B (27 layers, 29.3 GiB in bf16) and
+Gemma-7B at full depth on slice 2's requests (one B5 launch a layer in the
+prefill, none in decode), profiles V2-Lite's MoE and MLA stages, reads its
+routing at depth (the share dropped at capacity, "cuda" against
+"chunked"), and times B5 at both new shapes beside
+`scaled_dot_product_attention`.
+
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
 
@@ -851,23 +866,28 @@ def phase_topo_kernel_vs_plain(device):
     return rows, served
 
 
-def _prompts(cfg):
+def _prompts(cfg, req=None):
+    """The requests of `req` (TOPO's by default: "lengths", padded to
+    "Lp"): seeded tokens, zeros past each length."""
+    req = req or TOPO
     rng = np.random.default_rng(TOPO["seed"])
-    lengths = np.array(TOPO["lengths"], np.int32)
-    toks = rng.integers(0, cfg.vocab_size, (len(lengths), TOPO["Lp"]))
-    toks[np.arange(TOPO["Lp"])[None, :] >= lengths[:, None]] = 0
+    lengths = np.array(req["lengths"], np.int32)
+    toks = rng.integers(0, cfg.vocab_size, (len(lengths), req["Lp"]))
+    toks[np.arange(req["Lp"])[None, :] >= lengths[:, None]] = 0
     return toks.astype(np.int32), lengths
 
 
-def _serve(cfg, model, toks, lengths, steps, device, ops, feed=None):
+def _serve(cfg, model, toks, lengths, steps, device, ops, feed=None,
+           S=None):
     """prefill_into_cache, then `steps` decode steps at per-slot positions:
-    greedy, or the tokens of `feed` (another run's) when given. Returns
-    (prefill logits, prefill cache, step logits, fed tokens, launches of
-    the kernel that `ops` counts in the prefill, and in the decode)."""
+    greedy, or the tokens of `feed` (another run's) when given, with a
+    cache of S positions (TOPO's by default). Returns (prefill logits,
+    prefill cache, step logits, fed tokens, launches of the kernel that
+    `ops` counts in the prefill, and in the decode)."""
     import torch
     from repro_torch.models import api
 
-    S = TOPO["S"]
+    S = S or TOPO["S"]
     cache = api.init_cache(cfg, len(lengths), S, device=device)
     before = ops.LAUNCHES
     logits, cache = api.prefill_into_cache(cfg, model, cache, toks, lengths,
@@ -895,7 +915,7 @@ def _check_served(cfg, logits, step_logits, fed):
     import torch
 
     V = cfg.padded_vocab()
-    B = len(TOPO["lengths"])
+    B = logits.shape[0]
     if logits.shape != (B, V) or not bool(torch.isfinite(logits).all()):
         raise AssertionError(f"prefill logits {tuple(logits.shape)}")
     for lg in step_logits:
@@ -906,58 +926,99 @@ def _check_served(cfg, logits, step_logits, fed):
         raise AssertionError("a greedy token fell outside the vocabulary")
 
 
-def phase_gate(label, cfg, plain_cfg, ops, device):
+def _routing(trace) -> list:
+    """(expert ids, kept mask) of each dispatch `moe.TRACE` recorded."""
+    return [(r["expert_ids"], r["keep"]) for r in trace]
+
+
+def routing_diff(a: list, b: list) -> int:
+    """How many (token, k) assignments differ between two runs' routings,
+    in the expert chosen or in being kept."""
+    if len(a) != len(b):
+        raise AssertionError(f"{len(a)} dispatches against {len(b)}")
+    return sum(int(((ea != eb) | (ka != kb)).sum())
+               for (ea, ka), (eb, kb) in zip(a, b))
+
+
+def phase_gate(label, cfg, plain_cfg, ops, device, req=None):
     """4b/4c gate: float32 (TF32 off), the same weights served through the
     kernel (`cfg`) and through its plain version (`plain_cfg`): prefill
-    logits, cache and the first decode steps agree; one kernel launch per
-    layer in the prefill, none in decode and none on the plain run; decode
-    vs prefill of the extended prompt is printed, not gated."""
+    logits, cache (every segment) and the first decode steps agree; one
+    kernel launch per layer in the prefill, none in decode and none on the
+    plain run; decode vs prefill of the extended prompt is printed, not
+    gated. `req` takes other requests than TOPO's ("lengths", "Lp", "S").
+    With MoE layers the gate first holds the routing: each MoE layer's
+    expert ids and kept mask in the prefill must be equal between the two
+    runs; differing assignments are counted (decode's too, printed)."""
     import torch
     from repro_torch.models import api
+    from repro_torch.models import moe
 
+    req = req or TOPO
+    S = req["S"]
     model = api.init_params(cfg, TOPO["seed"], device=device)
-    toks, lengths = _prompts(cfg)
+    toks, lengths = _prompts(cfg, req)
     n = TOPO["gate_steps"]
-    got = _serve(cfg, model, toks, lengths, max(n, 2), device, ops)
+    n_moe = sum(1 for blk in model.blocks if hasattr(blk, "moe"))
+
+    def traced(c, steps, feed=None):
+        moe.TRACE = []
+        try:
+            return (_serve(c, model, toks, lengths, steps, device, ops,
+                           feed=feed, S=S), _routing(moe.TRACE))
+        finally:
+            moe.TRACE = None
+
+    got, r_got = traced(cfg, max(n, 2))
+    want, r_want = traced(plain_cfg, n, got[3])
     if got[4] != cfg.num_layers or got[5] != 0:
         raise AssertionError(f"{label} float32: {got[4]} kernel launches in "
                              f"the prefill for {cfg.num_layers} layers, "
                              f"{got[5]} in decode")
-    want = _serve(plain_cfg, model, toks, lengths, n, device, ops,
-                  feed=got[3])
     if want[4] or want[5]:
         raise AssertionError(f"{label}: the plain run launched the kernel")
+    route_pre = routing_diff(r_got[:n_moe], r_want[:n_moe])
+    route_dec = routing_diff(r_got[n_moe:n_moe * (n + 1)], r_want[n_moe:])
     _check_served(cfg, got[0], got[2], got[3])
     e_logits = rel_err(got[0], want[0])
-    e_cache = max(rel_err(got[1]["blocks0"][k], want[1]["blocks0"][k])
-                  for k in got[1]["blocks0"])
-    # the cache error of each layer, relative to the whole cache's max (the
+    leaves = [(seg, k) for seg in want[1] for k in want[1][seg]]
+    e_cache = max(rel_err(got[1][seg][k], want[1][seg][k])
+                  for seg, k in leaves)
+    # the cache error of each layer, relative to the whole leaf's max (the
     # gated measure): how the difference grows with depth
-    top = {k: float(t.abs().max()) for k, t in want[1]["blocks0"].items()}
-    by_layer = [max(float((got[1]["blocks0"][k][i].double()
-                           - want[1]["blocks0"][k][i].double()).abs().max())
-                    / max(top[k], 1e-30) for k in top)
-                for i in range(cfg.num_layers)]
+    by_layer = []
+    for seg in want[1]:
+        top = {k: float(t.abs().max()) for k, t in want[1][seg].items()}
+        by_layer += [max(float((got[1][seg][k][i].double()
+                                - want[1][seg][k][i].double()).abs().max())
+                         / max(top[k], 1e-30) for k in top)
+                     for i in range(next(iter(want[1][seg].values()))
+                                    .shape[0])]
     e_steps = [rel_err(a, b) for a, b in zip(got[2][:n], want[2])]
-    ok = (e_logits <= LOGIT_TOL and e_cache <= CACHE_TOL
+    ok = (route_pre == 0 and e_logits <= LOGIT_TOL and e_cache <= CACHE_TOL
           and max(e_steps) <= LOGIT_TOL)
     # decode vs prefill of the prompt extended by the fed tokens
-    ext = np.zeros((len(lengths), TOPO["Lp"] + 2), np.int32)
-    ext[:, :TOPO["Lp"]] = toks
+    ext = np.zeros((len(lengths), req["Lp"] + 2), np.int32)
+    ext[:, :req["Lp"]] = toks
     rows = np.arange(len(lengths))
     for k in (0, 1):
         ext[rows, lengths + k] = got[3][k][:, 0].cpu().numpy()
     e_dp = []
     for k in (1, 2):
-        cache = api.init_cache(cfg, len(lengths), TOPO["S"], device=device)
+        cache = api.init_cache(cfg, len(lengths), S, device=device)
         lg, _ = api.prefill_into_cache(cfg, model, cache, ext, lengths + k,
-                                       TOPO["S"], device=device)
+                                       S, device=device)
         e_dp.append(rel_err(got[2][k - 1][:, 0], lg))
     print(f"[{label} gate] float32, matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}, depth {cfg.num_layers} "
-          f"of {cfg.num_layers} layers, width {cfg.d_model}: kernel vs plain "
+          f"of {cfg.num_layers} layers, width {cfg.d_model}, requests "
+          f"{tuple(req['lengths'])} (S={S}): "
+          + (f"routing of {n_moe} MoE layers: {route_pre} assignments differ "
+             f"in the prefill (= 0), {route_dec} in decode; "
+             if n_moe else "") +
+          f"kernel vs plain "
           f"prefill logits {e_logits:.2e} (< {LOGIT_TOL}), cache "
-          f"{'/'.join(got[1]['blocks0'])} {e_cache:.2e} (< {CACHE_TOL}), "
+          f"{'/'.join(k for _, k in leaves)} {e_cache:.2e} (< {CACHE_TOL}), "
           f"decode steps 1-{n} {max(e_steps):.2e} (< {LOGIT_TOL}); {got[4]} "
           f"launches in the prefill, {got[5]} in decode | not gated: decode "
           f"vs prefill of the extended prompt {e_dp[0]:.2e}, {e_dp[1]:.2e}; "
@@ -967,22 +1028,28 @@ def phase_gate(label, cfg, plain_cfg, ops, device):
     if not ok:
         raise AssertionError(f"{label}: the kernel and plain paths disagree")
     return {"label": label, "dtype": "float32", "layers": cfg.num_layers,
+            "requests": list(req["lengths"]), "S": S,
+            "routing_diff_prefill": route_pre,
+            "routing_diff_decode": route_dec,
             "rel_err_prefill_logits": e_logits, "rel_err_cache": e_cache,
             "rel_err_decode": e_steps, "rel_err_cache_by_layer": by_layer,
             "launches_per_prefill": got[4],
             "launches_in_decode": got[5], "decode_vs_prefill": e_dp}
 
 
-def phase_serve(label, cfg, ops, device, card):
+def phase_serve(label, cfg, ops, device, card, scopes=()):
     """4b/4c main path + 5b/5c times at the config's dtype (bf16): 4
     requests, prefill_into_cache then 32 greedy decode steps, with the
     kernel count from 0 just before and read just after; then prefill and
-    decode times and the profiles of one prefill and one decode step."""
+    decode times, the peak device memory of the served run, and the
+    profiles of one prefill and one decode step (with `scopes`' device
+    ms)."""
     import torch
     from repro_torch.models import api
 
     model = api.init_params(cfg, TOPO["seed"], device=device)
     toks, lengths = _prompts(cfg)
+    torch.cuda.reset_peak_memory_stats()
     ops.LAUNCHES = 0
     by_mode = getattr(ops, "LAUNCHES_BY_MODE", {})
     for mode in by_mode:
@@ -991,6 +1058,7 @@ def phase_serve(label, cfg, ops, device, card):
     logits, cache, step_logits, fed, _, _ = _serve(
         cfg, model, toks, lengths, TOPO["steps"], device, ops)
     serve_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = ops.LAUNCHES
     launches_by_mode = dict(by_mode)
     if launches != cfg.num_layers:
@@ -1013,7 +1081,8 @@ def phase_serve(label, cfg, ops, device, card):
            "decode_ms_per_step": dec_ms,
            "decode_tokens_per_s": B / (dec_ms / 1e3),
            "tokens": torch.cat(fed, 1)[:, :8].cpu().tolist(),
-           "params": api.param_count(model), "card": card}
+           "params": api.param_count(model), "peak_gib": peak_gib,
+           "card": card}
     kind = (cfg.attention_variant if cfg.family == "dense"
             else cfg.family)
     print(f"[{label} serve] {cfg.name} {kind}, {cfg.dtype}, "
@@ -1022,23 +1091,26 @@ def phase_serve(label, cfg, ops, device, card):
           f"greedy steps in {serve_s:.2f} s, {launches} kernel launches | "
           f"prefill {pre_ms:.1f} ms ({out['prefill_tokens_per_s']:.0f} "
           f"tok/s), decode {dec_ms:.2f} ms/step "
-          f"({out['decode_tokens_per_s']:.0f} tok/s) | {card}", flush=True)
+          f"({out['decode_tokens_per_s']:.0f} tok/s), peak "
+          f"{peak_gib:.2f} GiB | {card}", flush=True)
     out["profile_prefill"] = phase_calls_profile(
         f"{label} prefill", lambda: api.prefill_into_cache(
             cfg, model, api.init_cache(cfg, B, S, device=device), toks,
-            lengths, S, device=device))
+            lengths, S, device=device), scopes=scopes)
     out["profile_decode"] = phase_calls_profile(
         f"{label} decode step", lambda: api.decode_fn(
-            cfg, model, cache, tok, pos, S, device=device), calls=4)
+            cfg, model, cache, tok, pos, S, device=device), calls=4,
+        scopes=scopes)
     return out
 
 
-def phase_calls_profile(label, fn, calls=1, kinds=None):
+def phase_calls_profile(label, fn, calls=1, kinds=None, scopes=()):
     """torch.profiler over `calls` calls of fn(): device busy share of the
     window and the top device ops with their share of device time (per
     call); with `kinds` ({kind: substrings of op names}), also the device
     ms of every op by kind (the first kind that matches; "other" for
-    none)."""
+    none); with `scopes` (names of `record_function` ranges or aten ops),
+    the device ms each one's kernels took, per call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1053,7 +1125,11 @@ def phase_calls_profile(label, fn, calls=1, kinds=None):
     ops_ = []
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0)
-        if ev.device_type == torch.autograd.DeviceType.CUDA and us > 0:
+        # a record_function range shows on the device too, as the span of
+        # its kernels: not an op of its own
+        if (ev.device_type == torch.autograd.DeviceType.CUDA and us > 0
+                and not getattr(ev, "is_user_annotation", False)
+                and ev.key not in scopes):
             ops_.append({"name": ev.key[:90], "ms": us / 1e3 / calls,
                          "calls": ev.count / calls})
     ops_.sort(key=lambda k: -k["ms"])
@@ -1069,11 +1145,21 @@ def phase_calls_profile(label, fn, calls=1, kinds=None):
             kind = next((k for k, subs in kinds.items()
                          if any(x in o["name"] for x in subs)), "other")
             out["kinds"][kind] += o["ms"]
+    if scopes:
+        out["scopes"] = {name: 0.0 for name in scopes}
+        for ev in prof.key_averages():
+            if ev.key in out["scopes"] and ev.device_type != \
+                    torch.autograd.DeviceType.CUDA:
+                out["scopes"][ev.key] += (getattr(ev, "device_time_total", 0)
+                                          / 1e3 / calls)
     print(f"[profile {label}] wall {wall_ms:.2f} ms per call under the "
           f"profiler, device {dev_ms:.2f} ms, busy share {out['busy']:.2f}, "
           f"{out['launches']:.0f} device ops; top: " + "; ".join(
               f"{k['name'][:38]} {k['ms']:.2f} ms ({k['share']:.0%}) "
-              f"x{k['calls']:g}" for k in ops_[:6]), flush=True)
+              f"x{k['calls']:g}" for k in ops_[:6]) + (
+              "; by scope: " + ", ".join(f"{k} {v:.2f} ms" for k, v in
+                                         out["scopes"].items())
+              if scopes else ""), flush=True)
     return out
 
 
@@ -1174,13 +1260,15 @@ def _kernel_ops(variant: str):
     return flash_ops if variant == "full" else linear_ops
 
 
-def flash_work(B, H, KV, L, hd, causal, nbytes_el):
+def flash_work(B, H, KV, L, hd, causal, nbytes_el, vd=None):
     """(bytes, operations) of one call: q, k, v and out each moved once;
-    q k^T and P v over the (query, key) pairs the mask keeps (4 hd
-    operations a pair; the softmax's exps not counted)."""
+    q k^T and P v over the (query, key) pairs the mask keeps (2 hd + 2 vd
+    operations a pair, v's head dim vd = hd unless given; the softmax's
+    exps not counted)."""
+    vd = vd or hd
     pairs = L * (L + 1) // 2 if causal else L * L
-    nbytes = nbytes_el * (2 * B * H * L * hd + 2 * B * KV * L * hd)
-    return nbytes, B * H * pairs * 4 * hd
+    nbytes = nbytes_el * (B * H * L * (hd + vd) + B * KV * L * (hd + vd))
+    return nbytes, B * H * pairs * 2 * (hd + vd)
 
 
 def linear_work(B, H, L, m, hd, v_bytes):
@@ -2231,7 +2319,8 @@ def _grad_errors(got: dict, want: dict):
     return errs, own
 
 
-def phase_train_gate(label, cfg, plain_cfg, ops, device, floor_cfg=None):
+def phase_train_gate(label, cfg, plain_cfg, ops, device, floor_cfg=None,
+                     batch=None, seq=None):
     """4f: float32 (TF32 off), one `api.loss_fn` + backward through the
     kernels (`cfg`) and through the plain versions (`plain_cfg`) from the
     same weights and batch: the loss within TRAIN_LOSS_TOL relative, each
@@ -2249,15 +2338,19 @@ def phase_train_gate(label, cfg, plain_cfg, ops, device, floor_cfg=None):
     forwards give grads that differ by far more than rounding (on an H100
     the plain sweep against the dense oracle reads 3.5e-3; PERF.md). At
     one layer both paths feed the relu the same bits, and the caller
-    holds the relu grads there at TRAIN_GRAD_TOL."""
+    holds the relu grads there at TRAIN_GRAD_TOL.
+
+    `batch` and `seq` replace TRAIN's gate batch. A model with the MTP
+    head launches one kernel more a forward (the MTP block's attention,
+    not recomputed by the remat)."""
     import torch
     from repro_torch.data.synthetic import SyntheticLMStream
     from repro_torch.models import api, lm
 
+    batch, seq = batch or TRAIN["gate_batch"], seq or TRAIN["gate_seq"]
     model = api.init_params(cfg, TRAIN["seed"], device=device)
-    toks = SyntheticLMStream(cfg.vocab_size, TRAIN["gate_batch"],
-                             TRAIN["gate_seq"], seed=TRAIN["seed"]).batch_at(
-        0)["tokens"]
+    toks = SyntheticLMStream(cfg.vocab_size, batch, seq,
+                             seed=TRAIN["seed"]).batch_at(0)["tokens"]
 
     def loss_and_grads(c):
         before = ops.LAUNCHES
@@ -2277,10 +2370,11 @@ def phase_train_gate(label, cfg, plain_cfg, ops, device, floor_cfg=None):
     plain_s = time.perf_counter() - t0
     n = cfg.num_layers
     remat = lm._remat(cfg)
-    if (fwd_k, bwd_k, fwd_p, bwd_p) != (n, n if remat else 0, 0, 0):
+    n_fwd = n + (1 if cfg.mtp_depth > 0 else 0)
+    if (fwd_k, bwd_k, fwd_p, bwd_p) != (n_fwd, n if remat else 0, 0, 0):
         raise AssertionError(f"{label}: launches forward {fwd_k}, backward "
-                             f"{bwd_k} (expected {n}, {n if remat else 0}); "
-                             f"plain {fwd_p}, {bwd_p}")
+                             f"{bwd_k} (expected {n_fwd}, "
+                             f"{n if remat else 0}); plain {fwd_p}, {bwd_p}")
     errs, own = _grad_errors(got, want)
     del got
     worst = max(errs, key=errs.get)
@@ -2304,7 +2398,7 @@ def phase_train_gate(label, cfg, plain_cfg, ops, device, floor_cfg=None):
     phi = f"phi {cfg.performer_phi}, " if uses_phi else ""
     print(f"[{label} train gate] float32, {phi}matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}, {n} layers, width "
-          f"{cfg.d_model}, B={TRAIN['gate_batch']} L={TRAIN['gate_seq']}, "
+          f"{cfg.d_model}, B={batch} L={seq}, "
           f"remat {remat}: loss {loss_k:.6f} vs {loss_p:.6f}, rel "
           f"{e_loss:.2e} (< {TRAIN_LOSS_TOL}); grads worst {errs[worst]:.2e}"
           f" ({worst}) of the leaf's max (< {grad_tol:.2e}" + (
@@ -3642,6 +3736,327 @@ def phase_facade_times(cfg, device, card):
             "total_preprocessing_s": total_pre, "rows": rows}
 
 
+# ----------------------------------------------------------------------------
+# slice 12: the DeepSeek family (MoE + MLA) and three dense configs through
+# the flash attention kernel at head dims (192, 128) and 256
+# ----------------------------------------------------------------------------
+
+# DeepSeek-V2-Lite-16B at full width (d_model 2048, 16 heads, MLA kv_lora
+# 512, nope/rope/v 128/64/128, 64 routed experts top-6 + 2 shared, expert
+# d_ff 1408, vocab 102,400) and depth (27 layers, the first dense) served in
+# bf16 with Gemma-7B (head_dim 256) beside it, on the requests of slice 2;
+# the float32 gates at 2 layers: V2-Lite on two requests (routing is
+# discontinuous: few tokens keep the expected near-tie flips under one),
+# Qwen2-1.5B, Gemma-7B and Granite-34B on slice 2's; DeepSeek-V3's
+# training gate at full width, cut to 2 layers and 16 experts
+DEEPSEEK = {"serve_archs": ("deepseek_v2_lite_16b", "gemma_7b"),
+            "dense_archs": ("qwen2_1_5b", "gemma_7b", "granite_34b"),
+            "gate_layers": 2,
+            "moe_gate": {"lengths": (1024, 517), "Lp": 1024, "S": 1056},
+            "train_arch": "deepseek_v3_671b", "train_layers": 2,
+            "train_first_dense": 1, "train_experts": 16, "train_batch": 2,
+            "train_seq": 1024,
+            # 3c at the new head dims, (B, H, KV, L, hd, vd): the served
+            # MLA and Gemma layers, both at a ragged L, and Qwen2's GQA
+            # 12/2 and Granite's MQA 48/1 at hd 128
+            "flash_shapes": [(4, 16, 16, 4096, 192, 128),
+                             (4, 16, 16, 4096, 256, 256),
+                             (4, 16, 16, 1000, 192, 128),
+                             (4, 16, 16, 1000, 256, 256),
+                             (4, 12, 2, 1000, 128, 128),
+                             (4, 48, 1, 1000, 128, 128)]}
+# record_function ranges of the MoE and MLA layers (models/moe.py,
+# models/attention.py) whose device time the V2-Lite profiles report
+MOE_SCOPES = ("moe.router", "moe.dispatch", "moe.experts", "moe.combine",
+              "moe.shared", "mla.proj", "mla.absorbed")
+
+
+def _wide_cfg(arch, impl="cuda", dtype=None, **kw):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(arch, attn_impl=impl, **kw)
+    return cfg.replace(dtype=dtype) if dtype else cfg
+
+
+def phase_flash_wide_vs_plain(device):
+    """3c at the new head dims: the flash attention kernel at MLA's (192,
+    128) and Gemma's 256 (the served layers, L = 4096, and a ragged L =
+    1000) and at Qwen2's and Granite's GQA/MQA at hd 128, causal and not,
+    f32 and bf16, against its plain version and, at L <= 1024, the dense
+    oracle; peaked logits (q x 4) in bf16 at the served shapes. 3c's
+    bounds."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    rng = np.random.default_rng(23)
+    rows, served = [], {}
+    for B, H, KV, L, hd, vd in DEEPSEEK["flash_shapes"]:
+        base = [torch.tensor(rng.normal(size=(B, n, L, d)),
+                             dtype=torch.float32, device=device)
+                for n, d in ((H, hd), (KV, hd), (KV, vd))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in base)
+            for causal in (True, False):
+                got = flash_ops.flash_attention(q, k, v, causal)
+                plain = flash_ops.flash_attention(q, k, v, causal,
+                                                  use_kernel=False)
+                torch.cuda.synchronize()
+                if got.shape != (B, H, L, vd) or got.dtype != dtype or not (
+                        bool(torch.isfinite(got.float()).all())):
+                    raise AssertionError(f"flash kernel: bad output "
+                                         f"{tuple(got.shape)} {got.dtype}")
+                want = {"plain": plain}
+                if L <= 1024:
+                    G = H // KV
+                    want["ref"] = attention_ref(
+                        q, k.repeat_interleave(G, 1),
+                        v.repeat_interleave(G, 1), causal)
+                row = {"kernel": "flash_attention",
+                       "shape": (B, H, KV, L, hd, vd),
+                       "dtype": str(dtype).split(".")[1], "causal": causal,
+                       "abs_err": float((got.float() - plain.float()).abs()
+                                        .max()), "abs_err_ref": None}
+                if "ref" in want:
+                    row["abs_err_ref"] = float(
+                        (got.float() - want["ref"].float()).abs().max())
+                if dtype == torch.float32:
+                    ok = all(float((got - w).abs().max()) <= FLASH_TOL
+                             for w in want.values())
+                else:
+                    row["bf16_roundings"] = max(bf16_roundings(got, w)
+                                                for w in want.values())
+                    ok = row["bf16_roundings"] <= 1.0
+                if not ok:
+                    raise AssertionError(f"flash kernel {row} (bound "
+                                         f"{FLASH_TOL} in float32, one bf16 "
+                                         "rounding in bfloat16)")
+                rows.append(row)
+            if (B, H, KV, L, hd, vd) in DEEPSEEK["flash_shapes"][:2]:
+                served[(hd, vd, row["dtype"])] = (q, k, v)
+            del q, k, v
+        del base
+    for B, H, KV, L, hd, vd in DEEPSEEK["flash_shapes"][:2]:
+        q = torch.tensor(rng.normal(size=(B, H, L, hd)) * 4.0,
+                         dtype=torch.bfloat16, device=device)
+        k, v = (torch.tensor(rng.normal(size=(B, KV, L, d)),
+                             dtype=torch.bfloat16, device=device)
+                for d in (hd, vd))
+        for causal in (True, False):
+            got = flash_ops.flash_attention(q, k, v, causal)
+            plain = flash_ops.flash_attention(q, k, v, causal,
+                                              use_kernel=False)
+            torch.cuda.synchronize()
+            row = {"kernel": "flash_attention",
+                   "shape": (B, H, KV, L, hd, vd), "dtype": "bfloat16",
+                   "causal": causal, "peaked": True,
+                   "abs_err": float((got.float() - plain.float()).abs()
+                                    .max()),
+                   "abs_err_ref": None,
+                   "bf16_roundings": bf16_roundings(got, plain)}
+            if not (bool(torch.isfinite(got.float()).all())
+                    and row["bf16_roundings"] <= 1.0):
+                raise AssertionError(f"flash kernel, peaked logits: {row} "
+                                     "(bound one bf16 rounding)")
+            rows.append(row)
+        del q, k, v
+    f32 = max(r["abs_err"] for r in rows if r["dtype"] == "float32")
+    vs_ref = max(r["abs_err_ref"] for r in rows
+                 if r["abs_err_ref"] is not None and r["dtype"] == "float32")
+    roundings = max(r["bf16_roundings"] for r in rows
+                    if r["dtype"] == "bfloat16" and not r.get("peaked"))
+    peaked = max(r["bf16_roundings"] for r in rows if r.get("peaked"))
+    print(f"[flash wide vs plain] {len(rows)} checks (B, H, KV, L, hd, vd) "
+          f"in {DEEPSEEK['flash_shapes']}, causal and not, f32/bf16 | worst "
+          f"abs err f32 {f32:.2e} (< {FLASH_TOL}), vs the dense oracle at L "
+          f"<= 1024 {vs_ref:.2e}; bf16 {roundings:.3f} of one bf16 rounding "
+          f"(<= 1), peaked logits (q x 4) {peaked:.3f}", flush=True)
+    return rows, served
+
+
+def _sdpa_backend(q, k, v, causal) -> str:
+    """The backend `scaled_dot_product_attention` picks for these inputs:
+    the choice its own dispatcher makes (`torch._fused_sdp_choice`)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0,
+                                              causal)).name
+
+
+def phase_flash_wide_times(served, card):
+    """5c at the new head dims: one launch's device time at the served MLA
+    and Gemma layers (bf16 causal, the main path's launch; bf16 full and
+    f32 causal beside it), its bound, the plain version's time and one
+    `scaled_dot_product_attention` call on the same inputs (a yardstick,
+    never on the path; the kernel it ran is named)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    reps = TOPO["reps"]
+    out = {}
+    for B, H, KV, L, hd, vd in DEEPSEEK["flash_shapes"][:2]:
+        for dtype, causal in (("bfloat16", True), ("bfloat16", False),
+                              ("float32", True)):
+            q, k, v = served[(hd, vd, dtype)]
+            k_ms = device_ms(lambda: flash_ops.flash_attention(q, k, v,
+                                                               causal), reps)
+            p_ms = device_ms(lambda: flash_ops.flash_attention(
+                q, k, v, causal, use_kernel=False), 2)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+
+            l_ms = device_ms(sdpa, reps)
+            backend = _sdpa_backend(q, k, v, causal)
+            nbytes, ops_ = flash_work(B, H, KV, L, hd, causal,
+                                      q.element_size(), vd)
+            b_ms, b_by = bound(nbytes, ops_, BF16_FLOPS_PER_S
+                               if dtype == "bfloat16" else FP32_FLOPS_PER_S)
+            key = f"flash_{hd}_{vd}_{'causal' if causal else 'full'}_{dtype}"
+            out[key] = {"shape": (B, H, KV, L, hd, vd), "dtype": dtype,
+                        "causal": causal, "ms": k_ms, "plain_ms": p_ms,
+                        "library_ms": l_ms, "library_backend": backend,
+                        "bytes": nbytes, "ops": ops_, "bound_ms": b_ms,
+                        "bound_by": b_by}
+            print(f"[attn times flash {'causal' if causal else 'full'} "
+                  f"{dtype}] B={B} H={H} KV={KV} L={L} hd={hd} vd={vd}: "
+                  f"kernel {k_ms:.3f} ms/launch, plain {p_ms:.3f} ms, sdpa "
+                  f"{l_ms:.3f} ms ({backend}), bound {b_ms:.3f} ms "
+                  f"({b_by}; {b_ms / k_ms:.0%} of it reached) | {card}",
+                  flush=True)
+    return out
+
+
+def phase_moe_routing(cfg, device):
+    """The served V2-Lite's routing at full depth, bf16: one prefill on
+    "cuda" and one on "chunked" (the plain B5) from the same weights with
+    `moe.TRACE` on: the share of (token, expert) assignments dropped at
+    capacity, by layer and over all, and how many assignments the two
+    runs route differently. Printed, not gated."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.models import moe
+
+    model = api.init_params(cfg, TOPO["seed"], device=device)
+    toks, lengths = _prompts(cfg)
+    S, B = TOPO["S"], len(lengths)
+    routes = {}
+    for impl in ("cuda", "chunked"):
+        c = cfg.replace(attn_impl=impl)
+        moe.TRACE = []
+        try:
+            api.prefill_into_cache(c, model, api.init_cache(c, B, S,
+                                                            device=device),
+                                   toks, lengths, S, device=device)
+            routes[impl] = moe.TRACE
+        finally:
+            moe.TRACE = None
+    torch.cuda.synchronize()
+    recs = routes["cuda"]
+    dropped = [float((~r["keep"]).float().mean()) for r in recs]
+    # the padding's share: T counts every padded position, as the
+    # reference's does
+    real = torch.as_tensor(np.arange(TOPO["Lp"])[None, :] < lengths[:, None],
+                           device=device).reshape(-1)
+    dropped_real = [float((~r["keep"][real]).float().mean()) for r in recs]
+    diff = routing_diff(_routing(routes["cuda"]), _routing(routes["chunked"]))
+    n_assign = sum(r["keep"].numel() for r in recs)
+    out = {"layers": len(recs), "C": recs[0]["C"],
+           "tokens": int(recs[0]["keep"].shape[0]),
+           "dropped_share": float(np.mean(dropped)),
+           "dropped_share_by_layer": dropped,
+           "dropped_share_real_tokens": float(np.mean(dropped_real)),
+           "routing_diff_cuda_vs_chunked": diff,
+           "assignments": n_assign}
+    print(f"[deepseek-v2-lite routing] bf16, {len(recs)} MoE layers, T = "
+          f"{out['tokens']} (padding included), C = {out['C']}: dropped at "
+          f"capacity {out['dropped_share']:.4%} of assignments (layers "
+          f"{min(dropped):.4%}-{max(dropped):.4%}; real tokens "
+          f"{out['dropped_share_real_tokens']:.4%}) | not gated: \"cuda\" vs "
+          f"\"chunked\" route {diff} of {n_assign} assignments differently",
+          flush=True)
+    return out
+
+
+def phase_deepseek(card, device):
+    """Slice 12's phases: 3c at the new head dims, the float32 gates (4b:
+    V2-Lite with its routing, the three dense configs), the V3 training
+    gate (4f), then V2-Lite and Gemma-7B served at full depth in bf16 (5b,
+    each the path whose B5 launches the kernels line counts), V2-Lite's
+    routing at depth, and 5c's times. Returns (record, kernels rows)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    checks, served = phase_flash_wide_vs_plain(device)
+    gates = [phase_gate(
+        "deepseek-v2-lite", _wide_cfg("deepseek_v2_lite_16b", "cuda",
+                                      "float32",
+                                      num_layers=DEEPSEEK["gate_layers"]),
+        _wide_cfg("deepseek_v2_lite_16b", "chunked", "float32",
+                  num_layers=DEEPSEEK["gate_layers"]), flash_ops, device,
+        req=DEEPSEEK["moe_gate"])]
+    torch.cuda.empty_cache()
+    for arch in DEEPSEEK["dense_archs"]:
+        cfg = _wide_cfg(arch, "cuda", "float32",
+                        num_layers=DEEPSEEK["gate_layers"])
+        gates.append(phase_gate(arch, cfg, cfg.replace(attn_impl="chunked"),
+                                flash_ops, device))
+        torch.cuda.empty_cache()
+    cfg = _wide_cfg(DEEPSEEK["train_arch"], "cuda", "float32",
+                    num_layers=DEEPSEEK["train_layers"],
+                    first_dense_layers=DEEPSEEK["train_first_dense"],
+                    num_experts=DEEPSEEK["train_experts"])
+    train_gate = phase_train_gate(
+        "deepseek-v3 (mtp)", cfg, cfg.replace(attn_impl="chunked"),
+        flash_ops, device, batch=DEEPSEEK["train_batch"],
+        seq=DEEPSEEK["train_seq"])
+    torch.cuda.empty_cache()
+    serves = {}
+    for arch in DEEPSEEK["serve_archs"]:  # each path counts from zero
+        cfg = _wide_cfg(arch)
+        serves[arch] = phase_serve(arch, cfg, flash_ops, device, card,
+                                   scopes=MOE_SCOPES if cfg.moe else ())
+        if serves[arch]["launches_by_mode"] != {"causal": cfg.num_layers,
+                                                "full": 0}:
+            raise AssertionError(f"{arch}: B5 launches by mode "
+                                 f"{serves[arch]['launches_by_mode']}")
+        torch.cuda.empty_cache()
+    routing = phase_moe_routing(_wide_cfg("deepseek_v2_lite_16b"), device)
+    torch.cuda.empty_cache()
+    times = phase_flash_wide_times(served, card)
+    del served
+    torch.cuda.empty_cache()
+    kernels = []
+    for arch, (B, H, KV, L, hd, vd) in zip(DEEPSEEK["serve_archs"],
+                                           DEEPSEEK["flash_shapes"]):
+        t = times[f"flash_{hd}_{vd}_causal_bfloat16"]
+        errs = [r["abs_err"] for r in checks
+                if r["shape"] == (B, H, KV, L, hd, vd) and r["causal"]
+                and r["dtype"] == "bfloat16" and not r.get("peaked")]
+        kernels.append({
+            "name": f"flash_attention[causal,hd={hd},vd={vd}]",
+            "route": "cuda",
+            "source": ("src/repro_torch/kernels/flash_attention/"
+                       "flash_attention.cu"),
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
+            "launches": serves[arch]["launches_by_mode"]["causal"],
+            "max_abs_err": max(errs), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_backend": t["library_backend"],
+            "at": (f"one causal launch, bf16, B={B} H={H} KV={KV} L={L} "
+                   f"hd={hd} vd={vd}: one layer of the {arch} prefill; "
+                   f"launches: that served prefill + 32 decode steps"),
+        })
+    record = {"flash_wide_checks": checks, "deepseek_gates": gates,
+              "deepseek_train_gate": train_gate, "deepseek_serve": serves,
+              "deepseek_routing": routing, "flash_wide_times": times}
+    return record, kernels
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -3922,7 +4337,13 @@ def run(cfg, device, out_path=None) -> dict:
     if ladder.stats() != want:
         raise AssertionError(f"ladder: {ladder.stats()} after 4i-5h; they "
                              "may not reach it")
-    record = {"device": info, "build": build, "main_path": rows_a + rows_b,
+    # slice 12: the DeepSeek family and the dense configs through B5 at
+    # head dims (192, 128) and 256; V2-Lite and Gemma-7B served at full
+    # depth are its main paths, B5's counts from 0 around each
+    torch.cuda.empty_cache()
+    deepseek, wide_rows = phase_deepseek(card, device)
+    kernels += wide_rows
+    record = {**deepseek, "device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
               "topo_serve": serves, "topo_times": {

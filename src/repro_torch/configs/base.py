@@ -1,5 +1,5 @@
 """Model configuration schema + registry (--arch lookup), over the archs
-the port carries (ROADMAP A10 brings the rest).
+the port carries (ROADMAP A10b brings the rest).
 
 `ModelConfig` has the reference's fields, defaults and `replace`, so a
 reference config maps onto the port's field by field.
@@ -136,17 +136,23 @@ class ModelConfig:
 # registry
 # ----------------------------------------------------------------------------
 
-ARCHS = ["falcon_mamba_7b", "llama3_2_1b", "topovit_b16"]
+ARCHS = ["deepseek_v2_lite_16b", "deepseek_v3_671b", "falcon_mamba_7b",
+         "gemma_7b", "granite_34b", "llama3_2_1b", "qwen2_1_5b",
+         "topovit_b16"]
 
 _ALIASES = {"falcon-mamba-7b": "falcon_mamba_7b",
-            "llama3.2-1b": "llama3_2_1b", "topovit-b16": "topovit_b16"}
+            "granite-34b": "granite_34b", "qwen2-1.5b": "qwen2_1_5b",
+            "llama3.2-1b": "llama3_2_1b", "gemma-7b": "gemma_7b",
+            "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+            "deepseek-v3-671b": "deepseek_v3_671b",
+            "topovit-b16": "topovit_b16"}
 
 
 def _module(arch: str):
     mod_name = _ALIASES.get(arch, arch)
     if mod_name not in ARCHS:
         raise ValueError(f"arch {arch!r} is not ported yet (ported: {ARCHS}; "
-                         "the other families come with ROADMAP A10)")
+                         "the other families come with ROADMAP A10b)")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 

@@ -1,0 +1,17 @@
+"""granite-34b [dense]: 88L d_model=6144 48H (MQA kv=1) d_ff=24576
+vocab=49152 — llama-arch, code. [arXiv:2405.04324]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="granite-34b",
+    family="dense",
+    num_layers=88,
+    d_model=6144,
+    num_heads=48, num_kv_heads=1, head_dim=128,
+    d_ff=24576,
+    vocab_size=49152,
+)
+
+SMOKE_CONFIG = CONFIG.replace(
+    num_layers=3, d_model=64, num_heads=4, num_kv_heads=1, head_dim=16,
+    d_ff=128, vocab_size=512)

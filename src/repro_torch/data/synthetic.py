@@ -9,7 +9,7 @@ spans so that a real LM can actually reduce loss on it.
 
 The reference's background prefetch thread and its VLM / encoder-decoder
 inputs are not copied: the loop calls `batch_at` only, and the port has no
-VLM or encoder-decoder family yet (ROADMAP A10).
+VLM or encoder-decoder family yet (ROADMAP A10b).
 """
 from __future__ import annotations
 

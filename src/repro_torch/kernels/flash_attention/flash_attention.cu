@@ -8,7 +8,11 @@
 // q is (B, H, L, hd); k and v are (B, KV, L, hd), read at head h / (H / KV)
 // (GQA without a copy of the cache); any strides with a unit last stride,
 // so the model's (B, L, H, hd) tensors are read in place. bf16 or fp32
-// inputs, the output in q's type and layout; hd in {16, 32, 64, 128}.
+// inputs, the output in q's type and layout. v's head dim vd may differ from
+// q's and k's hd; the scale stays 1/sqrt(hd) and out is (B, H, L, vd). The
+// (hd, vd) pairs instantiated: (16, 16), (32, 32), (64, 64), (128, 128),
+// (192, 128) (MLA: nope 128 + rope 64 packed into one q/k head, v 128),
+// (256, 256) (Gemma-7B) and (24, 16) (the smoke DeepSeek configs' MLA).
 //
 // Replaces the TPU kernel `flash_attention_pallas` in
 // src/repro/kernels/flash_attention/kernel.py (body `_flash_kernel`).
@@ -60,9 +64,17 @@
 // columns tx + 16 j, so the 16-byte row loads of q and k hit distinct
 // banks); the row max and row sum are shuffles over the 16 lanes that share
 // a row; P goes through shared memory for P v, where a thread owns 4 rows x
-// hd/16 columns of acc in registers. One block uses 3 * 64 * (hd + 4) +
+// vd/16 columns of acc in registers. One block uses 3 * 64 * (hd + 4) +
 // 64 * 68 floats of shared memory (68 KiB at hd = 64), so three blocks
-// share an SM.
+// share an SM; with vd beside hd, 2 * 64 * (hd + 4) + 64 * (vd + 4) + 64 * 68
+// floats: 148 KiB at (192, 128) and 212 KiB at (256, 256), one block an SM.
+//
+// The wide pairs in bf16: q and k take hd / 64 slabs (three at 192), v and O
+// vd / 64 (two at 128, four at 256), so a block holds 105 KiB of shared
+// memory at (192, 128) and 161 KiB at (256, 256), one block an SM; at vd =
+// 256 the O accumulator is 128 fp32 registers a thread beside S's 32 and
+// P's 32 fragments. A simple port of the same loop: its times at these
+// shapes are in PERF.md.
 
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
                    // looked up through the runtime, so no -lcuda
@@ -87,18 +99,19 @@ struct Strides {
   long long qb, qh, ql, kb, kh, kl, vb, vh, vl, ob, oh, ol;
 };
 
-template <typename T, int HD>
+template <typename T, int HD, int VD>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, Strides st, int G,
              int L, float scale, int causal) {
-  constexpr int LD = HD + 4;    // padded row of the q/k/v tiles
-  constexpr int CPT = HD / 16;  // columns of acc a thread owns
+  constexpr int LD = HD + 4;    // padded row of the q/k tiles
+  constexpr int LDV = VD + 4;   // padded row of the v tile
+  constexpr int CPT = VD / 16;  // columns of acc a thread owns
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);  // BQ x LD, q * scale
   float* ks = qs + BQ * LD;                      // BK x LD
-  float* vs = ks + BK * LD;                      // BK x LD
-  float* ps = vs + BK * LD;                      // BQ x PLD
+  float* vs = ks + BK * LD;                      // BK x LDV
+  float* ps = vs + BK * LDV;                     // BQ x PLD
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int nq = (L + BQ - 1) / BQ;
@@ -130,9 +143,11 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();  // the previous tile's P v is done with vs and ps
     for (int e = tid; e < BK * HD; e += THREADS) {
       const int r = e / HD, d = e % HD, row = k0 + r;
-      const bool ok = row < L;
-      ks[r * LD + d] = ok ? to_float(kg[row * st.kl + d]) : 0.f;
-      vs[r * LD + d] = ok ? to_float(vg[row * st.vl + d]) : 0.f;
+      ks[r * LD + d] = row < L ? to_float(kg[row * st.kl + d]) : 0.f;
+    }
+    for (int e = tid; e < BK * VD; e += THREADS) {
+      const int r = e / VD, d = e % VD, row = k0 + r;
+      vs[r * LDV + d] = row < L ? to_float(vg[row * st.vl + d]) : 0.f;
     }
     __syncthreads();
 
@@ -205,7 +220,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
         pa[i] = *reinterpret_cast<const float4*>(ps + (ty + 16 * i) * PLD + kk);
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const float* vrow = vs + (kk + u) * LD + tx * CPT;
+        const float* vrow = vs + (kk + u) * LDV + tx * CPT;
         float vv[CPT];
 #pragma unroll
         for (int c = 0; c < CPT; ++c) vv[c] = vrow[c];
@@ -231,17 +246,19 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int HD>
+template <typename T, int HD, int VD>
 int launch(const T* q, const T* k, const T* v, T* out, const Strides& st,
            int B, int H, int G, int L, float scale, int causal,
            cudaStream_t stream) {
-  const int smem = (3 * BQ * (HD + 4) + BQ * PLD) * (int)sizeof(float);
+  const int smem =
+      (2 * BQ * (HD + 4) + BK * (VD + 4) + BQ * PLD) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_kernel<T, HD, VD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + BQ - 1) / BQ, H, B);
-  flash_kernel<T, HD><<<grid, THREADS, smem, stream>>>(q, k, v, out, st, G,
-                                                       L, scale, causal);
+  flash_kernel<T, HD, VD><<<grid, THREADS, smem, stream>>>(
+      q, k, v, out, st, G, L, scale, causal);
   return (int)cudaGetLastError();
 }
 
@@ -395,47 +412,53 @@ __device__ __forceinline__ uint32_t pack_bf16(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-// the K and V slabs of stage s: Q first, then the stages' K, V pairs
-template <int SLABS>
-__device__ __forceinline__ uint32_t k_slot(uint32_t qs, int s) {
-  return qs + SLABS * SLAB_BYTES * (1 + 2 * s);
+// slabs of a head dim: one 64-column slab per 64 columns, at least one
+__host__ __device__ constexpr int slabs(int d) {
+  return d < 64 ? 1 : d / 64;
 }
-template <int SLABS>
+
+// the K and V slabs of stage s: Q's QS slabs first, then the stages' K (QS
+// slabs), V (VS slabs) pairs
+template <int QS, int VS>
+__device__ __forceinline__ uint32_t k_slot(uint32_t qs, int s) {
+  return qs + SLAB_BYTES * (QS + s * (QS + VS));
+}
+template <int QS, int VS>
 __device__ __forceinline__ uint32_t v_slot(uint32_t qs, int s) {
-  return qs + SLABS * SLAB_BYTES * (2 + 2 * s);
+  return k_slot<QS, VS>(qs, s) + QS * SLAB_BYTES;
 }
 
 // one thread's copies of K/V tile t into stage t % STAGES, and the one
 // arrival of that stage's barrier phase
-template <int SLABS>
+template <int QS, int VS>
 __device__ __forceinline__ void load_kv(int t, uint32_t qs,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, uint64_t* full,
                                         int kvh, int b) {
   const int s = t % STAGES;
   const uint32_t bar = smem_u32(&full[s]);
-  mbar_arrive_expect(bar, 2 * SLABS * SLAB_BYTES);
-  for (int sl = 0; sl < SLABS; ++sl) {
-    tma_load(k_slot<SLABS>(qs, s) + sl * SLAB_BYTES, tk, bar, 64 * sl,
+  mbar_arrive_expect(bar, (QS + VS) * SLAB_BYTES);
+  for (int sl = 0; sl < QS; ++sl)
+    tma_load(k_slot<QS, VS>(qs, s) + sl * SLAB_BYTES, tk, bar, 64 * sl,
              t * BK, kvh, b);
-    tma_load(v_slot<SLABS>(qs, s) + sl * SLAB_BYTES, tv, bar, 64 * sl,
+  for (int sl = 0; sl < VS; ++sl)
+    tma_load(v_slot<QS, VS>(qs, s) + sl * SLAB_BYTES, tv, bar, 64 * sl,
              t * BK, kvh, b);
-  }
 }
 
 // One warpgroup per (b, h, 64 query rows). Thread (warp w, lane) holds, of
 // every m64n64 accumulator, element 4 j + e at row 16 w + lane / 4 + 8 (e / 2)
-// and column 8 j + 2 (lane % 4) + e % 2. The maps view q as (hd, L, H, B)
-// and k, v as (hd, L, KV, B) in elements, boxes of 64 x 64 x 1 x 1.
-template <int HD>
+// and column 8 j + 2 (lane % 4) + e % 2. The maps view q as (hd, L, H, B),
+// k as (hd, L, KV, B) and v as (vd, L, KV, B) in elements, boxes of 64 x 64
+// x 1 x 1.
+template <int HD, int VD>
 __global__ void __launch_bounds__(WG_THREADS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
                    __nv_bfloat16* __restrict__ out, Strides st, int G, int L,
                    float scale_log2, int causal) {
-  constexpr int SLABS = HD < 64 ? 1 : HD / 64;
-  constexpr int TILE = SLABS * SLAB_BYTES;
+  constexpr int QS = slabs(HD), VS = slabs(VD);
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[STAGES];  // tile of stage s has landed
 
@@ -458,20 +481,20 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // arrival comes with that tile); the ring holds the first STAGES - 1
     // tiles in flight. Boxes reach past L (and past hd < 64): TMA fills
     // those elements with zeros.
-    mbar_expect(smem_u32(&full[0]), TILE);
-    for (int sl = 0; sl < SLABS; ++sl)
+    mbar_expect(smem_u32(&full[0]), QS * SLAB_BYTES);
+    for (int sl = 0; sl < QS; ++sl)
       tma_load(qs + sl * SLAB_BYTES, &tq, smem_u32(&full[0]), 64 * sl, q0, h,
                b);
     for (int t = 0; t < STAGES - 1 && t < nk; ++t)
-      load_kv<SLABS>(t, qs, &tk, &tv, full, kvh, b);
+      load_kv<QS, VS>(t, qs, &tk, &tv, full, kvh, b);
   }
   __syncthreads();
 
   const int g = lane >> 2, t4 = lane & 3;
   const int row0 = q0 + 16 * warp + g;  // rows row0 and row0 + 8
-  float o[SLABS][32];
+  float o[VS][32];
 #pragma unroll
-  for (int sl = 0; sl < SLABS; ++sl)
+  for (int sl = 0; sl < VS; ++sl)
 #pragma unroll
     for (int i = 0; i < 32; ++i) o[sl][i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -481,20 +504,21 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (kt + STAGES - 1 < nk) {  // later tiles fly while this one computes
       if (kt > 0) __syncthreads();  // the slot's last reader is done
       if (tid == 0)
-        load_kv<SLABS>(kt + STAGES - 1, qs, &tk, &tv, full, kvh, b);
+        load_kv<QS, VS>(kt + STAGES - 1, qs, &tk, &tv, full, kvh, b);
     }
     mbar_wait(smem_u32(&full[stage]), (kt / STAGES) & 1);
 
-    // S = Q K^T: hd / 16 steps of k16 along each 128-byte row
+    // S = Q K^T: hd / 16 steps of k16 along each 128-byte row (rounded up:
+    // TMA fills the columns past hd with zeros)
     float s[32];
 #pragma unroll
     for (int i = 0; i < 32; ++i) s[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < HD / 16; ++ks) {
+    for (int ks = 0; ks < (HD + 15) / 16; ++ks) {
       const uint32_t off = (ks / 4) * SLAB_BYTES + (ks % 4) * 32;
       wgmma_ss(s, descriptor(qs + off, 16, 1024),
-               descriptor(k_slot<SLABS>(qs, stage) + off, 16, 1024),
+               descriptor(k_slot<QS, VS>(qs, stage) + off, 16, 1024),
                ks > 0);
     }
     wgmma_commit();
@@ -550,7 +574,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     // the O rescale, unless no row max of this warp moved
     if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
 #pragma unroll
-      for (int sl = 0; sl < SLABS; ++sl)
+      for (int sl = 0; sl < VS; ++sl)
 #pragma unroll
         for (int i = 0; i < 32; ++i) o[sl][i] *= corr[(i >> 1) & 1];
     }
@@ -560,9 +584,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int sl = 0; sl < SLABS; ++sl) {
+      for (int sl = 0; sl < VS; ++sl) {
         const uint64_t bv =
-            descriptor(v_slot<SLABS>(qs, stage) + sl * SLAB_BYTES + c * 2048,
+            descriptor(v_slot<QS, VS>(qs, stage) + sl * SLAB_BYTES + c * 2048,
                        SLAB_BYTES, 1024);
         wgmma_rs(o[sl], ph[4 * c], ph[4 * c + 1], ph[4 * c + 2],
                  ph[4 * c + 3], bv);
@@ -572,7 +596,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_commit();
     wgmma_wait_all();
 #pragma unroll
-    for (int sl = 0; sl < SLABS; ++sl) fence_regs(o[sl]);
+    for (int sl = 0; sl < VS; ++sl) fence_regs(o[sl]);
     fence_regs(ph);
     fence_regs(pl);
   }
@@ -589,11 +613,11 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     if (row >= L) continue;
     __nv_bfloat16* orow = out + b * st.ob + h * st.oh + row * st.ol;
 #pragma unroll
-    for (int sl = 0; sl < SLABS; ++sl)
+    for (int sl = 0; sl < VS; ++sl)
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int col = 64 * sl + 8 * j + 2 * t4;
-        if (col >= HD) continue;
+        if (col >= VD) continue;
         *reinterpret_cast<__nv_bfloat162*>(orow + col) =
             __floats2bfloat162_rn(o[sl][4 * j + 2 * r] / l[r],
                                   o[sl][4 * j + 2 * r + 1] / l[r]);
@@ -648,30 +672,30 @@ bool tensor_map(CUtensorMap* map, const void* base, int hd, int L, int heads,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int VD>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                  const __nv_bfloat16* v, __nv_bfloat16* out,
                  const Strides& st, int B, int H, int G, int L, float scale,
                  int causal, cudaStream_t stream) {
-  constexpr int SLABS = HD < 64 ? 1 : HD / 64;
+  constexpr int QS = slabs(HD), VS = slabs(VD);
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, HD, L, H, B, st.ql, st.qh, st.qb) ||
       !tensor_map(&tk, k, HD, L, H / G, B, st.kl, st.kh, st.kb) ||
-      !tensor_map(&tv, v, HD, L, H / G, B, st.vl, st.vh, st.vb))
+      !tensor_map(&tv, v, VD, L, H / G, B, st.vl, st.vh, st.vb))
     return (int)cudaErrorInvalidValue;
   // Q and STAGES K/V pairs, and room to align them to 1024 bytes
-  const int smem = (1 + 2 * STAGES) * SLABS * SLAB_BYTES + 1024;
+  const int smem = (QS + STAGES * (QS + VS)) * SLAB_BYTES + 1024;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_wgmma_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_wgmma_kernel<HD, VD>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((L + BQ - 1) / BQ, H, B);
-  flash_wgmma_kernel<HD><<<grid, WG_THREADS, smem, stream>>>(
+  flash_wgmma_kernel<HD, VD><<<grid, WG_THREADS, smem, stream>>>(
       tq, tk, tv, out, st, G, L, scale * LOG2E, causal);
   return (int)cudaGetLastError();
 }
 
-int dispatch_bf16(int hd, const void* q, const void* k, const void* v,
+int dispatch_bf16(int hd, int vd, const void* q, const void* k, const void* v,
                   void* out, const Strides& st, int B, int H, int G, int L,
                   float scale, int causal, cudaStream_t s) {
   using bf = __nv_bfloat16;
@@ -679,39 +703,46 @@ int dispatch_bf16(int hd, const void* q, const void* k, const void* v,
   const bf* kt = static_cast<const bf*>(k);
   const bf* vt = static_cast<const bf*>(v);
   bf* ot = static_cast<bf*>(out);
-  switch (hd) {
-    case 16: return launch_wgmma<16>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 32: return launch_wgmma<32>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 64: return launch_wgmma<64>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 128: return launch_wgmma<128>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+  switch (hd * 1000 + vd) {
+    case 16016: return launch_wgmma<16, 16>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 24016: return launch_wgmma<24, 16>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 32032: return launch_wgmma<32, 32>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 64064: return launch_wgmma<64, 64>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 128128: return launch_wgmma<128, 128>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 192128: return launch_wgmma<192, 128>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 256256: return launch_wgmma<256, 256>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-int dispatch_f32(int hd, const void* q, const void* k, const void* v,
+int dispatch_f32(int hd, int vd, const void* q, const void* k, const void* v,
                  void* out, const Strides& st, int B, int H, int G, int L,
                  float scale, int causal, cudaStream_t s) {
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   float* ot = static_cast<float*>(out);
-  switch (hd) {
-    case 16: return launch<float, 16>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 32: return launch<float, 32>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 64: return launch<float, 64>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 128: return launch<float, 128>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+  switch (hd * 1000 + vd) {
+    case 16016: return launch<float, 16, 16>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 24016: return launch<float, 24, 16>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 32032: return launch<float, 32, 32>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 64064: return launch<float, 64, 64>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 128128: return launch<float, 128, 128>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 192128: return launch<float, 192, 128>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 256256: return launch<float, 256, 256>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). `bf16` selects
-// __nv_bfloat16 operands and the wgmma kernel (else float and the fp32
-// kernel); `strides` points to 12 element strides: (batch, head, row) of q,
-// k, v and out. Checks nothing the Python wrapper checks (shapes, types,
-// the device, hd, G = H / KV, the bf16 path's 16-byte-aligned rows).
-extern "C" int flash_attention_launch(int bf16, int hd, const void* q,
+// Returns the cudaError_t of the launch (0 on success; an (hd, vd) pair not
+// instantiated is cudaErrorInvalidValue). `bf16` selects __nv_bfloat16
+// operands and the wgmma kernel (else float and the fp32 kernel); `strides`
+// points to 12 element strides: (batch, head, row) of q, k, v and out.
+// Checks nothing the Python wrapper checks (shapes, types, the device, the
+// (hd, vd) pair, G = H / KV, the bf16 path's 16-byte-aligned rows).
+extern "C" int flash_attention_launch(int bf16, int hd, int vd, const void* q,
                                       const void* k, const void* v, void* out,
                                       const long long* strides, int B, int H,
                                       int G, int L, float scale, int causal,
@@ -720,8 +751,8 @@ extern "C" int flash_attention_launch(int bf16, int hd, const void* q,
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_bf16(hd, q, k, v, out, st, B, H, G, L, scale,
+  return bf16 ? dispatch_bf16(hd, vd, q, k, v, out, st, B, H, G, L, scale,
                               causal, s)
-              : dispatch_f32(hd, q, k, v, out, st, B, H, G, L, scale, causal,
-                             s);
+              : dispatch_f32(hd, vd, q, k, v, out, st, B, H, G, L, scale,
+                             causal, s);
 }

@@ -21,10 +21,14 @@ import torch
 from repro_torch.kernels import _nvcc
 
 SOURCE = Path(__file__).with_name("flash_attention.cu")
-HD_CHOICES = (16, 32, 64, 128)  # head dims the .cu file instantiates
+# the (q/k head dim, v head dim) pairs the .cu file instantiates: equal
+# pairs up to 128, MLA's packed nope + rope q/k head beside its v head
+# (DeepSeek's (192, 128), their smoke configs' (24, 16)), and Gemma-7B's 256
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
+             (256, 256), (24, 16))
 BQ = 64  # query rows of a block (the .cu file's BQ)
 
-_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 5
+_ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
              + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
                                       ctypes.c_void_p])
 
@@ -52,28 +56,39 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def _out_like(q, vd: int) -> torch.Tensor:
+    """An empty (B, H, L, vd) tensor whose dims lie in memory in q's order."""
+    shape = (*q.shape[:3], vd)
+    perm = sorted(range(3), key=lambda i: -q.stride(i)) + [3]
+    out = torch.empty([shape[i] for i in perm], dtype=q.dtype,
+                      device=q.device)
+    return out.permute([perm.index(i) for i in range(4)])
+
+
 def flash_attention_cuda(q, k, v, causal: bool):
     """Launch on CUDA tensors the caller has validated (`ops` does): q
-    (B, H, L, hd), k and v (B, KV, L, hd), one dtype (float32 or bfloat16),
-    any strides with a unit last stride (in bf16, 16-byte-aligned rows), on
-    one card. Returns (B, H, L, hd) in q's dtype and memory layout.
+    (B, H, L, hd), k (B, KV, L, hd) and v (B, KV, L, vd) with (hd, vd) in
+    HEAD_DIMS, one dtype (float32 or bfloat16), any strides with a unit last
+    stride (in bf16, 16-byte-aligned rows), on one card. Returns (B, H, L,
+    vd) in q's dtype, laid out as q is.
     Launches on the current stream and does not synchronize (the bf16 path
     encodes its three TMA tensor maps on the host first)."""
     B, H, L, hd = q.shape
-    G = H // k.shape[1]
-    out = torch.empty_like(q)
+    G, vd = H // k.shape[1], v.shape[-1]
+    out = torch.empty_like(q) if vd == hd else _out_like(q, vd)
     strides = (ctypes.c_longlong * 12)(
         *[s for t in (q, k, v, out) for s in t.stride()[:3]])
     lib = library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.flash_attention_launch(
-            int(q.dtype == torch.bfloat16), hd, q.data_ptr(), k.data_ptr(),
+            int(q.dtype == torch.bfloat16), hd, vd, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p),
             B, H, G, L, 1.0 / math.sqrt(hd), int(bool(causal)), stream)
     if err != 0:
         raise RuntimeError(
             f"flash attention launch failed: cudaError {err} (B={B}, H={H}, "
-            f"G={G}, L={L}, hd={hd}, dtype={q.dtype}, causal={causal})")
+            f"G={G}, L={L}, hd={hd}, vd={vd}, dtype={q.dtype}, "
+            f"causal={causal})")
     return out

@@ -9,7 +9,8 @@ forward).
     simply shorter). It is the CPU path of the wrapper and the model's
     `attn_impl="chunked"`.
   * `flash_attention` is the kernel's wrapper, in the reference kernel's
-    (B, H, L, hd) layout with GQA k/v (B, KV, L, hd): a CUDA tensor
+    (B, H, L, hd) layout with GQA k (B, KV, L, hd) and v (B, KV, L, vd),
+    vd = hd or MLA's packed (hd, vd) = (192, 128): a CUDA tensor
     launches the kernel (kernel.py, built from flash_attention.cu) or the
     call raises; a CPU tensor runs the plain version. `LAUNCHES` counts
     kernel launches, and `LAUNCHES_BY_MODE` the causal and the non-causal
@@ -80,10 +81,10 @@ def _check(q, k, v, kernel_path: bool) -> None:
                             f"{type(t).__name__}")
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
-        raise ValueError(f"expected q (B, H, L, hd) and k, v (B, KV, L, hd); "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if (q.ndim, k.ndim, v.ndim) != (4, 4, 4) or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"expected q (B, H, L, hd), k (B, KV, L, hd) and v "
+                         f"(B, KV, L, vd); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, L, hd = q.shape
     KV = k.shape[1]
     if (k.shape[0], k.shape[2], k.shape[3]) != (B, L, hd) or H % KV:
@@ -96,9 +97,10 @@ def _check(q, k, v, kernel_path: bool) -> None:
             torch.float32, torch.bfloat16):
         raise TypeError(f"q, k, v must share one dtype, float32 or bfloat16; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    if hd not in kernel.HD_CHOICES:
-        raise ValueError(f"the flash attention kernel takes head_dim in "
-                         f"{kernel.HD_CHOICES}, got {hd}")
+    if (hd, v.shape[-1]) not in kernel.HEAD_DIMS:
+        raise ValueError(f"the flash attention kernel takes (q/k head_dim, v "
+                         f"head_dim) in {kernel.HEAD_DIMS}, got "
+                         f"({hd}, {v.shape[-1]})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v need a unit stride along head_dim")
     if q.device.type == "cuda" and q.dtype == torch.bfloat16 and any(
@@ -149,9 +151,10 @@ class _FlashAttention(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True,
                     use_kernel: bool | None = None):
     """Softmax attention (the counterpart of `flash_attention_pallas`). q:
-    (B, H, L, hd); k, v: (B, KV, L, hd) with H a multiple of KV (GQA: query
-    head h reads k/v head h // (H // KV)); scale 1/sqrt(hd). Returns
-    (B, H, L, hd) in q's dtype.
+    (B, H, L, hd); k: (B, KV, L, hd); v: (B, KV, L, vd), with H a multiple
+    of KV (GQA: query head h reads k/v head h // (H // KV)); scale
+    1/sqrt(hd). Returns (B, H, L, vd) in q's dtype. The kernel path takes
+    the (hd, vd) pairs of `kernel.HEAD_DIMS` and raises on any other.
 
     use_kernel=None or True: the kernel path (the kernel on CUDA tensors,
     the plain version on CPU tensors; differentiable through the plain

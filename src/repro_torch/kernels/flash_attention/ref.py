@@ -7,7 +7,8 @@ import torch
 
 
 def attention_ref(q, k, v, causal: bool = True):
-    """q, k, v: (B, H, L, hd). Returns (B, H, L, hd) in q's dtype."""
+    """q, k: (B, H, L, hd); v: (B, H, L, vd), vd = hd or not (MLA's 128
+    beside a 192 q/k head). Returns (B, H, L, vd) in q's dtype."""
     L, hd = q.shape[-2], q.shape[-1]
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) / math.sqrt(hd)
     if causal:

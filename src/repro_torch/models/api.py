@@ -6,7 +6,7 @@ pytree, and `device=None`, which means the CUDA card (raising without
 one); the tests pass `device="cpu"`. Token inputs may be numpy arrays or
 tensors and are moved to the device; the model must already live there.
 `loss_fn` runs with grad enabled; serving runs under `torch.no_grad()`.
-Encoder-decoder families come with ROADMAP A10.
+Encoder-decoder families come with ROADMAP A10b.
 """
 from __future__ import annotations
 

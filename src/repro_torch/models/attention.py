@@ -1,11 +1,17 @@
-"""Attention variants of the port: full softmax (GQA), Performer (FAVOR+
-with a deterministic phi) and the paper's Topological Performer (Sec 4.4 /
-Alg. 1), each with train/prefill and O(1)-per-token decode.
+"""Attention variants of the port: full softmax (GQA), MLA (DeepSeek's
+multi-head latent attention), Performer (FAVOR+ with a deterministic phi)
+and the paper's Topological Performer (Sec 4.4 / Alg. 1), each with
+train/prefill and O(1)-per-token decode.
 
   - full: rope, then causal softmax attention; `cfg.attn_impl` picks the
     dense `_sdpa` ("naive"), the plain online-softmax twin ("chunked") or
     the flash attention CUDA kernel ("cuda"); decode attends over the KV
     cache with `_sdpa`;
+  - MLA: "naive" the reference's two-einsum logits; "chunked" and "cuda"
+    pack nope || rope into one 192-wide q/k head (k_rope broadcast over the
+    heads) beside the 128-wide v and run the plain online-softmax twin or
+    the flash attention kernel at (hd, vd) = (192, 128); decode is the
+    absorbed form in float32 over the latent cache {"ckv", "krope"};
   - performer: causal linear attention over phi features; "cuda" runs the
     linear attention CUDA kernel, "naive" and "chunked" its plain twin;
     decode carries the (S, z) state;
@@ -18,8 +24,8 @@ Alg. 1), each with train/prefill and O(1)-per-token decode.
     decode uses O(1)-state cordial recurrences (a non-separable f through
     the Chebyshev rank-R separable expansion shared with the sweep).
 
-Local and MLA attention come with ROADMAP A10, the forest tree-mask
-prefill with A11.
+Local attention comes with ROADMAP A10b, the forest tree-mask prefill with
+A11.
 """
 from __future__ import annotations
 
@@ -27,10 +33,12 @@ import math
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.linear_attention import ops as linear_ops
-from repro_torch.models.layers import Params, apply_rope, dense_init, softcap
+from repro_torch.models.layers import (Params, apply_rope, dense_init,
+                                       rms_norm, softcap)
 
 IMPLS = ("ref", "torch", "cuda", "fft")  # cfg.topo_attn_impl
 ATTN_IMPLS = ("naive", "chunked", "cuda")  # cfg.attn_impl
@@ -84,6 +92,37 @@ class Attention(Params):
 
     def __init__(self, cfg, dtype=torch.float32, device=None):
         super().__init__(attn_shapes(cfg), dtype, device)
+
+
+def mla_shapes(cfg) -> dict:
+    """MLA's projections: the kv down-projection to the latent c_kv with
+    its norm, its up-projection to per-head k_nope and v, the shared rope
+    key, the output; and q through a LoRA (w_dq, q_norm, w_uq) or one wq."""
+    d, H = cfg.d_model, cfg.num_heads
+    nope, rope, vdim = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+    s = {"w_dkv": (d, r_kv), "kv_norm": (r_kv,),
+         "w_ukv": (r_kv, H * (nope + vdim)), "w_kr": (d, rope),
+         "wo": (H * vdim, d)}
+    if r_q > 0:
+        s.update(w_dq=(d, r_q), q_norm=(r_q,), w_uq=(r_q, H * (nope + rope)))
+    else:
+        s["wq"] = (d, H * (nope + rope))
+    return s
+
+
+def mla_init(gen: torch.Generator, cfg, dtype=torch.float32) -> dict:
+    return {name: (torch.zeros(shape, dtype=dtype, device=gen.device)
+                   if name.endswith("norm") else
+                   dense_init(gen, shape, dtype=dtype))
+            for name, shape in mla_shapes(cfg).items()}
+
+
+class MLA(Params):
+    """The projections of one MLA block (`mla_shapes`)."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None):
+        super().__init__(mla_shapes(cfg), dtype, device)
 
 
 # ----------------------------------------------------------------------------
@@ -185,7 +224,7 @@ def _attend(cfg, q, k, v, causal: bool, window: int):
             raise NotImplementedError(
                 "the flash attention kernel has no local window and no logit "
                 "softcap (nor has the reference's kernel): local attention "
-                "comes with ROADMAP A10; use attn_impl 'chunked'")
+                "comes with ROADMAP A10b; use attn_impl 'chunked'")
         out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                                         v.transpose(1, 2), causal)
         return out.transpose(1, 2)
@@ -202,7 +241,7 @@ def _attend(cfg, q, k, v, causal: bool, window: int):
 def full_attention_train(cfg, p, x, positions, causal: bool = True,
                          window: int = 0, rope: bool = True):
     """Self-attention over the whole of x (B, L, d). (The reference's
-    cross-attention branch, `kv_x`, comes with encdec, ROADMAP A10.)"""
+    cross-attention branch, `kv_x`, comes with encdec, ROADMAP A10b.)"""
     B, L, _ = x.shape
     q, k, v = _project_qkv(cfg, p, x, positions, rope=rope)
     out = _attend(cfg, q, k, v, causal, window)
@@ -244,6 +283,130 @@ def full_attention_prefill(cfg, p, x, positions, lengths, cache,
     valid = (lengths > 0)[:, None, None, None]
     new = {}
     for name, t in (("k", k_new), ("v", v_new)):
+        c = cache[name].clone()
+        c[:, :Lp] = torch.where(valid, t.to(c.dtype), c[:, :Lp])
+        new[name] = c
+    return out, new
+
+
+# ----------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2/V3)
+# ----------------------------------------------------------------------------
+
+
+def _mla_q(cfg, p, x, positions):
+    """q_nope (B, L, H, nope) and the roped q_rope (B, L, H, rope)."""
+    B, L, _ = x.shape
+    H, nope = cfg.num_heads, cfg.qk_nope_dim
+    with record_function("mla.proj"):
+        if cfg.q_lora_rank > 0:
+            q = rms_norm(x @ p.w_dq, p.q_norm, cfg.norm_eps,
+                         plus_one=True) @ p.w_uq
+        else:
+            q = x @ p.wq
+        q = q.reshape(B, L, H, nope + cfg.qk_rope_dim)
+        return q[..., :nope], apply_rope(q[..., nope:], positions,
+                                         cfg.rope_theta)
+
+
+def _mla_latent(cfg, p, x, positions):
+    """What the decode cache keeps: c_kv (B, L, kv_lora_rank), normed, and
+    the roped shared key k_rope (B, L, 1, rope)."""
+    B, L, _ = x.shape
+    with record_function("mla.proj"):
+        ckv = rms_norm(x @ p.w_dkv, p.kv_norm, cfg.norm_eps, plus_one=True)
+        k_rope = apply_rope((x @ p.w_kr).reshape(B, L, 1, cfg.qk_rope_dim),
+                            positions, cfg.rope_theta)
+        return ckv, k_rope
+
+
+def _mla_attend(cfg, p, q_nope, q_rope, ckv, k_rope, causal: bool):
+    """Attention over the whole sequence from the latent: k_nope and v
+    come up from c_kv; the output projected by wo, (B, L, d)."""
+    B, L, H, nope = q_nope.shape
+    rope, vdim = cfg.qk_rope_dim, cfg.v_head_dim
+    with record_function("mla.proj"):
+        kv = (ckv @ p.w_ukv).reshape(B, L, H, nope + vdim)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    if _attn_impl(cfg) != "naive":
+        # nope || rope packed into one head: the same logits, and no (L, L)
+        # scores held (the reference's "§Perf B3")
+        q_cat = torch.cat([q_nope, q_rope], dim=-1)
+        k_cat = torch.cat([k_nope, k_rope.expand(B, L, H, rope)], dim=-1)
+        out = _attend(cfg, q_cat, k_cat, v, causal, 0)
+        return out.reshape(B, L, H * vdim) @ p.wo
+    logits = (torch.einsum("blhn,bshn->bhls", q_nope.float(), k_nope.float())
+              + torch.einsum("blhr,bsxr->bhls", q_rope.float(),
+                             k_rope.float())) / math.sqrt(nope + rope)
+    if causal:
+        qi = torch.arange(L, device=q_nope.device)
+        logits = torch.where(qi[:, None] >= qi[None, :], logits,
+                             flash_ops.NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhls,bshv->blhv", w.to(v.dtype), v)
+    return out.reshape(B, L, H * vdim) @ p.wo
+
+
+def mla_attention_train(cfg, p, x, positions, causal: bool = True):
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    ckv, k_rope = _mla_latent(cfg, p, x, positions)
+    return _mla_attend(cfg, p, q_nope, q_rope, ckv, k_rope, causal)
+
+
+def mla_decode_init(cfg, B: int, S: int, dtype=torch.float32, device=None):
+    return {"ckv": torch.zeros((B, S, cfg.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "krope": torch.zeros((B, S, cfg.qk_rope_dim), dtype=dtype,
+                                 device=device)}
+
+
+def mla_attention_decode(cfg, p, x, pos, cache):
+    """Absorbed decode: the cache holds only (c_kv, k_rope). q_nope is taken
+    through W_uk into the latent space, so scores and values are computed
+    there, in float32: O(S (kv_lora_rank + rope) H) a step."""
+    B = x.shape[0]
+    H, nope, vdim = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    r_kv = cfg.kv_lora_rank
+    pos_v = _positions_vec(pos, B, x.device)
+    positions = pos_v[:, None]
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)  # (B, 1, H, *)
+    ckv_new, krope_new = _mla_latent(cfg, p, x, positions)
+    rows, at = torch.arange(B, device=x.device), pos_v.long()
+    ckv, krope = cache["ckv"].clone(), cache["krope"].clone()
+    ckv[rows, at] = ckv_new[:, 0].to(ckv.dtype)
+    krope[rows, at] = krope_new[:, 0, 0].to(krope.dtype)
+    with record_function("mla.absorbed"):
+        w_ukv = p.w_ukv.reshape(r_kv, H, nope + vdim).float()
+        w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]
+        q_lat = torch.einsum("blhn,rhn->blhr", q_nope.float(), w_uk)
+        ckv_f = ckv.float()
+        logits = (torch.einsum("blhr,bsr->bhls", q_lat, ckv_f)
+                  + torch.einsum("blhr,bsr->bhls", q_rope.float(),
+                                 krope.float())
+                  ) / math.sqrt(nope + cfg.qk_rope_dim)
+        S = ckv.shape[1]
+        mask = (torch.arange(S, device=x.device)[None, None, None, :]
+                <= pos_v[:, None, None, None])
+        w = torch.softmax(torch.where(mask, logits, flash_ops.NEG_INF),
+                          dim=-1)
+        out_lat = torch.einsum("bhls,bsr->blhr", w, ckv_f)
+        out = torch.einsum("blhr,rhv->blhv", out_lat, w_uv)
+    out = out.to(x.dtype).reshape(B, 1, H * vdim) @ p.wo
+    return out, {"ckv": ckv, "krope": krope}
+
+
+def mla_attention_prefill(cfg, p, x, positions, lengths, cache):
+    """Whole-prompt MLA (the train path's attention) that writes the latent
+    rows (c_kv, k_rope) [0, Lp) into the decode cache; rows with lengths[b]
+    == 0 keep theirs, junk rows past lengths[b] are rewritten before they
+    are read (as in `full_attention_prefill`)."""
+    Lp = x.shape[1]
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    ckv_new, k_rope = _mla_latent(cfg, p, x, positions)
+    out = _mla_attend(cfg, p, q_nope, q_rope, ckv_new, k_rope, True)
+    valid = (lengths > 0)[:, None, None]
+    new = {}
+    for name, t in (("ckv", ckv_new), ("krope", k_rope[:, :, 0])):
         c = cache[name].clone()
         c[:, :Lp] = torch.where(valid, t.to(c.dtype), c[:, :Lp])
         new[name] = c

@@ -1,12 +1,15 @@
 """Weights carried across from the reference: its param pytree (nested
-dicts of numpy arrays, layer-stacked leaves with a leading num_layers
-axis) to a `DecoderLM` or a `TopoViT` and back.
+dicts of numpy arrays, layer-stacked leaves with a leading axis over each
+segment's layers) to a `DecoderLM` or a `TopoViT` and back.
 
 The port's parameter names are the reference's pytree paths with the layer
-axis unstacked (`blocks0/attn/wq[l]` -> `blocks.{l}.attn.wq`) and its
-weights keep the reference's (in, out) layout, so converting is a renaming
-and a copy: bitwise in both directions. bfloat16 arrays travel as their
-16-bit patterns.
+axis unstacked and the segments' layers numbered in order
+(`blocks0/attn/wq[l]` -> `blocks.{l}.attn.wq`; in the moe family
+`blocks1/moe/router[j]` -> `blocks.{first_dense_layers + j}.moe.router`),
+the MTP head's leaves by their paths (`mtp_block/attn/wo` ->
+`mtp_block.attn.wo`), and its weights keep the reference's (in, out)
+layout, so converting is a renaming and a copy: bitwise in both
+directions. bfloat16 arrays travel as their 16-bit patterns.
 """
 from __future__ import annotations
 
@@ -16,8 +19,10 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.models import lm, vit
 
-STACKED = "blocks0"  # the LM's stacked blocks
-VIT_STACKED = "blocks"
+# {the reference's key of a stack of layers: the port's number of its first
+# layer}: the dense and ssm LMs' one stack and the ViT's
+STACKED = {"blocks0": 0}
+VIT_STACKED = {"blocks": 0}
 
 
 def _to_torch(a, dev) -> torch.Tensor:
@@ -45,33 +50,44 @@ def _flatten(tree: dict, prefix: str = ""):
             yield f"{prefix}{key}", val
 
 
-def _state_dict(tree: dict, dev, stacked: str) -> dict:
+def _stacks(cfg) -> dict:
+    """{the reference's key of a stacked segment: its first layer}."""
+    return {key: first for key, _, first, _ in lm.segments(cfg)}
+
+
+def _state_dict(tree: dict, dev, stacks: dict) -> dict:
     sd = {}
     for name, leaf in _flatten(tree):
-        if name.startswith(stacked + "."):
-            rest = name[len(stacked) + 1:]
-            for layer in range(np.shape(leaf)[0]):
-                sd[f"blocks.{layer}.{rest}"] = _to_torch(leaf[layer], dev)
+        key, _, rest = name.partition(".")
+        if key in stacks:
+            for j in range(np.shape(leaf)[0]):
+                sd[f"blocks.{stacks[key] + j}.{rest}"] = _to_torch(leaf[j],
+                                                                  dev)
         else:
             sd[name] = _to_torch(leaf, dev)
     return sd
 
 
-def _tree(model, stacked: str) -> dict:
+def _tree(model, stacks: dict) -> dict:
+    """The counterpart of `_state_dict`: each "blocks.{layer}" leaf stacked
+    into the segment that holds the layer."""
+    firsts = sorted(stacks.items(), key=lambda kv: kv[1])
     tree: dict = {}
     blocks: dict = {}
     for name, t in model.state_dict().items():
         parts = name.split(".")
         if parts[0] == "blocks":
-            blocks.setdefault(tuple(parts[2:]), []).append(
-                (int(parts[1]), _to_numpy(t)))
+            layer = int(parts[1])
+            key, first = [kv for kv in firsts if kv[1] <= layer][-1]
+            blocks.setdefault((key,) + tuple(parts[2:]), []).append(
+                (layer - first, _to_numpy(t)))
             continue
         node = tree
         for p in parts[:-1]:
             node = node.setdefault(p, {})
         node[parts[-1]] = _to_numpy(t)
     for path, layers in blocks.items():
-        node = tree.setdefault(stacked, {})
+        node = tree
         for p in path[:-1]:
             node = node.setdefault(p, {})
         node[path[-1]] = np.stack([a for _, a in sorted(layers,
@@ -83,13 +99,14 @@ def from_reference(cfg, tree: dict, device=None) -> lm.DecoderLM:
     """The reference's `lm.init_params(cfg, key)` tree (as numpy) -> a
     DecoderLM on `device`, loaded with load_state_dict(strict=True)."""
     return lm.from_state_dict(cfg, _state_dict(tree, resolve_device(device),
-                                               STACKED))
+                                               _stacks(cfg)))
 
 
 def to_reference(model: lm.DecoderLM) -> dict:
-    """The counterpart of `from_reference`: the numpy param tree, with the
-    block leaves stacked along a leading num_layers axis."""
-    return _tree(model, STACKED)
+    """The counterpart of `from_reference`: the numpy param tree, with each
+    segment's block leaves stacked along a leading axis under its
+    "blocks{si}" key."""
+    return _tree(model, _stacks(model.cfg))
 
 
 def vit_from_reference(cfg, tree: dict, device=None) -> vit.TopoViT:

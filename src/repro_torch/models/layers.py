@@ -15,13 +15,16 @@ class Params(nn.Module):
     """A leaf of the model: named tensors held as parameters (one of the
     reference's innermost param dicts, e.g. `attn_norm` -> `scale`).
     Allocated on `device` ("meta" to be filled by `load_state_dict(...,
-    assign=True)`)."""
+    assign=True)`), in `dtype` unless `dtypes` names another for a leaf
+    (the MoE router stays float32 in a bf16 model, as the reference's)."""
 
-    def __init__(self, shapes: dict, dtype=torch.float32, device=None):
+    def __init__(self, shapes: dict, dtype=torch.float32, device=None,
+                 dtypes: dict | None = None):
         super().__init__()
         for name, shape in shapes.items():
-            self.register_parameter(name, nn.Parameter(
-                torch.empty(tuple(shape), dtype=dtype, device=device)))
+            self.register_parameter(name, nn.Parameter(torch.empty(
+                tuple(shape), dtype=(dtypes or {}).get(name, dtype),
+                device=device)))
 
 
 def dtype_of(cfg) -> torch.dtype:

@@ -482,6 +482,63 @@ def test_flash_kernel_reads_the_model_layout_in_place(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,L,hd,vd", [
+    (2, 4, 4, 1000, 192, 128), (1, 4, 1, 130, 192, 128),
+    (2, 2, 2, 333, 256, 256), (1, 4, 2, 64, 256, 256),
+    (2, 4, 4, 100, 24, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+def test_flash_kernel_wide_head_dims(B, H, KV, L, hd, vd, dtype, causal,
+                                     cuda_device):
+    """MLA's (192, 128) pair, Gemma-7B's 256 and the smoke DeepSeeks'
+    (24, 16) (a k16 step half past hd, zero-filled) against the plain version
+    and the dense oracle: 2e-5 absolute in float32, one bf16 rounding + 2e-5
+    in bfloat16; one launch, output (B, H, L, vd). The model's (B, L, H,
+    d) layout as transposed views gives the same values."""
+    rng = np.random.default_rng(L + hd)
+    dt = getattr(torch, dtype)
+    q = torch.tensor(rng.normal(size=(B, L, H, hd)), dtype=dt,
+                     device=cuda_device).transpose(1, 2)
+    k = torch.tensor(rng.normal(size=(B, L, KV, hd)), dtype=dt,
+                     device=cuda_device).transpose(1, 2)
+    v = torch.tensor(rng.normal(size=(B, L, KV, vd)), dtype=dt,
+                     device=cuda_device).transpose(1, 2)
+    before = flash_ops.LAUNCHES
+    got = flash_ops.flash_attention(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES == before + 1
+    assert got.dtype == dt and got.shape == (B, H, L, vd)
+    plain = flash_ops.flash_attention(q, k, v, causal, use_kernel=False)
+    G = H // KV
+    ref = attention_ref(q, k.repeat_interleave(G, 1),
+                        v.repeat_interleave(G, 1), causal)
+    ulp = 0.0 if dtype == "float32" else 2.0 ** -7
+    for want in (plain, ref):
+        g, w = got.float(), want.float()
+        room = ulp * torch.maximum(g.abs(), w.abs()) + 2e-5
+        assert bool(((g - w).abs() <= room).all())
+    same = flash_ops.flash_attention(*(t.contiguous() for t in (q, k, v)),
+                                     causal)
+    assert torch.equal(same, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,vd", [(192, 192), (128, 64), (256, 128),
+                                   (96, 96), (32, 16)])
+def test_flash_kernel_refuses_pairs_it_does_not_instantiate(hd, vd,
+                                                            cuda_device):
+    """A (q/k, v) head-dim pair the .cu file does not instantiate raises
+    ValueError on the card; nothing runs the plain version in its place."""
+    q = torch.zeros(1, 2, 64, hd, device=cuda_device)
+    k = torch.zeros(1, 2, 64, hd, device=cuda_device)
+    v = torch.zeros(1, 2, 64, vd, device=cuda_device)
+    before = flash_ops.LAUNCHES
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_ops.flash_attention(q, k, v)
+    assert flash_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,H,L,m,hd", [
     (2, 3, 128, 16, 32), (1, 2, 1000, 64, 64), (2, 2, 200, 8, 8),
     (1, 2, 77, 64, 24), (1, 1, 1, 16, 16), (1, 2, 150, 32, 80),
@@ -608,6 +665,71 @@ def test_dense_lm_serving_kernel_matches_plain(variant, cuda_device):
     for k in out["cuda"][2]["blocks0"]:
         assert _rel(out["cuda"][2]["blocks0"][k],
                     out["chunked"][2]["blocks0"][k]) < 1e-5
+
+
+# the smoke configs at the published head dims of the flash kernel's wide
+# pairs: MLA's (192, 128) in both DeepSeeks, Gemma-7B's 256
+WIDE = {"deepseek_v2_lite_16b": dict(qk_nope_dim=128, qk_rope_dim=64,
+                                     v_head_dim=128),
+        "deepseek_v3_671b": dict(qk_nope_dim=128, qk_rope_dim=64,
+                                 v_head_dim=128),
+        "gemma_7b": dict(head_dim=256)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", list(WIDE))
+def test_wide_head_lm_serving_kernel_matches_plain(arch, cuda_device):
+    """A smoke model at the wide head dims served on the card: attn_impl
+    "cuda" (one flash launch per layer per prefill, none in decode, the
+    MoE routing of every layer equal) against "chunked" on the same
+    weights, float32, then `loss_fn` and its grads."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import api
+    from repro_torch.models import moe
+
+    S = 80
+    cfg = get_smoke_config(arch, attn_impl="cuda", dtype="float32",
+                           **WIDE[arch])
+    model = api.init_params(cfg, 3)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (3, 70)).astype(np.int32)
+    lengths = np.array([70, 41, 0], np.int32)
+    out = {}
+    for impl in ("cuda", "chunked"):
+        c = cfg.replace(attn_impl=impl)
+        moe.TRACE = []
+        try:
+            before = flash_ops.LAUNCHES
+            logits, cache = api.prefill_into_cache(c, model, api.init_cache(
+                c, 3, S), toks, lengths, S)
+            launched = flash_ops.LAUNCHES - before
+            routing = [(r["expert_ids"], r["keep"]) for r in moe.TRACE]
+        finally:
+            moe.TRACE = None
+        pos = torch.tensor(lengths, device=cuda_device).long()
+        tok = logits.argmax(-1)[:, None]
+        before = flash_ops.LAUNCHES
+        lg, cache = api.decode_fn(c, model, cache, tok, pos, S)
+        assert flash_ops.LAUNCHES == before  # decode runs no kernel
+        loss, _ = api.loss_fn(c, model, {"tokens": toks[:2, :64]})
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out[impl] = (logits, lg, cache, launched, routing, loss.detach(),
+                     grads)
+    assert out["cuda"][3] == cfg.num_layers and out["chunked"][3] == 0
+    for a, b in zip(out["cuda"][4], out["chunked"][4]):
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert len(out["cuda"][4]) == (cfg.num_layers - cfg.first_dense_layers
+                                   if cfg.moe else 0)
+    assert _rel(out["cuda"][0][:2], out["chunked"][0][:2]) < 1e-4
+    assert _rel(out["cuda"][1], out["chunked"][1]) < 1e-4
+    for seg, c in out["chunked"][2].items():
+        for k, t in c.items():
+            assert _rel(out["cuda"][2][seg][k], t) < 1e-5
+    assert abs(float(out["cuda"][5]) - float(out["chunked"][5])) <= 1e-5 * abs(
+        float(out["chunked"][5]))
+    for a, b in zip(out["cuda"][6], out["chunked"][6]):
+        assert float((a - b).abs().max()) <= 1e-4 * max(
+            float(b.abs().max()), 1e-30)
 
 
 # --- the selective scan (B6) --------------------------------------------------

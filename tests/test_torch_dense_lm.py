@@ -255,9 +255,9 @@ def test_kernel_path_refuses_grad_in_the_model(variant):
 
 def test_what_is_not_ported_raises_naming_the_roadmap():
     cfg = _cfg("full")
-    for bad in (dict(mla=True), dict(moe=True), dict(family="hybrid"),
-                dict(attention_variant="local")):
-        with pytest.raises(NotImplementedError, match="A10"):
+    for bad in (dict(family="hybrid"), dict(is_encdec=True),
+                dict(family="vlm"), dict(attention_variant="local")):
+        with pytest.raises(NotImplementedError, match="A10b"):
             TA.init_params(cfg.replace(**bad), 0, device="cpu")
     with pytest.raises(ValueError, match="attn_impl"):
         TA.prefill_fn(cfg.replace(attn_impl="pallas"),
@@ -286,9 +286,11 @@ for variant, impl in (("full", "cuda"), ("full", "chunked"),
                                   np.array([8, 5]), 20, device="cpu")
     assert bool(logits.isfinite().all()) and logits.shape == (2, 1, 512)
     convert.from_reference(cfg, convert.to_reference(model), device="cpu")
-for impl in ("cuda", "chunked"):
-    cfg = get_smoke_config("falcon_mamba_7b", attn_impl=impl,
-                           dtype="float32")
+for arch, impl in (("falcon_mamba_7b", "cuda"),
+                   ("falcon_mamba_7b", "chunked"),
+                   ("deepseek_v2_lite_16b", "chunked"),
+                   ("deepseek_v3_671b", "naive")):
+    cfg = get_smoke_config(arch, attn_impl=impl, dtype="float32")
     model = api.init_params(cfg, 0, device="cpu")
     cache = api.init_cache(cfg, 2, 20, device="cpu")
     logits, cache = api.prefill_into_cache(
@@ -299,6 +301,10 @@ for impl in ("cuda", "chunked"):
                                   np.array([8, 5]), 20, device="cpu")
     assert bool(logits.isfinite().all()) and logits.shape == (2, 1, 512)
     convert.from_reference(cfg, convert.to_reference(model), device="cpu")
+    if cfg.family == "moe":
+        loss, _ = api.loss_fn(cfg, model, {"tokens": np.ones((2, 8), np.int32)},
+                              device="cpu")
+        loss.backward()
 import repro_torch.kernels.flash_attention.kernel
 import repro_torch.kernels.linear_attention.kernel
 import repro_torch.kernels.selective_scan.kernel

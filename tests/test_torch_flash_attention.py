@@ -93,6 +93,44 @@ def test_sdpa_chunked_matches_reference_twin(causal, window, cap, L, blk):
     assert _err(got, want) < TOL
 
 
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("hd,vd,KV", [(192, 128, 2), (256, 256, 1)])
+def test_wide_head_dims_match_reference(hd, vd, KV, causal):
+    """The kernel's new (hd, vd) pairs on the CPU: the plain twin and the
+    wrapper's plain path (MLA's v narrower than q/k; Gemma's 256) against
+    the reference's `_sdpa_chunked`, and the dense oracle `attention_ref`
+    against it too (and against the reference's `_sdpa` where vd = hd,
+    which `_sdpa` requires); the output is (..., vd), scale 1/sqrt(hd)."""
+    B, H, L = 2, 4, 40
+    rng = np.random.default_rng(hd + vd)
+    q = rng.normal(size=(B, L, H, hd)).astype(np.float32)
+    k = rng.normal(size=(B, L, KV, hd)).astype(np.float32)
+    v = rng.normal(size=(B, L, KV, vd)).astype(np.float32)
+    rcfg = ref_smoke("llama3_2_1b")
+    want = JA._sdpa_chunked(rcfg, jnp.asarray(q), jnp.asarray(k),
+                            jnp.asarray(v), causal, 0, blk=20)
+    got = ops.sdpa_chunked(*(torch.from_numpy(a) for a in (q, k, v)),
+                           causal)
+    assert got.shape == (B, L, H, vd)
+    assert _err(got, want) < TOL
+    tq, tk, tv = (torch.from_numpy(a).transpose(1, 2) for a in (q, k, v))
+    before = ops.LAUNCHES
+    wrapped = ops.flash_attention(tq, tk, tv, causal)
+    assert ops.LAUNCHES == before and wrapped.shape == (B, H, L, vd)
+    assert _err(wrapped.transpose(1, 2), want) < TOL
+    G = H // KV
+    oracle = attention_ref(tq, tk.repeat_interleave(G, 1),
+                           tv.repeat_interleave(G, 1), causal)
+    assert _err(oracle.transpose(1, 2), want) < TOL
+    if vd == hd:
+        idx = np.arange(L)
+        mask = (idx[:, None] >= idx[None, :] if causal
+                else np.ones((L, L), bool))[None, None]
+        dense = JA._sdpa(rcfg, jnp.asarray(q), jnp.asarray(k),
+                         jnp.asarray(v), jnp.asarray(mask))
+        assert _err(oracle.transpose(1, 2), dense) < TOL
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
 def test_dense_sdpa_matches_reference(dtype, causal):

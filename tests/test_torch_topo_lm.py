@@ -196,12 +196,12 @@ def test_what_is_not_ported_raises_naming_the_roadmap():
             cfg.replace(topo_attn_impl="torch"), model,
             TA.init_cache(cfg, 1, 16, device="cpu"), torch.zeros(1, 8).long(),
             torch.tensor([8]), 16, tree_mask={})
-    with pytest.raises(NotImplementedError, match="A10"):
-        TA.init_params(cfg.replace(mla=True), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A10b"):
+        TA.init_params(cfg.replace(family="vlm"), 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="A10b"):
         TA.init_cache(cfg.replace(is_encdec=True), 1, 16, device="cpu")
     with pytest.raises(ValueError, match="not ported"):
-        get_smoke_config("qwen2_1_5b")
+        get_smoke_config("recurrentgemma_2b")
 
 
 def _grads(cfg, model, toks):

@@ -80,8 +80,8 @@ def test_training_loss_decreases(tmp_path):
 
 
 def test_training_with_microbatches_and_compression(tmp_path):
-    """The reference's case takes qwen2_1_5b, which the port does not have
-    yet (ROADMAP A10): the smoke Llama-3.2-1B with the topo mask at degree
+    """The reference's case takes qwen2_1_5b (test_torch_lm_configs.py runs
+    it on the port); here the smoke Llama-3.2-1B with the topo mask at degree
     2 on impl "cuda" (the fused sweep's autograd.Function), 2 microbatches
     and int8 compression; the accumulated grads are the microbatches'
     mean."""
@@ -154,9 +154,9 @@ def test_cross_entropy_loss_is_the_reference_formula():
 
 
 def test_loss_refuses_what_is_not_ported():
-    cfg = get_smoke_config("llama3_2_1b", dtype="float32", mtp_depth=1)
-    model = api.init_params(cfg.replace(mtp_depth=0), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
+    cfg = get_smoke_config("llama3_2_1b", dtype="float32", family="vlm")
+    model = api.init_params(cfg.replace(family="dense"), 0, device="cpu")
+    with pytest.raises(NotImplementedError, match="A10b"):
         api.loss_fn(cfg, model, {"tokens": np.zeros((1, 8), np.int32)},
                     device="cpu")
 
