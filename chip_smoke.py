@@ -128,6 +128,25 @@ routing at depth (the share dropped at capacity, "cuda" against
 "chunked"), and times B5 at both new shapes beside
 `scaled_dot_product_attention`.
 
+The hybrid, encoder-decoder and vlm families (slice 13): 3c holds B5 under
+a local window (RecurrentGemma's MQA G = 10 at hd 256, W = 2,048: the
+served L = 4,096, a ragged L and L <= W), with Lq != Lk (Seamless's
+cross-attention, 512 x 3,072 and a ragged 37 x 3,001) and causal at
+LLaVA's GQA G = 7, f32 and bf16, against its plain version, and 3f the
+window and cross modes' grads; (r) gates, float32 at full width, "cuda"
+against "chunked": RecurrentGemma at 1 superblock + a tail rec (the ring's
+kpos equal), Seamless at 2 + 2 layers (prefill_fn, then decode replay),
+LLaVA at 2 layers (the text's prefill and decode, and prefill_fn over
+1,152 patches); `loss_fn` + backward of RecurrentGemma (window binding)
+and Seamless; then serves (o) RecurrentGemma-2B (26 layers, 8 "window"
+launches a prefill) on slice 2's requests, (p) SeamlessM4T-medium (12 +
+12 layers; prefill_fn over 4 x (3,072 frames + 512 tokens): 12 "full",
+12 "causal", 12 "cross" launches; 64 decode_fn steps of replay) and (q)
+LLaVA-NeXT-34B (60 layers, 64.1 GiB; prefill_fn over 1,152 patches ahead
+of the text, then prefill_into_cache and 32 decode steps on the text,
+its lengths halved to fit the card), and times the new modes beside
+`scaled_dot_product_attention` (the window as an explicit mask).
+
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
 
@@ -940,13 +959,45 @@ def routing_diff(a: list, b: list) -> int:
                for (ea, ka), (eb, kb) in zip(a, b))
 
 
-def phase_gate(label, cfg, plain_cfg, ops, device, req=None):
+def _flat(tree, prefix=""):
+    """{dotted path: leaf} of a nested dict (a decode cache)."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_flat(val, f"{prefix}{key}."))
+        else:
+            out[f"{prefix}{key}"] = val
+    return out
+
+
+def _cache_by_layer(cfg, got, want) -> list:
+    """Each layer's cache error, relative to the largest of its whole leaf
+    (the gated measure), in layer order: how the difference grows with
+    depth."""
+    from repro_torch.models import lm
+
+    where = {layer: (path, j, stacked)
+             for path, _, layers, stacked in lm.slots(cfg)
+             for j, layer in enumerate(layers)}
+    out = []
+    for layer in range(len(where)):
+        path, j, stacked = where[layer]
+        g, w = lm._node(got, path), lm._node(want, path)
+        out.append(max(float((g[k][j] if stacked else g[k]).double().sub(
+            (w[k][j] if stacked else w[k]).double()).abs().max())
+            / max(float(w[k].double().abs().max()), 1e-30) for k in w))
+    return out
+
+
+def phase_gate(label, cfg, plain_cfg, ops, device, req=None, expect=None):
     """4b/4c gate: float32 (TF32 off), the same weights served through the
     kernel (`cfg`) and through its plain version (`plain_cfg`): prefill
     logits, cache (every segment) and the first decode steps agree; one
     kernel launch per layer in the prefill, none in decode and none on the
     plain run; decode vs prefill of the extended prompt is printed, not
-    gated. `req` takes other requests than TOPO's ("lengths", "Lp", "S").
+    gated. `req` takes other requests than TOPO's ("lengths", "Lp", "S");
+    `expect` other launches per prefill than one a layer (the hybrid's
+    attention layers only).
     With MoE layers the gate first holds the routing: each MoE layer's
     expert ids and kept mask in the prefill must be equal between the two
     runs; differing assignments are counted (decode's too, printed)."""
@@ -971,29 +1022,25 @@ def phase_gate(label, cfg, plain_cfg, ops, device, req=None):
 
     got, r_got = traced(cfg, max(n, 2))
     want, r_want = traced(plain_cfg, n, got[3])
-    if got[4] != cfg.num_layers or got[5] != 0:
+    expect = cfg.num_layers if expect is None else expect
+    if got[4] != expect or got[5] != 0:
         raise AssertionError(f"{label} float32: {got[4]} kernel launches in "
-                             f"the prefill for {cfg.num_layers} layers, "
-                             f"{got[5]} in decode")
+                             f"the prefill, expected {expect} for "
+                             f"{cfg.num_layers} layers; {got[5]} in decode")
     if want[4] or want[5]:
         raise AssertionError(f"{label}: the plain run launched the kernel")
     route_pre = routing_diff(r_got[:n_moe], r_want[:n_moe])
     route_dec = routing_diff(r_got[n_moe:n_moe * (n + 1)], r_want[n_moe:])
     _check_served(cfg, got[0], got[2], got[3])
     e_logits = rel_err(got[0], want[0])
-    leaves = [(seg, k) for seg in want[1] for k in want[1][seg]]
-    e_cache = max(rel_err(got[1][seg][k], want[1][seg][k])
-                  for seg, k in leaves)
-    # the cache error of each layer, relative to the whole leaf's max (the
-    # gated measure): how the difference grows with depth
-    by_layer = []
-    for seg in want[1]:
-        top = {k: float(t.abs().max()) for k, t in want[1][seg].items()}
-        by_layer += [max(float((got[1][seg][k][i].double()
-                                - want[1][seg][k][i].double()).abs().max())
-                         / max(top[k], 1e-30) for k in top)
-                     for i in range(next(iter(want[1][seg].values()))
-                                    .shape[0])]
+    g_flat, w_flat = _flat(got[1]), _flat(want[1])
+    leaves = list(w_flat)
+    # integer leaves (the local ring's kpos) must be equal
+    if any(not torch.equal(g_flat[k], w) for k, w in w_flat.items()
+           if not w.is_floating_point()):
+        raise AssertionError(f"{label}: an integer cache leaf differs")
+    e_cache = max(rel_err(g_flat[k], w_flat[k]) for k in leaves)
+    by_layer = _cache_by_layer(cfg, got[1], want[1])
     e_steps = [rel_err(a, b) for a, b in zip(got[2][:n], want[2])]
     ok = (route_pre == 0 and e_logits <= LOGIT_TOL and e_cache <= CACHE_TOL
           and max(e_steps) <= LOGIT_TOL)
@@ -1018,7 +1065,8 @@ def phase_gate(label, cfg, plain_cfg, ops, device, req=None):
              if n_moe else "") +
           f"kernel vs plain "
           f"prefill logits {e_logits:.2e} (< {LOGIT_TOL}), cache "
-          f"{'/'.join(k for _, k in leaves)} {e_cache:.2e} (< {CACHE_TOL}), "
+          f"{'/'.join(sorted({k.split('.')[-1] for k in leaves}))} "
+          f"{e_cache:.2e} (< {CACHE_TOL}), "
           f"decode steps 1-{n} {max(e_steps):.2e} (< {LOGIT_TOL}); {got[4]} "
           f"launches in the prefill, {got[5]} in decode | not gated: decode "
           f"vs prefill of the extended prompt {e_dp[0]:.2e}, {e_dp[1]:.2e}; "
@@ -1037,13 +1085,14 @@ def phase_gate(label, cfg, plain_cfg, ops, device, req=None):
             "launches_in_decode": got[5], "decode_vs_prefill": e_dp}
 
 
-def phase_serve(label, cfg, ops, device, card, scopes=()):
+def phase_serve(label, cfg, ops, device, card, scopes=(), expect=None):
     """4b/4c main path + 5b/5c times at the config's dtype (bf16): 4
     requests, prefill_into_cache then 32 greedy decode steps, with the
     kernel count from 0 just before and read just after; then prefill and
     decode times, the peak device memory of the served run, and the
     profiles of one prefill and one decode step (with `scopes`' device
-    ms)."""
+    ms). `expect`: the launches of the main path, one a layer unless
+    given."""
     import torch
     from repro_torch.models import api
 
@@ -1061,9 +1110,10 @@ def phase_serve(label, cfg, ops, device, card, scopes=()):
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     launches = ops.LAUNCHES
     launches_by_mode = dict(by_mode)
-    if launches != cfg.num_layers:
+    expect = cfg.num_layers if expect is None else expect
+    if launches != expect:
         raise AssertionError(f"{label}: {launches} kernel launches on the "
-                             f"main path, expected {cfg.num_layers}")
+                             f"main path, expected {expect}")
     _check_served(cfg, logits, step_logits, fed)
     S, B = TOPO["S"], len(lengths)
     pre_ms = host_ms(lambda: api.prefill_into_cache(
@@ -1260,14 +1310,20 @@ def _kernel_ops(variant: str):
     return flash_ops if variant == "full" else linear_ops
 
 
-def flash_work(B, H, KV, L, hd, causal, nbytes_el, vd=None):
+def flash_work(B, H, KV, L, hd, causal, nbytes_el, vd=None, Lk=None,
+               window=0):
     """(bytes, operations) of one call: q, k, v and out each moved once;
     q k^T and P v over the (query, key) pairs the mask keeps (2 hd + 2 vd
     operations a pair, v's head dim vd = hd unless given; the softmax's
-    exps not counted)."""
-    vd = vd or hd
-    pairs = L * (L + 1) // 2 if causal else L * L
-    nbytes = nbytes_el * (B * H * L * (hd + vd) + B * KV * L * (hd + vd))
+    exps not counted). Lk: the keys' length (cross-attention; L unless
+    given); window: a causal window of that many keys (query i keeps
+    min(i + 1, window) pairs)."""
+    vd, Lk = vd or hd, Lk or L
+    if causal and window:
+        pairs = sum(min(i + 1, window) for i in range(L))
+    else:
+        pairs = L * (L + 1) // 2 if causal else L * Lk
+    nbytes = nbytes_el * (B * H * L * (hd + vd) + B * KV * Lk * (hd + vd))
     return nbytes, B * H * pairs * 2 * (hd + vd)
 
 
@@ -2294,14 +2350,15 @@ def _train_cfg(degree: int, impl: str = "cuda", dtype: str | None = None,
 def _leaf(name: str) -> str:
     """The grads' unit of comparison: a block parameter stacked over the
     layers (the reference's leaf), the mask scalars (coeffs and
-    logit_scale) as one: a0 and logit_scale cancel in the normalization, so
+    logit_scale) as one (`blocks` or another stack of layers, an encoder's
+    and a decoder's apart): a0 and logit_scale cancel in the normalization, so
     their exact grads are 0 but for phi's +1e-6, and what the card gives
     for them is rounding."""
     parts = name.split(".")
-    if parts[0] != "blocks":
+    if len(parts) < 3 or not parts[1].isdigit():
         return name
-    return "blocks.topo" if parts[2] == "topo" else ".".join(
-        ["blocks"] + parts[2:])
+    return f"{parts[0]}.topo" if parts[2] == "topo" else ".".join(
+        [parts[0]] + parts[2:])
 
 
 def _grad_errors(got: dict, want: dict):
@@ -2320,7 +2377,7 @@ def _grad_errors(got: dict, want: dict):
 
 
 def phase_train_gate(label, cfg, plain_cfg, ops, device, floor_cfg=None,
-                     batch=None, seq=None):
+                     batch=None, seq=None, launches=None):
     """4f: float32 (TF32 off), one `api.loss_fn` + backward through the
     kernels (`cfg`) and through the plain versions (`plain_cfg`) from the
     same weights and batch: the loss within TRAIN_LOSS_TOL relative, each
@@ -2340,21 +2397,26 @@ def phase_train_gate(label, cfg, plain_cfg, ops, device, floor_cfg=None,
     one layer both paths feed the relu the same bits, and the caller
     holds the relu grads there at TRAIN_GRAD_TOL.
 
-    `batch` and `seq` replace TRAIN's gate batch. A model with the MTP
-    head launches one kernel more a forward (the MTP block's attention,
-    not recomputed by the remat)."""
+    `batch` and `seq` replace TRAIN's gate batch; the vlm's patches and the
+    encdec's frames come from the stream as the training loop draws them.
+    A model with the MTP head launches one kernel more a forward (the MTP
+    block's attention, not recomputed by the remat); `launches` (forward,
+    backward) replaces the expected counts (the hybrid's and encdec's
+    attention calls)."""
     import torch
     from repro_torch.data.synthetic import SyntheticLMStream
     from repro_torch.models import api, lm
 
     batch, seq = batch or TRAIN["gate_batch"], seq or TRAIN["gate_seq"]
     model = api.init_params(cfg, TRAIN["seed"], device=device)
-    toks = SyntheticLMStream(cfg.vocab_size, batch, seq,
-                             seed=TRAIN["seed"]).batch_at(0)["tokens"]
+    data = SyntheticLMStream(
+        cfg.vocab_size, batch, seq, seed=TRAIN["seed"],
+        vlm_prefix=cfg.num_prefix_embeddings if cfg.family == "vlm" else 0,
+        encdec_src=cfg.max_source_len if cfg.is_encdec else 0).batch_at(0)
 
     def loss_and_grads(c):
         before = ops.LAUNCHES
-        loss, _ = api.loss_fn(c, model, {"tokens": toks}, device=device)
+        loss, _ = api.loss_fn(c, model, data, device=device)
         fwd = ops.LAUNCHES - before
         grads = torch.autograd.grad(loss, list(model.parameters()))
         torch.cuda.synchronize()
@@ -2371,16 +2433,23 @@ def phase_train_gate(label, cfg, plain_cfg, ops, device, floor_cfg=None,
     n = cfg.num_layers
     remat = lm._remat(cfg)
     n_fwd = n + (1 if cfg.mtp_depth > 0 else 0)
-    if (fwd_k, bwd_k, fwd_p, bwd_p) != (n_fwd, n if remat else 0, 0, 0):
+    launches = launches or (n_fwd, n if remat else 0)
+    if (fwd_k, bwd_k, fwd_p, bwd_p) != (*launches, 0, 0):
         raise AssertionError(f"{label}: launches forward {fwd_k}, backward "
-                             f"{bwd_k} (expected {n_fwd}, "
-                             f"{n if remat else 0}); plain {fwd_p}, {bwd_p}")
+                             f"{bwd_k} (expected {launches}); plain "
+                             f"{fwd_p}, {bwd_p}")
     errs, own = _grad_errors(got, want)
     del got
     worst = max(errs, key=errs.get)
     worst_own = max(own, key=own.get)
-    by_layer = [max(e for k, e in errs.items()
-                    if k.startswith(f"blocks.{i}.")) for i in range(n)]
+    layer_of = {}  # (stack, layer) in order, e.g. ("blocks_dec", 1)
+    for k, e in errs.items():
+        parts = k.split(".")
+        if len(parts) > 2 and parts[1].isdigit():
+            key = (parts[0], int(parts[1]))
+            layer_of[key] = max(layer_of.get(key, 0.0), e)
+    by_layer = list(layer_of.values())
+    n = len(by_layer)
     e_loss = abs(loss_k - loss_p) / abs(loss_p)
     uses_phi = cfg.family == "dense" and cfg.attention_variant != "full"
     grad_tol, floor = TRAIN_GRAD_TOL, None
@@ -2398,7 +2467,11 @@ def phase_train_gate(label, cfg, plain_cfg, ops, device, floor_cfg=None,
     phi = f"phi {cfg.performer_phi}, " if uses_phi else ""
     print(f"[{label} train gate] float32, {phi}matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}, {n} layers, width "
-          f"{cfg.d_model}, B={batch} L={seq}, "
+          f"{cfg.d_model}, B={batch} L={seq}"
+          + (f" (+ {cfg.num_prefix_embeddings} patches)"
+             if cfg.family == "vlm" else "")
+          + (f" (+ {cfg.max_source_len} source frames)"
+             if cfg.is_encdec else "") + ", "
           f"remat {remat}: loss {loss_k:.6f} vs {loss_p:.6f}, rel "
           f"{e_loss:.2e} (< {TRAIN_LOSS_TOL}); grads worst {errs[worst]:.2e}"
           f" ({worst}) of the leaf's max (< {grad_tol:.2e}" + (
@@ -3874,14 +3947,14 @@ def phase_flash_wide_vs_plain(device):
     return rows, served
 
 
-def _sdpa_backend(q, k, v, causal) -> str:
+def _sdpa_backend(q, k, v, causal, mask=None, **kw) -> str:
     """The backend `scaled_dot_product_attention` picks for these inputs:
     the choice its own dispatcher makes (`torch._fused_sdp_choice`)."""
     import torch
     from torch.nn.attention import SDPBackend
 
-    return SDPBackend(torch._fused_sdp_choice(q, k, v, None, 0.0,
-                                              causal)).name
+    return SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0, causal,
+                                              **kw)).name
 
 
 def phase_flash_wide_times(served, card):
@@ -4019,8 +4092,8 @@ def phase_deepseek(card, device):
         cfg = _wide_cfg(arch)
         serves[arch] = phase_serve(arch, cfg, flash_ops, device, card,
                                    scopes=MOE_SCOPES if cfg.moe else ())
-        if serves[arch]["launches_by_mode"] != {"causal": cfg.num_layers,
-                                                "full": 0}:
+        if serves[arch]["launches_by_mode"] != {
+                "causal": cfg.num_layers, "full": 0, "window": 0, "cross": 0}:
             raise AssertionError(f"{arch}: B5 launches by mode "
                                  f"{serves[arch]['launches_by_mode']}")
         torch.cuda.empty_cache()
@@ -4055,6 +4128,640 @@ def phase_deepseek(card, device):
               "deepseek_train_gate": train_gate, "deepseek_serve": serves,
               "deepseek_routing": routing, "flash_wide_times": times}
     return record, kernels
+
+
+# ----------------------------------------------------------------------------
+# slice 13: the hybrid, encoder-decoder and vlm families (ROADMAP A10b):
+# RecurrentGemma-2B (local attention: B5 under a window), SeamlessM4T-medium
+# (an encoder, a decoder and cross-attention: B5 with Lq != Lk) and
+# LLaVA-NeXT-34B (GQA 56/8 over projected patches ahead of the text)
+# ----------------------------------------------------------------------------
+
+A10B = {"hybrid": "recurrentgemma_2b", "encdec": "seamless_m4t_medium",
+        "vlm": "llava_next_34b",
+        # 3c: (B, H, KV, L, W, hd) windowed: the served RecurrentGemma
+        # layer, a ragged L and L <= W; (B, H, KV, Lq, Lk, hd) cross: the
+        # served Seamless decoder layer and a ragged pair; (B, H, KV, L, hd)
+        # causal at LLaVA's GQA 56/8 (G = 7): its served prefill_fn layer
+        # (1,152 patches + the halved text's 2,048) and at the full text's
+        # 5,248
+        "window_shapes": [(4, 10, 1, 4096, 2048, 256),
+                          (4, 10, 1, 3001, 2048, 256),
+                          (4, 10, 1, 1537, 2048, 256)],
+        "cross_shapes": [(4, 16, 16, 512, 3072, 64),
+                         (4, 16, 16, 37, 3001, 64)],
+        "gqa7_shapes": [(4, 56, 8, 3200, 128), (4, 56, 8, 5248, 128)],
+        # 3f: the window and cross modes' grads, (B, H, KV, Lq, Lk, hd, W)
+        "grad_shapes": [(1, 10, 1, 1000, 1000, 256, 256),
+                        (2, 16, 16, 128, 700, 64, 0)],
+        # (p): B requests of `src` frames and a `prompt`-token decoder
+        # prompt; decode replay of `replay` prompt tokens, then greedy
+        # steps, `steps` decode_fn calls in all over a self cache of S
+        "encdec_req": {"B": 4, "src": 3072, "prompt": 512, "replay": 32,
+                       "steps": 64, "S": 576},
+        # (q): the vlm's patches ahead of the text: TOPO's requests with
+        # their lengths halved. At full length the text's prefill_into_cache
+        # ran out of the card's 79 GiB (73.6 GiB allocated beside 4.7 GiB
+        # reserved, the weights 64.1 GiB; PERF.md section 4)
+        "patches": 1152,
+        "vlm_req": {"lengths": (2048, 1500, 768, 2048), "Lp": 2048,
+                    "S": 2080},
+        # (r) float32 gates' depths; the training gates' (batch, seq) (the
+        # hybrid's longer than its window, so the window binds)
+        "gate_superblocks": 1, "gate_tail": ("rec",), "gate_layers": 2,
+        "train_hybrid": (1, 3072), "train_encdec": (2, 512),
+        "reps": 3}
+
+
+def _a10b_cfg(family, impl="cuda", dtype=None, **kw):
+    from repro_torch.configs.base import get_config
+
+    cfg = get_config(A10B[family], attn_impl=impl, **kw)
+    return cfg.replace(dtype=dtype) if dtype else cfg
+
+
+def _hybrid_gate_kw() -> dict:
+    """RecurrentGemma cut to 1 superblock (rec, rec, attn) and a tail rec."""
+    n, tail = A10B["gate_superblocks"], A10B["gate_tail"]
+    return dict(num_superblocks=n, tail_blocks=tail,
+                num_layers=3 * n + len(tail))
+
+
+def _encdec_gate_kw() -> dict:
+    n = A10B["gate_layers"]
+    return dict(encoder_layers=n, decoder_layers=n, num_layers=2 * n)
+
+
+def _flash_check(rows, label, got, plain, dtype):
+    """One 3c row: the kernel's output against the plain version, 2e-5
+    absolute in float32, one bf16 rounding + 2e-5 in bfloat16."""
+    import torch
+
+    if not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"flash kernel {label}: non-finite output")
+    row = {"kernel": "flash_attention", "case": label,
+           "dtype": str(dtype).split(".")[1],
+           "abs_err": float((got.float() - plain.float()).abs().max())}
+    if dtype == torch.float32:
+        ok = row["abs_err"] <= FLASH_TOL
+    else:
+        row["bf16_roundings"] = bf16_roundings(got, plain)
+        ok = row["bf16_roundings"] <= 1.0
+    if not ok:
+        raise AssertionError(f"flash kernel {row} (bound {FLASH_TOL} in "
+                             "float32, one bf16 rounding in bfloat16)")
+    rows.append(row)
+    return row
+
+
+def phase_flash_a10b_vs_plain(device):
+    """3c for the new modes: B5 under a window (RecurrentGemma's served
+    layer, MQA G = 10 at hd 256, W = 2048; a ragged L; L <= W), with Lq !=
+    Lk (Seamless's served cross-attention and a ragged pair) and causal at
+    LLaVA's G = 7, f32 and bf16, against its plain version; one launch
+    each, counted under its mode. Returns (rows, the served shapes' bf16
+    and f32 inputs)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    rng = np.random.default_rng(29)
+    rows, served = [], {}
+    cases = ([("window", (B, H, KV, L, L, hd), True, W)
+              for B, H, KV, L, W, hd in A10B["window_shapes"]]
+             + [("cross", shape, False, 0)
+                for shape in A10B["cross_shapes"]])
+    first = {"window": 0, "cross": len(A10B["window_shapes"]),
+             "causal": len(cases)}
+    cases += [("causal", (B, H, KV, L, L, hd), True, 0)
+              for B, H, KV, L, hd in A10B["gqa7_shapes"]]
+    for i, (mode, shape, causal, W) in enumerate(cases):
+        B, H, KV, Lq, Lk, hd = shape
+        base = [torch.tensor(rng.normal(size=(B, n, L, hd)),
+                             dtype=torch.float32, device=device)
+                for n, L in ((H, Lq), (KV, Lk), (KV, Lk))]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = (t.to(dtype) for t in base)
+            before = dict(flash_ops.LAUNCHES_BY_MODE)
+            got = flash_ops.flash_attention(q, k, v, causal, window=W)
+            torch.cuda.synchronize()
+            if (flash_ops.LAUNCHES_BY_MODE[mode] != before[mode] + 1
+                    or got.shape != q.shape):
+                raise AssertionError(f"flash kernel {mode} {shape}: not one "
+                                     f"{mode} launch, or {tuple(got.shape)}")
+            plain = flash_ops.flash_attention(q, k, v, causal, window=W,
+                                              use_kernel=False)
+            row = _flash_check(rows, f"{mode} {shape} W={W}", got, plain,
+                               dtype)
+            row.update(mode=mode, shape=shape, window=W)
+            if i == first[mode]:
+                served[(mode, row["dtype"])] = (q, k, v, W)
+            del q, k, v, got, plain
+        del base
+        torch.cuda.empty_cache()
+    worst = {}
+    for r in rows:
+        key = (r["mode"], r["dtype"])
+        worst[key] = max(worst.get(key, 0.0),
+                         r.get("bf16_roundings", r["abs_err"]))
+    modes = ("window", "cross", "causal")
+    print(f"[flash a10b vs plain] {len(rows)} checks: window "
+          f"{A10B['window_shapes']} (B, H, KV, L, W, hd), cross "
+          f"{A10B['cross_shapes']} (B, H, KV, Lq, Lk, hd), causal G = 7 "
+          f"{A10B['gqa7_shapes']}, f32/bf16 | worst abs err f32: " + ", ".join(
+              f"{m} {worst[(m, 'float32')]:.2e}" for m in modes)
+          + f" (< {FLASH_TOL}); bf16 roundings: " + ", ".join(
+              f"{m} {worst[(m, 'bfloat16')]:.3f}" for m in modes)
+          + " (<= 1)", flush=True)
+    return rows, served
+
+
+def phase_flash_a10b_grads(device):
+    """3f for the new modes: the window and cross modes' grads through the
+    kernel path (the plain VJP with the forward's window and k/v length)
+    against the plain path's, one launch a forward, none in the
+    backward."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    rng = np.random.default_rng(31)
+    rows = []
+    for B, H, KV, Lq, Lk, hd, W in A10B["grad_shapes"]:
+        ins = [torch.tensor(rng.normal(size=(B, n, L, hd)),
+                            dtype=torch.float32, device=device)
+               for n, L in ((H, Lq), (KV, Lk), (KV, Lk))]
+
+        def flash(q, k, v, use_kernel, causal=Lq == Lk, W=W):
+            return flash_ops.flash_attention(q, k, v, causal, window=W,
+                                             use_kernel=use_kernel)
+
+        rows.append(_kernel_grads(
+            "flash_attention", lambda: flash_ops.LAUNCHES, flash, ins,
+            [True, True, True], f"flash {'window' if W else 'cross'} "
+            f"{(B, H, KV, Lq, Lk, hd)} W={W} float32", 1, 0))
+    print("[flash a10b grads] " + "; ".join(
+        f"{r['case']}: rel err {r['rel_err']:.2e} (< {r['tol']}), launches "
+        f"{r['launches_forward']} forward, {r['launches_backward']} backward"
+        for r in rows), flush=True)
+    return rows
+
+
+def phase_flash_a10b_times(served, card):
+    """5c for the new modes: one launch's device time at the served shapes
+    (bf16, the main paths' launches; f32 beside it), its bound, the plain
+    version's time and one `scaled_dot_product_attention` call on the
+    same inputs (the window as an explicit boolean mask; GQA through
+    enable_gqa; a yardstick, never on the path)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    reps = A10B["reps"]
+    out = {}
+    for (mode, dtype), (q, k, v, W) in sorted(served.items()):
+        B, H, Lq, hd = q.shape
+        KV, Lk = k.shape[1], k.shape[2]
+        causal = mode != "cross"
+        k_ms = device_ms(lambda: flash_ops.flash_attention(q, k, v, causal,
+                                                           window=W), reps)
+        p_ms = device_ms(lambda: flash_ops.flash_attention(
+            q, k, v, causal, window=W, use_kernel=False), 1)
+        kw = {"enable_gqa": True} if KV != H else {}
+        mask = None
+        if W:
+            i = torch.arange(Lq, device=q.device)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :] < W)
+
+        def sdpa():
+            if mask is not None:
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      attn_mask=mask, **kw)
+            return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
+                                                  **kw)
+
+        try:
+            l_ms = device_ms(sdpa, reps)
+            backend = _sdpa_backend(q, k, v, causal and mask is None, mask,
+                                    **kw)
+        except (RuntimeError, TypeError) as err:  # no such call here
+            l_ms, backend = None, f"none: {str(err)[:80]}"
+        nbytes, ops_ = flash_work(B, H, KV, Lq, hd, causal,
+                                  q.element_size(), Lk=Lk, window=W)
+        b_ms, b_by = bound(nbytes, ops_, BF16_FLOPS_PER_S
+                           if dtype == "bfloat16" else FP32_FLOPS_PER_S)
+        out[f"flash_{mode}_{dtype}"] = {
+            "shape": (B, H, KV, Lq, Lk, hd), "window": W, "dtype": dtype,
+            "mode": mode, "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "library_backend": backend, "bytes": nbytes, "ops": ops_,
+            "bound_ms": b_ms, "bound_by": b_by}
+        lib = f"{l_ms:.3f} ms ({backend})" if l_ms is not None else backend
+        print(f"[attn times flash {mode} {dtype}] B={B} H={H} KV={KV} "
+              f"Lq={Lq} Lk={Lk} hd={hd} W={W}: kernel {k_ms:.3f} ms/launch, "
+              f"plain {p_ms:.3f} ms, sdpa {lib}, bound {b_ms:.3f} ms "
+              f"({b_by}; {b_ms / k_ms:.0%} of it reached) | {card}",
+              flush=True)
+    return out
+
+
+def _frames(B, S, device, seed=0):
+    """(B, S, 1024) seeded normals on the device: the stub frontends'
+    frames (encdec) or patch embeddings (vlm)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.tensor(rng.normal(size=(B, S, 1024)), dtype=torch.float32,
+                        device=device)
+
+
+def _encdec_prompts(cfg, device):
+    req = A10B["encdec_req"]
+    toks, _ = _prompts(cfg, {"lengths": (req["prompt"],) * req["B"],
+                             "Lp": req["prompt"]})
+    return {"tokens": toks, "src_embeds": _frames(req["B"], req["src"],
+                                                  device)}
+
+
+def phase_encdec_gate(cfg, plain_cfg, device):
+    """(r) for the encoder-decoder family, float32 at full width: prefill_fn
+    ("cuda" against "chunked" on the same weights: logits <= 1e-4; one B5
+    launch per attention call: encoder "full", decoder "causal" and
+    "cross"), then 4 decode steps of replay from the empty cache (logits
+    <= 1e-4, every cache leaf <= 1e-5, no launch)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import api
+
+    req = A10B["encdec_req"]
+    B, S = req["B"], req["S"]
+    model = api.init_params(cfg, TOPO["seed"], device=device)
+    batch = _encdec_prompts(cfg, device)
+    toks = batch["tokens"]
+    res = {}
+    for c in (cfg, plain_cfg):
+        before = dict(flash_ops.LAUNCHES_BY_MODE)
+        logits = api.prefill_fn(c, model, batch, device=device)
+        launched = {m: flash_ops.LAUNCHES_BY_MODE[m] - before[m]
+                    for m in before}
+        cache = api.init_cache(c, B, S, device=device)
+        steps, before = [], flash_ops.LAUNCHES
+        for t in range(TOPO["gate_steps"]):
+            lg, cache = api.decode_fn(c, model, cache, toks[:, t:t + 1], t, S,
+                                      device=device)
+            steps.append(lg)
+        torch.cuda.synchronize()
+        res[c.attn_impl] = (logits, launched, steps, cache,
+                            flash_ops.LAUNCHES - before)
+    got, want = res[cfg.attn_impl], res[plain_cfg.attn_impl]
+    n = cfg.decoder_layers
+    expect = {"causal": n, "full": cfg.encoder_layers, "window": 0,
+              "cross": n}
+    if got[1] != expect or got[4] or any(want[1].values()) or want[4]:
+        raise AssertionError(f"encdec gate: B5 launches {got[1]} (expected "
+                             f"{expect}), {got[4]} in decode; plain "
+                             f"{want[1]}, {want[4]}")
+    e_logits = rel_err(got[0], want[0])
+    e_steps = [rel_err(a, b) for a, b in zip(got[2], want[2])]
+    g_flat, w_flat = _flat(got[3]), _flat(want[3])
+    # the cross memory nothing writes is 0 on both paths
+    e_cache = max((rel_err(g_flat[k], w) if float(w.abs().max()) else
+                   float(g_flat[k].abs().max())) for k, w in w_flat.items())
+    ok = (e_logits <= LOGIT_TOL and max(e_steps) <= LOGIT_TOL
+          and e_cache <= CACHE_TOL)
+    print(f"[seamless gate] float32, matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, {cfg.encoder_layers} + "
+          f"{n} layers, width {cfg.d_model}, B={B}, {req['src']} frames, "
+          f"{req['prompt']}-token prompt: prefill_fn logits {e_logits:.2e} "
+          f"(< {LOGIT_TOL}), B5 launches {got[1]}; decode replay steps 1-"
+          f"{len(e_steps)} {max(e_steps):.2e} (< {LOGIT_TOL}), cache "
+          f"{e_cache:.2e} (< {CACHE_TOL}), {got[4]} launches", flush=True)
+    if not ok:
+        raise AssertionError("seamless: the kernel and plain paths disagree")
+    return {"label": "seamless", "layers": [cfg.encoder_layers, n],
+            "rel_err_prefill_logits": e_logits, "rel_err_decode": e_steps,
+            "rel_err_cache": e_cache, "launches_by_mode": got[1],
+            "launches_in_decode": got[4]}
+
+
+def _vlm_batch(cfg, device, req=None):
+    """`patches` patch embeddings ahead of the requests of `req` (TOPO's by
+    default)."""
+    toks, lengths = _prompts(cfg, req)
+    return {"tokens": toks, "patch_embeds": _frames(
+        len(lengths), A10B["patches"], device, seed=1)}, lengths
+
+
+def phase_vlm_prefill_gate(cfg, plain_cfg, device):
+    """(r) for the vlm's own prefill, float32 at full width: prefill_fn over
+    [projected patches ; TOPO's text], "cuda" against "chunked": logits <=
+    1e-4, one causal B5 launch a layer, none on the plain run."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import api
+
+    model = api.init_params(cfg, TOPO["seed"], device=device)
+    batch, _ = _vlm_batch(cfg, device)
+    out = {}
+    for c in (cfg, plain_cfg):
+        before = flash_ops.LAUNCHES
+        out[c.attn_impl] = (api.prefill_fn(c, model, batch, device=device),
+                            flash_ops.LAUNCHES - before)
+    torch.cuda.synchronize()
+    got, want = out[cfg.attn_impl], out[plain_cfg.attn_impl]
+    e = rel_err(got[0], want[0])
+    print(f"[llava prefill gate] float32, {cfg.num_layers} layers, width "
+          f"{cfg.d_model}, {A10B['patches']} patches + {TOPO['Lp']} tokens: "
+          f"prefill_fn logits {e:.2e} (< {LOGIT_TOL}), {got[1]} B5 launches "
+          f"(plain {want[1]})", flush=True)
+    if e > LOGIT_TOL or got[1] != cfg.num_layers or want[1]:
+        raise AssertionError("llava prefill: the kernel and plain paths "
+                             "disagree")
+    return {"label": "llava prefill_fn", "rel_err_prefill_logits": e,
+            "launches": got[1]}
+
+
+def _reset(ops):
+    ops.LAUNCHES = 0
+    for mode in ops.LAUNCHES_BY_MODE:
+        ops.LAUNCHES_BY_MODE[mode] = 0
+
+
+def phase_serve_encdec(cfg, device, card):
+    """(p) main path: SeamlessM4T-medium at full width and depth in bf16 as
+    the reference serves the family: prefill_fn over B requests of `src`
+    frames and a `prompt`-token decoder prompt (the memory path: 12 "full",
+    12 "causal" and 12 "cross" B5 launches), then decode replay through
+    decode_fn from the empty cache, `replay` prompt tokens fed and the
+    rest greedy, `steps` calls in all (no launch); B5's counts from 0
+    around both. Then times, peak memory and the profiles of one prefill
+    and one decode step."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import api
+
+    req = A10B["encdec_req"]
+    B, S = req["B"], req["S"]
+    model = api.init_params(cfg, TOPO["seed"], device=device)
+    batch = _encdec_prompts(cfg, device)
+    toks_t = torch.as_tensor(batch["tokens"], device=device).long()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(flash_ops)
+    t0 = time.perf_counter()
+    logits = api.prefill_fn(cfg, model, batch, device=device)
+    cache = api.init_cache(cfg, B, S, device=device)
+    tok, step_logits, fed = toks_t[:, :1], [], []
+    for t in range(req["steps"]):
+        lg, cache = api.decode_fn(cfg, model, cache, tok, t, S, device=device)
+        step_logits.append(lg)
+        tok = (toks_t[:, t + 1:t + 2] if t + 1 < req["replay"]
+               else lg[:, 0].argmax(-1)[:, None])
+        fed.append(tok)
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = dict(flash_ops.LAUNCHES_BY_MODE)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    n = cfg.decoder_layers
+    if launches != {"full": cfg.encoder_layers, "causal": n, "cross": n,
+                    "window": 0}:
+        raise AssertionError(f"seamless serve: B5 launches {launches}")
+    _check_served(cfg, logits[:, 0], step_logits, fed)
+    reps = A10B["reps"]
+    pre_ms = host_ms(lambda: api.prefill_fn(cfg, model, batch,
+                                            device=device), reps)
+    dec_ms = host_ms(lambda: api.decode_fn(cfg, model, cache, tok,
+                                           req["steps"], S, device=device),
+                     TOPO["decode_reps"])
+    out = {"label": "seamless", "dtype": cfg.dtype,
+           "launches_by_mode": launches, "launches": sum(launches.values()),
+           "serve_seconds": serve_s, "prefill_ms": pre_ms,
+           "prefill_positions_per_s": B * (req["src"] + req["prompt"])
+           / (pre_ms / 1e3), "decode_ms_per_step": dec_ms,
+           "decode_tokens_per_s": B / (dec_ms / 1e3),
+           "params": api.param_count(model), "peak_gib": peak_gib,
+           "card": card}
+    print(f"[seamless serve] {cfg.name} encdec, {cfg.dtype}, "
+          f"{cfg.encoder_layers} + {n} layers, {out['params']} params: "
+          f"prefill_fn of {B} x ({req['src']} frames + {req['prompt']} "
+          f"tokens), {req['steps']} decode_fn steps ({req['replay']} "
+          f"replayed) in {serve_s:.2f} s, B5 launches {launches} | prefill "
+          f"{pre_ms:.1f} ms ({out['prefill_positions_per_s']:.0f} "
+          f"positions/s), decode {dec_ms:.2f} ms/step "
+          f"({out['decode_tokens_per_s']:.0f} tok/s), peak {peak_gib:.2f} "
+          f"GiB | {card}", flush=True)
+    out["profile_prefill"] = phase_calls_profile(
+        "seamless prefill", lambda: api.prefill_fn(cfg, model, batch,
+                                                   device=device))
+    out["profile_decode"] = phase_calls_profile(
+        "seamless decode step", lambda: api.decode_fn(
+            cfg, model, cache, tok, req["steps"], S, device=device), calls=4)
+    return out
+
+
+def phase_serve_vlm(cfg, device, card):
+    """(q) main path: LLaVA-NeXT-34B at full width and depth in bf16:
+    prefill_fn over `patches` patch embeddings ahead of the text of
+    `vlm_req` (one causal B5 launch a layer at L = patches + Lp), then, as
+    the reference serves the family, prefill_into_cache and TOPO's greedy
+    decode steps on the text (one more launch a layer, none in decode);
+    B5's counts from 0 around all of it. Then times, peak memory and the
+    profiles of one prefill_fn and one decode step. The run fails past 76
+    GiB of device memory."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import api
+
+    req = A10B["vlm_req"]
+    model = api.init_params(cfg, TOPO["seed"], device=device)
+    batch, lengths = _vlm_batch(cfg, device, req)
+    toks = batch["tokens"]
+    B, S = len(lengths), req["S"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(flash_ops)
+    t0 = time.perf_counter()
+    vlm_logits = api.prefill_fn(cfg, model, batch, device=device)
+    logits, cache = api.prefill_into_cache(
+        cfg, model, api.init_cache(cfg, B, S, device=device), toks, lengths,
+        S, device=device)
+    pos = torch.as_tensor(lengths, device=device).long()
+    tok, step_logits, fed = logits.argmax(-1)[:, None], [], []
+    for _ in range(TOPO["steps"]):
+        lg, cache = api.decode_fn(cfg, model, cache, tok, pos, S,
+                                  device=device)
+        step_logits.append(lg)
+        tok = lg[:, 0].argmax(-1)[:, None]
+        fed.append(tok)
+        pos = pos + 1
+    torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t0
+    launches = dict(flash_ops.LAUNCHES_BY_MODE)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    if launches != {"causal": 2 * cfg.num_layers, "full": 0, "window": 0,
+                    "cross": 0}:
+        raise AssertionError(f"llava serve: B5 launches {launches}")
+    _check_served(cfg, vlm_logits[:, 0], [], [vlm_logits.argmax(-1)])
+    _check_served(cfg, logits, step_logits, fed)
+    reps = A10B["reps"]
+    pre_ms = host_ms(lambda: api.prefill_fn(cfg, model, batch,
+                                            device=device), reps)
+    text_ms = host_ms(lambda: api.prefill_into_cache(
+        cfg, model, api.init_cache(cfg, B, S, device=device), toks, lengths,
+        S, device=device), 1)
+    # a step at the first decode positions again (pos after the run is S)
+    pos = torch.as_tensor(lengths, device=device).long() + 1
+    dec_ms = host_ms(lambda: api.decode_fn(cfg, model, cache, tok, pos, S,
+                                           device=device),
+                     TOPO["decode_reps"])
+    n_pos = B * (A10B["patches"] + req["Lp"])
+    out = {"label": "llava", "dtype": cfg.dtype,
+           "launches_by_mode": launches, "launches": launches["causal"],
+           "serve_seconds": serve_s, "prefill_ms": pre_ms,
+           "prefill_positions_per_s": n_pos / (pre_ms / 1e3),
+           "text_prefill_into_cache_ms": text_ms,
+           "decode_ms_per_step": dec_ms,
+           "decode_tokens_per_s": B / (dec_ms / 1e3),
+           "params": api.param_count(model), "peak_gib": peak_gib,
+           "card": card}
+    print(f"[llava serve] {cfg.name} vlm, {cfg.dtype}, {cfg.num_layers} "
+          f"layers, {out['params']} params: prefill_fn of {B} x "
+          f"({A10B['patches']} patches + {req['Lp']} tokens), then "
+          f"prefill_into_cache of the text (lengths {req['lengths']}, "
+          f"S={S}) and {TOPO['steps']} greedy steps in {serve_s:.2f} s, B5 "
+          f"launches {launches} | prefill_fn {pre_ms:.1f} ms "
+          f"({out['prefill_positions_per_s']:.0f} positions/s), text "
+          f"prefill_into_cache {text_ms:.1f} ms, decode {dec_ms:.2f} ms/step"
+          f" ({out['decode_tokens_per_s']:.0f} tok/s), peak {peak_gib:.2f} "
+          f"GiB | {card}", flush=True)
+    if peak_gib > 76.0:
+        raise AssertionError(f"llava serve: peak {peak_gib:.2f} GiB > 76 "
+                             "GiB: halve the text lengths")
+    out["profile_prefill"] = phase_calls_profile(
+        "llava prefill_fn", lambda: api.prefill_fn(cfg, model, batch,
+                                                   device=device))
+    out["profile_decode"] = phase_calls_profile(
+        "llava decode step", lambda: api.decode_fn(
+            cfg, model, cache, tok, pos, S, device=device), calls=4)
+    return out
+
+
+def phase_a10b_checks(device):
+    """Slice 13's checks before its served paths: 3c and 3f for B5's window
+    and cross modes and LLaVA's G = 7; the float32 gates (r) for
+    RecurrentGemma (1 superblock + a tail rec), Seamless (2 + 2) and LLaVA
+    (2 layers: the text path, and prefill_fn over the patches); the
+    training gates (loss_fn + backward in float32: RecurrentGemma at 4
+    layers with the window binding, Seamless at 2 + 2). Returns (record,
+    the served shapes' inputs for 5c)."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    checks, served = phase_flash_a10b_vs_plain(device)
+    grads = phase_flash_a10b_grads(device)
+    torch.cuda.empty_cache()
+    hcfg = _a10b_cfg("hybrid", "cuda", "float32", **_hybrid_gate_kw())
+    n_attn = A10B["gate_superblocks"]
+    gates = [phase_gate("recurrentgemma", hcfg,
+                        hcfg.replace(attn_impl="chunked"), flash_ops, device,
+                        expect=n_attn)]
+    torch.cuda.empty_cache()
+    ecfg = _a10b_cfg("encdec", "cuda", "float32", **_encdec_gate_kw())
+    gates.append(phase_encdec_gate(ecfg, ecfg.replace(attn_impl="chunked"),
+                                   device))
+    torch.cuda.empty_cache()
+    vcfg = _a10b_cfg("vlm", "cuda", "float32",
+                     num_layers=A10B["gate_layers"])
+    gates.append(phase_gate("llava", vcfg, vcfg.replace(attn_impl="chunked"),
+                            flash_ops, device))
+    gates.append(phase_vlm_prefill_gate(
+        vcfg, vcfg.replace(attn_impl="chunked"), device))
+    torch.cuda.empty_cache()
+    hb, hl = A10B["train_hybrid"]
+    train = [phase_train_gate("recurrentgemma", hcfg,
+                              hcfg.replace(attn_impl="chunked"), flash_ops,
+                              device, batch=hb, seq=hl,
+                              launches=(n_attn, n_attn))]
+    torch.cuda.empty_cache()
+    eb, el = A10B["train_encdec"]
+    calls = ecfg.encoder_layers + 2 * ecfg.decoder_layers
+    train.append(phase_train_gate("seamless", ecfg,
+                                  ecfg.replace(attn_impl="chunked"),
+                                  flash_ops, device, batch=eb, seq=el,
+                                  launches=(calls, calls)))
+    torch.cuda.empty_cache()
+    return {"a10b_flash_checks": checks, "a10b_flash_grads": grads,
+            "a10b_gates": gates, "a10b_train_gates": train}, served
+
+
+def phase_a10b_serve(card, device):
+    """Slice 13's main paths: (o) RecurrentGemma-2B, (p) SeamlessM4T-medium
+    and (q) LLaVA-NeXT-34B served at full width and depth in bf16, B5's
+    counts from 0 around each."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    # (o): TOPO's requests, one "window" launch per attention layer (8) in
+    # the prefill, none in decode
+    cfg = _a10b_cfg("hybrid")
+    n_attn = cfg.num_superblocks * cfg.superblock.count("attn")
+    hybrid = phase_serve("recurrentgemma", cfg, flash_ops, device, card,
+                         expect=n_attn)
+    if hybrid["launches_by_mode"] != {"window": n_attn, "causal": 0,
+                                      "full": 0, "cross": 0}:
+        raise AssertionError(f"recurrentgemma serve: B5 launches "
+                             f"{hybrid['launches_by_mode']}")
+    torch.cuda.empty_cache()
+    encdec = phase_serve_encdec(_a10b_cfg("encdec"), device, card)
+    torch.cuda.empty_cache()
+    vlm = phase_serve_vlm(_a10b_cfg("vlm"), device, card)
+    torch.cuda.empty_cache()
+    return {"recurrentgemma": hybrid, "seamless": encdec, "llava": vlm}
+
+
+def a10b_kernel_rows(checks, serves, times) -> list:
+    """The kernels line's rows of B5's new modes: each at its served shape,
+    its launches those of its served run."""
+    rows = []
+    for mode, label, arch, what in (
+            ("window", "recurrentgemma", A10B["hybrid"],
+             "local attention layer"),
+            ("cross", "seamless", A10B["encdec"], "decoder cross-attention"),
+            ("causal", "llava", A10B["vlm"], "prefill_fn layer (GQA 56/8)")):
+        t = times[f"flash_{mode}_bfloat16"]
+        B, H, KV, Lq, Lk, hd = t["shape"]
+        errs = [r["abs_err"] for r in checks if r["mode"] == mode
+                and r["dtype"] == "bfloat16" and r["shape"] == t["shape"]]
+        rows.append({
+            "name": f"flash_attention[{mode},hd={hd},G={H // KV}]",
+            "route": "cuda",
+            "source": ("src/repro_torch/kernels/flash_attention/"
+                       "flash_attention.cu"),
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:61",
+            "launches": serves[label]["launches_by_mode"][mode],
+            "max_abs_err": max(errs), "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library_backend": t["library_backend"],
+            "at": (f"one {mode} launch, bf16, B={B} H={H} KV={KV} Lq={Lq} "
+                   f"Lk={Lk} hd={hd} W={t['window']}: one {what} of the "
+                   f"{arch} prefill; launches: its served run's {mode} "
+                   "launches"),
+        })
+    return rows
+
+
+def phase_a10b(card, device):
+    """Slice 13: checks, 5c's times of the new modes (their inputs freed
+    before LLaVA's 64 GiB of weights arrive), then the three served paths.
+    Returns (record, kernels rows)."""
+    import torch
+
+    record, served = phase_a10b_checks(device)
+    times = phase_flash_a10b_times(served, card)
+    del served
+    torch.cuda.empty_cache()
+    serves = phase_a10b_serve(card, device)
+    record.update(a10b_serve=serves, a10b_flash_times=times)
+    return record, a10b_kernel_rows(record["a10b_flash_checks"], serves,
+                                    times)
 
 
 def run(cfg, device, out_path=None) -> dict:
@@ -4343,7 +5050,14 @@ def run(cfg, device, out_path=None) -> dict:
     torch.cuda.empty_cache()
     deepseek, wide_rows = phase_deepseek(card, device)
     kernels += wide_rows
-    record = {**deepseek, "device": info, "build": build, "main_path": rows_a + rows_b,
+    # slice 13: the hybrid, encdec and vlm families through B5's window and
+    # cross modes; RecurrentGemma-2B, SeamlessM4T-medium and LLaVA-NeXT-34B
+    # served at full depth are its main paths, B5's counts from 0 around
+    # each
+    torch.cuda.empty_cache()
+    a10b, a10b_rows = phase_a10b(card, device)
+    kernels += a10b_rows
+    record = {**deepseek, **a10b, "device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
               "topo_serve": serves, "topo_times": {

@@ -1,5 +1,5 @@
-"""Model configuration schema + registry (--arch lookup), over the archs
-the port carries (ROADMAP A10b brings the rest).
+"""Model configuration schema + registry (--arch lookup), over all the
+reference's archs.
 
 `ModelConfig` has the reference's fields, defaults and `replace`, so a
 reference config maps onto the port's field by field.
@@ -136,11 +136,15 @@ class ModelConfig:
 # registry
 # ----------------------------------------------------------------------------
 
-ARCHS = ["deepseek_v2_lite_16b", "deepseek_v3_671b", "falcon_mamba_7b",
-         "gemma_7b", "granite_34b", "llama3_2_1b", "qwen2_1_5b",
+ARCHS = ["falcon_mamba_7b", "seamless_m4t_medium", "recurrentgemma_2b",
+         "llava_next_34b", "granite_34b", "qwen2_1_5b", "llama3_2_1b",
+         "gemma_7b", "deepseek_v2_lite_16b", "deepseek_v3_671b",
          "topovit_b16"]
 
 _ALIASES = {"falcon-mamba-7b": "falcon_mamba_7b",
+            "seamless-m4t-medium": "seamless_m4t_medium",
+            "recurrentgemma-2b": "recurrentgemma_2b",
+            "llava-next-34b": "llava_next_34b",
             "granite-34b": "granite_34b", "qwen2-1.5b": "qwen2_1_5b",
             "llama3.2-1b": "llama3_2_1b", "gemma-7b": "gemma_7b",
             "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
@@ -151,8 +155,8 @@ _ALIASES = {"falcon-mamba-7b": "falcon_mamba_7b",
 def _module(arch: str):
     mod_name = _ALIASES.get(arch, arch)
     if mod_name not in ARCHS:
-        raise ValueError(f"arch {arch!r} is not ported yet (ported: {ARCHS}; "
-                         "the other families come with ROADMAP A10b)")
+        raise ValueError(f"unknown arch {arch!r}: expected one of {ARCHS} "
+                         f"or an alias {sorted(_ALIASES)}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")
 
 
@@ -164,3 +168,12 @@ def get_config(arch: str, **overrides) -> ModelConfig:
 def get_smoke_config(arch: str, **overrides) -> ModelConfig:
     cfg = _module(arch).SMOKE_CONFIG
     return cfg.replace(**overrides) if overrides else cfg
+
+
+# input shapes assigned to the LM family (seq_len, global_batch, kind)
+SHAPES = {
+    "train_4k": dict(seq_len=4096, global_batch=256, kind="train"),
+    "prefill_32k": dict(seq_len=32768, global_batch=32, kind="prefill"),
+    "decode_32k": dict(seq_len=32768, global_batch=128, kind="decode"),
+    "long_500k": dict(seq_len=524288, global_batch=1, kind="decode"),
+}

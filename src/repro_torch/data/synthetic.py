@@ -7,9 +7,11 @@ restarted job consumes *exactly* the same batches (the bit-identical resume
 of `train.loop`). The generator mixes a Markov bigram component with copy
 spans so that a real LM can actually reduce loss on it.
 
-The reference's background prefetch thread and its VLM / encoder-decoder
-inputs are not copied: the loop calls `batch_at` only, and the port has no
-VLM or encoder-decoder family yet (ROADMAP A10b).
+With `vlm_prefix` (patches) or `encdec_src` (frames) the batch also holds
+the stub frontends' inputs, "patch_embeds" (B, vlm_prefix, 1024) and
+"src_embeds" (B, encdec_src, 1024), float32 normals drawn from the same
+generator after the tokens, in the reference's order. The reference's
+background prefetch thread is not copied: the loop calls `batch_at` only.
 """
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ import numpy as np
 class SyntheticLMStream:
     def __init__(self, vocab_size: int, batch_size: int, seq_len: int,
                  seed: int = 0, host_id: int = 0, num_hosts: int = 1,
+                 vlm_prefix: int = 0, encdec_src: int = 0,
                  branching: int = 8):
         assert batch_size % num_hosts == 0
         self.vocab = vocab_size
@@ -27,6 +30,8 @@ class SyntheticLMStream:
         self.seed = seed
         self.host_id = host_id
         self.num_hosts = num_hosts
+        self.vlm_prefix = vlm_prefix
+        self.encdec_src = encdec_src
         # fixed bigram table (shared across hosts); low branching keeps the
         # transition structure learnable within a few hundred steps
         rng = np.random.default_rng(seed)
@@ -48,4 +53,11 @@ class SyntheticLMStream:
         for b in range(B):
             s = rng.integers(0, L - 2 * span)
             toks[b, s + span:s + 2 * span] = toks[b, s:s + span]
-        return {"tokens": toks}
+        out = {"tokens": toks}
+        if self.vlm_prefix:
+            out["patch_embeds"] = rng.normal(
+                size=(B, self.vlm_prefix, 1024)).astype(np.float32)
+        if self.encdec_src:
+            out["src_embeds"] = rng.normal(
+                size=(B, self.encdec_src, 1024)).astype(np.float32)
+        return out

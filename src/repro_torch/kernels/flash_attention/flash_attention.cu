@@ -2,11 +2,18 @@
 // into a shared library that exposes one plain C entry point.
 //
 // out[b, h, i] = sum_j softmax_j(q_i . k_j / sqrt(hd)) v_j over the keys j
-// of query i (j <= i when causal), with the online-softmax statistics of
-// the reference: running max m, running sum l and accumulator acc, all fp32;
-// masked logits are -1e30 (not -inf), and l == 0 -> 1 before the division.
-// q is (B, H, L, hd); k and v are (B, KV, L, hd), read at head h / (H / KV)
-// (GQA without a copy of the cache); any strides with a unit last stride,
+// of query i (j <= i when causal; also i - j < W under a local window W,
+// causal only), with the online-softmax statistics of the reference:
+// running max m (from -1e30), running sum l and accumulator acc, all fp32,
+// and l == 0 -> 1 before the division. A masked logit weighs exactly 0: the
+// reference's -1e30 gives 0 wherever a row has seen a visible key, and a
+// row whose keys in a tile are all masked (a window's edge tile) adds only
+// what the next visible key's correction 2^(-1e30 - m) wipes out, so the
+// kernels mask with -inf and add nothing there.
+// q is (B, H, Lq, hd); k and v are (B, KV, Lk, hd), read at head h / (H /
+// KV) (GQA without a copy of the cache; any G, powers of two or not); Lq ==
+// Lk when causal, any Lk when not (cross-attention); any strides with a
+// unit last stride,
 // so the model's (B, L, H, hd) tensors are read in place. bf16 or fp32
 // inputs, the output in q's type and layout. v's head dim vd may differ from
 // q's and k's hd; the scale stays 1/sqrt(hd) and out is (B, H, L, vd). The
@@ -30,9 +37,11 @@
 // the whole K/V of its head through VMEM; here one block owns one (b, h,
 // tile of 64 query rows) in the grid (q tiles, H, B), the heaviest causal
 // tiles scheduled first, and streams 64-key tiles of K and V; under
-// `causal` the loop stops at the diagonal tile, the only tile masked
-// besides a ragged last one (keys at or past L get weight 0, rows past L
-// are not written).
+// `causal` the loop stops at the diagonal tile, and under a window W it
+// starts at the tile that holds key q0 - W + 1, so beyond W every q tile
+// visits the same number of key tiles. Only the diagonal tile, a window's
+// edge tiles and a ragged last tile are masked (keys at or past Lk get
+// weight 0, rows past Lq are not written).
 //
 // bf16 (`flash_wgmma_kernel`): the products on the tensor cores, through
 // wgmma. One warpgroup of 128 threads owns the 64 rows. S = Q K^T is hd / 16
@@ -80,6 +89,7 @@
                    // looked up through the runtime, so no -lcuda
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math.h>  // INFINITY
 #include <stdint.h>
 
 namespace {
@@ -93,6 +103,23 @@ constexpr float NEG_INF = -1e30f;
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 
+// the key tiles [kt0, nk) that q tile qt visits: under `causal` up to the
+// diagonal tile (BQ == BK), under a window W (causal only) from the tile
+// that holds key q0 - W + 1, the first that row q0 sees
+__device__ __forceinline__ void key_tiles(int qt, int Lk, int causal,
+                                          int window, int& kt0, int& nk) {
+  const int nk_all = (Lk + BK - 1) / BK;
+  nk = causal ? min(qt + 1, nk_all) : nk_all;
+  kt0 = causal && window > 0 ? max(0, qt * BQ - window + 1) / BK : 0;
+}
+
+// whether query row `row` may not see key `key`
+__device__ __forceinline__ bool masked(int row, int key, int Lk, int causal,
+                                       int window) {
+  return key >= Lk || (causal && key > row) ||
+         (window > 0 && row - key >= window);
+}
+
 // element strides of the four operands: (batch, head, row); the last
 // dimension is contiguous
 struct Strides {
@@ -103,7 +130,7 @@ template <typename T, int HD, int VD>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ out, Strides st, int G,
-             int L, float scale, int causal) {
+             int Lq, int Lk, float scale, int causal, int window) {
   constexpr int LD = HD + 4;    // padded row of the q/k tiles
   constexpr int LDV = VD + 4;   // padded row of the v tile
   constexpr int CPT = VD / 16;  // columns of acc a thread owns
@@ -114,7 +141,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ps = vs + BK * LDV;                     // BQ x PLD
 
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const int nq = (L + BQ - 1) / BQ;
+  const int nq = (Lq + BQ - 1) / BQ;
   const int qt = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
   const int q0 = qt * BQ;
@@ -124,7 +151,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int e = tid; e < BQ * HD; e += THREADS) {
     const int r = e / HD, d = e % HD, row = q0 + r;
-    qs[r * LD + d] = row < L ? to_float(qg[row * st.ql + d]) * scale : 0.f;
+    qs[r * LD + d] = row < Lq ? to_float(qg[row * st.ql + d]) * scale : 0.f;
   }
   float m[4], l[4], acc[4][CPT];
 #pragma unroll
@@ -134,20 +161,19 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
   }
-  const int nk_all = (L + BK - 1) / BK;
-  // BQ == BK: the causal loop ends at the diagonal tile qt
-  const int nk = causal ? min(qt + 1, nk_all) : nk_all;
+  int kt0, nk;
+  key_tiles(qt, Lk, causal, window, kt0, nk);
 
-  for (int kt = 0; kt < nk; ++kt) {
+  for (int kt = kt0; kt < nk; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();  // the previous tile's P v is done with vs and ps
     for (int e = tid; e < BK * HD; e += THREADS) {
       const int r = e / HD, d = e % HD, row = k0 + r;
-      ks[r * LD + d] = row < L ? to_float(kg[row * st.kl + d]) : 0.f;
+      ks[r * LD + d] = row < Lk ? to_float(kg[row * st.kl + d]) : 0.f;
     }
     for (int e = tid; e < BK * VD; e += THREADS) {
       const int r = e / VD, d = e % VD, row = k0 + r;
-      vs[r * LDV + d] = row < L ? to_float(vg[row * st.vl + d]) : 0.f;
+      vs[r * LDV + d] = row < Lk ? to_float(vg[row * st.vl + d]) : 0.f;
     }
     __syncthreads();
 
@@ -183,9 +209,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float rmax = NEG_INF;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        if (causal && kp > qp) s[i][j] = NEG_INF;
-        if (kp < L) rmax = fmaxf(rmax, s[i][j]);
+        if (masked(qp, k0 + tx + 16 * j, Lk, causal, window))
+          s[i][j] = -INFINITY;
+        rmax = fmaxf(rmax, s[i][j]);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -195,8 +221,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float rsum = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        s[i][j] = kp < L ? expf(s[i][j] - mnew) : 0.f;
+        s[i][j] = expf(s[i][j] - mnew);  // -inf -> 0
         rsum += s[i][j];
       }
 #pragma unroll
@@ -238,7 +263,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = q0 + ty + 16 * i;
-    if (row >= L) continue;
+    if (row >= Lq) continue;
     const float li = l[i] == 0.f ? 1.f : l[i];
     T* orow = out + b * st.ob + h * st.oh + row * st.ol + tx * CPT;
 #pragma unroll
@@ -248,17 +273,17 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int HD, int VD>
 int launch(const T* q, const T* k, const T* v, T* out, const Strides& st,
-           int B, int H, int G, int L, float scale, int causal,
-           cudaStream_t stream) {
+           int B, int H, int G, int Lq, int Lk, float scale, int causal,
+           int window, cudaStream_t stream) {
   const int smem =
       (2 * BQ * (HD + 4) + BK * (VD + 4) + BQ * PLD) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel<T, HD, VD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + BQ - 1) / BQ, H, B);
+  dim3 grid((Lq + BQ - 1) / BQ, H, B);
   flash_kernel<T, HD, VD><<<grid, THREADS, smem, stream>>>(
-      q, k, v, out, st, G, L, scale, causal);
+      q, k, v, out, st, G, Lq, Lk, scale, causal, window);
   return (int)cudaGetLastError();
 }
 
@@ -428,14 +453,14 @@ __device__ __forceinline__ uint32_t v_slot(uint32_t qs, int s) {
   return k_slot<QS, VS>(qs, s) + QS * SLAB_BYTES;
 }
 
-// one thread's copies of K/V tile t into stage t % STAGES, and the one
-// arrival of that stage's barrier phase
+// one thread's copies of K/V tile t, the i-th tile of the block's loop,
+// into stage i % STAGES, and the one arrival of that stage's barrier phase
 template <int QS, int VS>
-__device__ __forceinline__ void load_kv(int t, uint32_t qs,
+__device__ __forceinline__ void load_kv(int i, int t, uint32_t qs,
                                         const CUtensorMap* tk,
                                         const CUtensorMap* tv, uint64_t* full,
                                         int kvh, int b) {
-  const int s = t % STAGES;
+  const int s = i % STAGES;
   const uint32_t bar = smem_u32(&full[s]);
   mbar_arrive_expect(bar, (QS + VS) * SLAB_BYTES);
   for (int sl = 0; sl < QS; ++sl)
@@ -456,8 +481,8 @@ __global__ void __launch_bounds__(WG_THREADS)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                    const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv,
-                   __nv_bfloat16* __restrict__ out, Strides st, int G, int L,
-                   float scale_log2, int causal) {
+                   __nv_bfloat16* __restrict__ out, Strides st, int G,
+                   int Lq, int Lk, float scale_log2, int causal, int window) {
   constexpr int QS = slabs(HD), VS = slabs(VD);
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full[STAGES];  // tile of stage s has landed
@@ -466,13 +491,13 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t qs = (raw + 1023u) & ~1023u;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int nq = (L + BQ - 1) / BQ;
+  const int nq = (Lq + BQ - 1) / BQ;
   const int qt = causal ? nq - 1 - (int)blockIdx.x : (int)blockIdx.x;
   const int h = blockIdx.y, b = blockIdx.z, kvh = h / G;
   const int q0 = qt * BQ;
-  const int nk_all = (L + BK - 1) / BK;
-  // BQ == BK: the causal loop ends at the diagonal tile qt
-  const int nk = causal ? min(qt + 1, nk_all) : nk_all;
+  int kt0, nk;
+  key_tiles(qt, Lk, causal, window, kt0, nk);
+  const int n = nk - kt0;  // the tiles of this block's loop
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(smem_u32(&full[s]), 1);
@@ -485,8 +510,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int sl = 0; sl < QS; ++sl)
       tma_load(qs + sl * SLAB_BYTES, &tq, smem_u32(&full[0]), 64 * sl, q0, h,
                b);
-    for (int t = 0; t < STAGES - 1 && t < nk; ++t)
-      load_kv<QS, VS>(t, qs, &tk, &tv, full, kvh, b);
+    for (int i = 0; i < STAGES - 1 && i < n; ++i)
+      load_kv<QS, VS>(i, kt0 + i, qs, &tk, &tv, full, kvh, b);
   }
   __syncthreads();
 
@@ -499,14 +524,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     for (int i = 0; i < 32; ++i) o[sl][i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
 
-  for (int kt = 0; kt < nk; ++kt) {
-    const int stage = kt % STAGES;
-    if (kt + STAGES - 1 < nk) {  // later tiles fly while this one computes
-      if (kt > 0) __syncthreads();  // the slot's last reader is done
+  for (int it = 0; it < n; ++it) {
+    const int kt = kt0 + it, stage = it % STAGES;
+    if (it + STAGES - 1 < n) {  // later tiles fly while this one computes
+      if (it > 0) __syncthreads();  // the slot's last reader is done
       if (tid == 0)
-        load_kv<QS, VS>(kt + STAGES - 1, qs, &tk, &tv, full, kvh, b);
+        load_kv<QS, VS>(it + STAGES - 1, kt + STAGES - 1, qs, &tk, &tv, full,
+                        kvh, b);
     }
-    mbar_wait(smem_u32(&full[stage]), (kt / STAGES) & 1);
+    mbar_wait(smem_u32(&full[stage]), (it / STAGES) & 1);
 
     // S = Q K^T: hd / 16 steps of k16 along each 128-byte row (rounded up:
     // TMA fills the columns past hd with zeros)
@@ -525,18 +551,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait_all();
     fence_regs(s);
 
-    // online softmax in the log2 domain; only the diagonal tile and a
-    // ragged last one are masked (the logits themselves, before scaling)
+    // online softmax in the log2 domain; only the diagonal tile, a
+    // window's edge tiles and a ragged last one are masked (the logits
+    // themselves, before scaling, to -inf: 2^-inf = 0)
     const int k0 = kt * BK;
-    if ((causal && kt == qt) || k0 + BK > L) {
+    if ((causal && kt == qt) || k0 + BK > Lk ||
+        (window > 0 && q0 + BQ - 1 - k0 >= window)) {
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + 8 * j + 2 * t4 + (e & 1);
-          const int row = row0 + 8 * (e >> 1);
-          if (key >= L || (causal && key > row)) s[4 * j + e] = NEG_INF;
-        }
+        for (int e = 0; e < 4; ++e)
+          if (masked(row0 + 8 * (e >> 1), k0 + 8 * j + 2 * t4 + (e & 1), Lk,
+                     causal, window))
+            s[4 * j + e] = -INFINITY;
     }
     float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
@@ -610,7 +637,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
-    if (row >= L) continue;
+    if (row >= Lq) continue;
     __nv_bfloat16* orow = out + b * st.ob + h * st.oh + row * st.ol;
 #pragma unroll
     for (int sl = 0; sl < VS; ++sl)
@@ -651,7 +678,8 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// a map over a bf16 tensor read as (hd, L, heads, B) with element strides
+// a map over a bf16 tensor read as (hd, L, heads, B) (L = Lq for q, Lk for
+// k and v) with element strides
 // (row, head, batch) and a unit one along hd: 64 x 64 boxes in the
 // 128-byte swizzle of the slabs, elements past the tensor read as zero
 bool tensor_map(CUtensorMap* map, const void* base, int hd, int L, int heads,
@@ -675,13 +703,13 @@ bool tensor_map(CUtensorMap* map, const void* base, int hd, int L, int heads,
 template <int HD, int VD>
 int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                  const __nv_bfloat16* v, __nv_bfloat16* out,
-                 const Strides& st, int B, int H, int G, int L, float scale,
-                 int causal, cudaStream_t stream) {
+                 const Strides& st, int B, int H, int G, int Lq, int Lk,
+                 float scale, int causal, int window, cudaStream_t stream) {
   constexpr int QS = slabs(HD), VS = slabs(VD);
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, HD, L, H, B, st.ql, st.qh, st.qb) ||
-      !tensor_map(&tk, k, HD, L, H / G, B, st.kl, st.kh, st.kb) ||
-      !tensor_map(&tv, v, VD, L, H / G, B, st.vl, st.vh, st.vb))
+  if (!tensor_map(&tq, q, HD, Lq, H, B, st.ql, st.qh, st.qb) ||
+      !tensor_map(&tk, k, HD, Lk, H / G, B, st.kl, st.kh, st.kb) ||
+      !tensor_map(&tv, v, VD, Lk, H / G, B, st.vl, st.vh, st.vb))
     return (int)cudaErrorInvalidValue;
   // Q and STAGES K/V pairs, and room to align them to 1024 bytes
   const int smem = (QS + STAGES * (QS + VS)) * SLAB_BYTES + 1024;
@@ -689,47 +717,49 @@ int launch_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
       flash_wgmma_kernel<HD, VD>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((L + BQ - 1) / BQ, H, B);
+  dim3 grid((Lq + BQ - 1) / BQ, H, B);
   flash_wgmma_kernel<HD, VD><<<grid, WG_THREADS, smem, stream>>>(
-      tq, tk, tv, out, st, G, L, scale * LOG2E, causal);
+      tq, tk, tv, out, st, G, Lq, Lk, scale * LOG2E, causal, window);
   return (int)cudaGetLastError();
 }
 
 int dispatch_bf16(int hd, int vd, const void* q, const void* k, const void* v,
-                  void* out, const Strides& st, int B, int H, int G, int L,
-                  float scale, int causal, cudaStream_t s) {
+                  void* out, const Strides& st, int B, int H, int G, int Lq,
+                  int Lk, float scale, int causal, int window,
+                  cudaStream_t s) {
   using bf = __nv_bfloat16;
   const bf* qt = static_cast<const bf*>(q);
   const bf* kt = static_cast<const bf*>(k);
   const bf* vt = static_cast<const bf*>(v);
   bf* ot = static_cast<bf*>(out);
   switch (hd * 1000 + vd) {
-    case 16016: return launch_wgmma<16, 16>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 24016: return launch_wgmma<24, 16>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 32032: return launch_wgmma<32, 32>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 64064: return launch_wgmma<64, 64>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 128128: return launch_wgmma<128, 128>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 192128: return launch_wgmma<192, 128>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 256256: return launch_wgmma<256, 256>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 16016: return launch_wgmma<16, 16>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 24016: return launch_wgmma<24, 16>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 32032: return launch_wgmma<32, 32>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 64064: return launch_wgmma<64, 64>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 128128: return launch_wgmma<128, 128>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 192128: return launch_wgmma<192, 128>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 256256: return launch_wgmma<256, 256>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 int dispatch_f32(int hd, int vd, const void* q, const void* k, const void* v,
-                 void* out, const Strides& st, int B, int H, int G, int L,
-                 float scale, int causal, cudaStream_t s) {
+                 void* out, const Strides& st, int B, int H, int G, int Lq,
+                 int Lk, float scale, int causal, int window,
+                 cudaStream_t s) {
   const float* qt = static_cast<const float*>(q);
   const float* kt = static_cast<const float*>(k);
   const float* vt = static_cast<const float*>(v);
   float* ot = static_cast<float*>(out);
   switch (hd * 1000 + vd) {
-    case 16016: return launch<float, 16, 16>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 24016: return launch<float, 24, 16>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 32032: return launch<float, 32, 32>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 64064: return launch<float, 64, 64>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 128128: return launch<float, 128, 128>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 192128: return launch<float, 192, 128>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
-    case 256256: return launch<float, 256, 256>(qt, kt, vt, ot, st, B, H, G, L, scale, causal, s);
+    case 16016: return launch<float, 16, 16>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 24016: return launch<float, 24, 16>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 32032: return launch<float, 32, 32>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 64064: return launch<float, 64, 64>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 128128: return launch<float, 128, 128>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 192128: return launch<float, 192, 128>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
+    case 256256: return launch<float, 256, 256>(qt, kt, vt, ot, st, B, H, G, Lq, Lk, scale, causal, window, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -740,19 +770,21 @@ int dispatch_f32(int hd, int vd, const void* q, const void* k, const void* v,
 // instantiated is cudaErrorInvalidValue). `bf16` selects __nv_bfloat16
 // operands and the wgmma kernel (else float and the fp32 kernel); `strides`
 // points to 12 element strides: (batch, head, row) of q, k, v and out.
-// Checks nothing the Python wrapper checks (shapes, types, the device, the
-// (hd, vd) pair, G = H / KV, the bf16 path's 16-byte-aligned rows).
+// `window` > 0 is a local window (causal only); Lq and Lk are the query
+// and key lengths (equal when causal). Checks nothing the Python wrapper
+// checks (shapes, types, the device, the (hd, vd) pair, G = H / KV, the
+// window and lengths, the bf16 path's 16-byte-aligned rows).
 extern "C" int flash_attention_launch(int bf16, int hd, int vd, const void* q,
                                       const void* k, const void* v, void* out,
                                       const long long* strides, int B, int H,
-                                      int G, int L, float scale, int causal,
-                                      void* stream) {
+                                      int G, int Lq, int Lk, float scale,
+                                      int causal, int window, void* stream) {
   const Strides st{strides[0], strides[1], strides[2],  strides[3],
                    strides[4], strides[5], strides[6],  strides[7],
                    strides[8], strides[9], strides[10], strides[11]};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? dispatch_bf16(hd, vd, q, k, v, out, st, B, H, G, L, scale,
-                              causal, s)
-              : dispatch_f32(hd, vd, q, k, v, out, st, B, H, G, L, scale,
-                             causal, s);
+  return bf16 ? dispatch_bf16(hd, vd, q, k, v, out, st, B, H, G, Lq, Lk,
+                              scale, causal, window, s)
+              : dispatch_f32(hd, vd, q, k, v, out, st, B, H, G, Lq, Lk, scale,
+                             causal, window, s);
 }

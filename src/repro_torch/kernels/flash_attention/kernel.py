@@ -29,8 +29,8 @@ HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128),
 BQ = 64  # query rows of a block (the .cu file's BQ)
 
 _ARGTYPES = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 5
-             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
-                                      ctypes.c_void_p])
+             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p])
 
 _lib = None
 PTXAS_LOG: str = ""  # nvcc's -Xptxas -v report of this process's build
@@ -65,15 +65,18 @@ def _out_like(q, vd: int) -> torch.Tensor:
     return out.permute([perm.index(i) for i in range(4)])
 
 
-def flash_attention_cuda(q, k, v, causal: bool):
+def flash_attention_cuda(q, k, v, causal: bool, window: int = 0):
     """Launch on CUDA tensors the caller has validated (`ops` does): q
-    (B, H, L, hd), k (B, KV, L, hd) and v (B, KV, L, vd) with (hd, vd) in
-    HEAD_DIMS, one dtype (float32 or bfloat16), any strides with a unit last
-    stride (in bf16, 16-byte-aligned rows), on one card. Returns (B, H, L,
-    vd) in q's dtype, laid out as q is.
+    (B, H, Lq, hd), k (B, KV, Lk, hd) and v (B, KV, Lk, vd) with (hd, vd)
+    in HEAD_DIMS, one dtype (float32 or bfloat16), any strides with a unit
+    last stride (in bf16, 16-byte-aligned rows), on one card; Lq == Lk when
+    causal, and `window` > 0 (a local window: key j visible to query i iff
+    i - j < window) only when causal. Returns (B, H, Lq, vd) in q's dtype,
+    laid out as q is.
     Launches on the current stream and does not synchronize (the bf16 path
     encodes its three TMA tensor maps on the host first)."""
     B, H, L, hd = q.shape
+    Lk = k.shape[2]
     G, vd = H // k.shape[1], v.shape[-1]
     out = torch.empty_like(q) if vd == hd else _out_like(q, vd)
     strides = (ctypes.c_longlong * 12)(
@@ -85,10 +88,11 @@ def flash_attention_cuda(q, k, v, causal: bool):
             int(q.dtype == torch.bfloat16), hd, vd, q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(),
             ctypes.cast(strides, ctypes.c_void_p),
-            B, H, G, L, 1.0 / math.sqrt(hd), int(bool(causal)), stream)
+            B, H, G, L, Lk, 1.0 / math.sqrt(hd), int(bool(causal)),
+            int(window), stream)
     if err != 0:
         raise RuntimeError(
             f"flash attention launch failed: cudaError {err} (B={B}, H={H}, "
-            f"G={G}, L={L}, hd={hd}, vd={vd}, dtype={q.dtype}, "
-            f"causal={causal})")
+            f"G={G}, Lq={L}, Lk={Lk}, hd={hd}, vd={vd}, dtype={q.dtype}, "
+            f"causal={causal}, window={window})")
     return out

@@ -9,12 +9,16 @@ forward).
     simply shorter). It is the CPU path of the wrapper and the model's
     `attn_impl="chunked"`.
   * `flash_attention` is the kernel's wrapper, in the reference kernel's
-    (B, H, L, hd) layout with GQA k (B, KV, L, hd) and v (B, KV, L, vd),
-    vd = hd or MLA's packed (hd, vd) = (192, 128): a CUDA tensor
-    launches the kernel (kernel.py, built from flash_attention.cu) or the
-    call raises; a CPU tensor runs the plain version. `LAUNCHES` counts
-    kernel launches, and `LAUNCHES_BY_MODE` the causal and the non-causal
-    ("full") ones apart. The kernel path is a `torch.autograd.Function`:
+    (B, H, L, hd) layout with GQA k (B, KV, Lk, hd) and v (B, KV, Lk, vd),
+    vd = hd or MLA's packed (hd, vd) = (192, 128); causal (Lk = L), causal
+    under a local window (RecurrentGemma's local attention) or non-causal
+    with any Lk (an encoder's self-attention, a decoder's cross-attention
+    over the encoder's memory): a CUDA tensor launches the kernel
+    (kernel.py, built from flash_attention.cu) or the call raises; a CPU
+    tensor runs the plain version. `LAUNCHES` counts kernel launches, and
+    `LAUNCHES_BY_MODE` four modes apart: "window" (causal under a window),
+    "causal", "cross" (non-causal with Lk != L) and "full" (non-causal,
+    Lk = L). The kernel path is a `torch.autograd.Function`:
     its forward is the kernel, its backward the VJP of `sdpa_chunked`
     recomputed from the saved q, k, v (the reference's design: its custom
     VJPs run the Pallas kernel forward and differentiate the XLA twin), so
@@ -32,7 +36,7 @@ from repro_torch.kernels._vjp import plain_vjp
 from repro_torch.models.layers import softcap
 
 LAUNCHES = 0
-LAUNCHES_BY_MODE = {"causal": 0, "full": 0}
+LAUNCHES_BY_MODE = {"causal": 0, "full": 0, "window": 0, "cross": 0}
 NEG_INF = -1e30  # the reference's mask value (not -inf)
 
 
@@ -74,7 +78,18 @@ def sdpa_chunked(q, k, v, causal: bool = True, window: int = 0,
     return out.reshape(B, Lq, H, vd).to(q.dtype)
 
 
-def _check(q, k, v, kernel_path: bool) -> None:
+def mode(q, k, causal: bool, window: int) -> str:
+    """The `LAUNCHES_BY_MODE` key of a call on q (B, H, L, hd), k (B, KV,
+    Lk, hd)."""
+    if window:
+        return "window"
+    if causal:
+        return "causal"
+    return "full" if k.shape[2] == q.shape[2] else "cross"
+
+
+def _check(q, k, v, kernel_path: bool, causal: bool = True,
+           window: int = 0) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name} must be a torch.Tensor, got "
@@ -82,15 +97,21 @@ def _check(q, k, v, kernel_path: bool) -> None:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
     if (q.ndim, k.ndim, v.ndim) != (4, 4, 4) or k.shape[:3] != v.shape[:3]:
-        raise ValueError(f"expected q (B, H, L, hd), k (B, KV, L, hd) and v "
-                         f"(B, KV, L, vd); got {tuple(q.shape)}, "
+        raise ValueError(f"expected q (B, H, L, hd), k (B, KV, Lk, hd) and v "
+                         f"(B, KV, Lk, vd); got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     B, H, L, hd = q.shape
     KV = k.shape[1]
-    if (k.shape[0], k.shape[2], k.shape[3]) != (B, L, hd) or H % KV:
+    if (k.shape[0], k.shape[3]) != (B, hd) or H % KV or k.shape[2] < 1:
         raise ValueError(f"k/v {tuple(k.shape)} do not match q "
-                         f"{tuple(q.shape)}: same B, L, hd and H a multiple "
+                         f"{tuple(q.shape)}: same B, hd and H a multiple "
                          "of KV")
+    if causal and k.shape[2] != L:
+        raise ValueError(f"causal attention needs k's length equal to q's; "
+                         f"got {k.shape[2]} keys for {L} queries")
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window={window}: a local window is causal and "
+                         "positive (0: none)")
     if not kernel_path:
         return
     if k.dtype != q.dtype or v.dtype != q.dtype or q.dtype not in (
@@ -112,55 +133,59 @@ def _check(q, k, v, kernel_path: bool) -> None:
             "that are multiples of 8 elements (16-byte rows)")
 
 
-def _plain(q, k, v, causal: bool):
+def _plain(q, k, v, causal: bool, window: int = 0):
     """The plain version in the kernel's (B, H, L, hd) layout."""
     out = sdpa_chunked(q.transpose(1, 2), k.transpose(1, 2),
-                       v.transpose(1, 2), causal)
+                       v.transpose(1, 2), causal, window)
     return out.transpose(1, 2)
 
 
-def _forward(q, k, v, causal: bool):
+def _forward(q, k, v, causal: bool, window: int = 0):
     """The kernel on CUDA tensors, the plain version on CPU tensors."""
     global LAUNCHES
     if q.device.type == "cpu":
-        return _plain(q, k, v, causal)
+        return _plain(q, k, v, causal, window)
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
-    out = kernel.flash_attention_cuda(q, k, v, causal)
+    out = kernel.flash_attention_cuda(q, k, v, causal, window)
     LAUNCHES += 1
-    LAUNCHES_BY_MODE["causal" if causal else "full"] += 1
+    LAUNCHES_BY_MODE[mode(q, k, causal, window)] += 1
     return out
 
 
 class _FlashAttention(torch.autograd.Function):
-    """Kernel forward, `sdpa_chunked`'s VJP backward."""
+    """Kernel forward, `sdpa_chunked`'s VJP backward (with the forward's
+    window, over k's and v's length)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
-        ctx.causal = causal
+    def forward(ctx, q, k, v, causal, window):
+        ctx.causal, ctx.window = causal, window
         ctx.save_for_backward(q, k, v)
-        return _forward(q, k, v, causal)
+        return _forward(q, k, v, causal, window)
 
     @staticmethod
     def backward(ctx, g):
-        return (*plain_vjp(lambda q, k, v: _plain(q, k, v, ctx.causal),
+        return (*plain_vjp(lambda q, k, v: _plain(q, k, v, ctx.causal,
+                                                  ctx.window),
                            ctx.saved_tensors, ctx.needs_input_grad[:3], g),
-                None)
+                None, None)
 
 
 def flash_attention(q, k, v, causal: bool = True,
-                    use_kernel: bool | None = None):
+                    use_kernel: bool | None = None, window: int = 0):
     """Softmax attention (the counterpart of `flash_attention_pallas`). q:
-    (B, H, L, hd); k: (B, KV, L, hd); v: (B, KV, L, vd), with H a multiple
-    of KV (GQA: query head h reads k/v head h // (H // KV)); scale
-    1/sqrt(hd). Returns (B, H, L, vd) in q's dtype. The kernel path takes
-    the (hd, vd) pairs of `kernel.HEAD_DIMS` and raises on any other.
+    (B, H, L, hd); k: (B, KV, Lk, hd); v: (B, KV, Lk, vd), with H a
+    multiple of KV (GQA: query head h reads k/v head h // (H // KV)); scale
+    1/sqrt(hd). Causal needs Lk = L; `window` > 0 (causal only) lets query
+    i see key j iff i - j < window. Returns (B, H, L, vd) in q's dtype. The
+    kernel path takes the (hd, vd) pairs of `kernel.HEAD_DIMS` and raises
+    on any other.
 
     use_kernel=None or True: the kernel path (the kernel on CUDA tensors,
     the plain version on CPU tensors; differentiable through the plain
     version's VJP); False: the plain version."""
     kernel_path = use_kernel is not False
-    _check(q, k, v, kernel_path)
+    _check(q, k, v, kernel_path, causal, window)
     if not kernel_path:
-        return _plain(q, k, v, causal)
-    return _FlashAttention.apply(q, k, v, causal)
+        return _plain(q, k, v, causal, window)
+    return _FlashAttention.apply(q, k, v, causal, window)

@@ -3,10 +3,13 @@ multi-head latent attention), Performer (FAVOR+ with a deterministic phi)
 and the paper's Topological Performer (Sec 4.4 / Alg. 1), each with
 train/prefill and O(1)-per-token decode.
 
-  - full: rope, then causal softmax attention; `cfg.attn_impl` picks the
-    dense `_sdpa` ("naive"), the plain online-softmax twin ("chunked") or
-    the flash attention CUDA kernel ("cuda"); decode attends over the KV
-    cache with `_sdpa`;
+  - full: rope, then causal softmax attention, optionally under a local
+    window (RecurrentGemma's local attention) or non-causal (an encoder),
+    or cross-attention from a decoder's queries to an encoder's memory
+    (`kv_x`); `cfg.attn_impl` picks the dense `_sdpa` ("naive"), the plain
+    online-softmax twin ("chunked") or the flash attention CUDA kernel
+    ("cuda"); decode attends over the KV cache with `_sdpa`, local
+    attention over a ring of the window's last W keys;
   - MLA: "naive" the reference's two-einsum logits; "chunked" and "cuda"
     pack nope || rope into one 192-wide q/k head (k_rope broadcast over the
     heads) beside the 128-wide v and run the plain online-softmax twin or
@@ -24,8 +27,7 @@ train/prefill and O(1)-per-token decode.
     decode uses O(1)-state cordial recurrences (a non-separable f through
     the Chebyshev rank-R separable expansion shared with the sweep).
 
-Local attention comes with ROADMAP A10b, the forest tree-mask prefill with
-A11.
+The forest tree-mask prefill comes with ROADMAP A11.
 """
 from __future__ import annotations
 
@@ -212,38 +214,58 @@ def _sdpa(cfg, q, k, v, mask):
 
 
 def _attend(cfg, q, k, v, causal: bool, window: int):
-    """Self-attention over a whole sequence whose positions are aranges (as
-    at every call site): q (B, L, H, hd), k/v (B, L, KV, hd) -> (B, L, H,
-    hd), executed as `cfg.attn_impl` says."""
+    """Attention over whole sequences whose positions are aranges (as at
+    every call site): q (B, Lq, H, hd), k/v (B, Lk, KV, hd) -> (B, Lq, H,
+    hd); Lk = Lq for self-attention (causal, with a local window or not,
+    or bidirectional), any Lk for cross-attention (not causal). Executed
+    as `cfg.attn_impl` says."""
     impl = _attn_impl(cfg)
     if impl == "chunked":
         return flash_ops.sdpa_chunked(q, k, v, causal, window,
                                       cfg.attn_logit_softcap)
     if impl == "cuda":
-        if window or cfg.attn_logit_softcap:
+        if cfg.attn_logit_softcap:
             raise NotImplementedError(
-                "the flash attention kernel has no local window and no logit "
-                "softcap (nor has the reference's kernel): local attention "
-                "comes with ROADMAP A10b; use attn_impl 'chunked'")
+                "the flash attention kernel has no logit softcap (nor has "
+                "the reference's kernel, and no config sets one); use "
+                "attn_impl 'chunked'")
         out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                        v.transpose(1, 2), causal)
+                                        v.transpose(1, 2), causal,
+                                        window=window)
         return out.transpose(1, 2)
-    L = q.shape[1]
-    idx = torch.arange(L, device=q.device)
-    mask = torch.ones((L, L), dtype=torch.bool, device=q.device)
+    iq = torch.arange(q.shape[1], device=q.device)
+    ik = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((len(iq), len(ik)), dtype=torch.bool, device=q.device)
     if causal:
-        mask = mask & (idx[:, None] >= idx[None, :])
+        mask = mask & (iq[:, None] >= ik[None, :])
     if window and window > 0:
-        mask = mask & (idx[:, None] - idx[None, :] < window)
+        mask = mask & (iq[:, None] - ik[None, :] < window)
     return _sdpa(cfg, q, k, v, mask[None, None])
 
 
 def full_attention_train(cfg, p, x, positions, causal: bool = True,
-                         window: int = 0, rope: bool = True):
-    """Self-attention over the whole of x (B, L, d). (The reference's
-    cross-attention branch, `kv_x`, comes with encdec, ROADMAP A10b.)"""
+                         window: int = 0, rope: bool = True, kv_x=None,
+                         kv_positions=None):
+    """Attention over the whole of x (B, L, d): self-attention, or with
+    `kv_x` (B, Lk, d) cross-attention whose keys and values are projected
+    from kv_x (no bias, no rope, as the reference's cross branch; q is
+    roped only where `rope` says). `kv_positions` is the reference's
+    argument, aranges at every call site: the paths take the keys'
+    positions as 0..Lk-1."""
     B, L, _ = x.shape
-    q, k, v = _project_qkv(cfg, p, x, positions, rope=rope)
+    if kv_x is None:
+        q, k, v = _project_qkv(cfg, p, x, positions, rope=rope)
+    else:
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q = x @ p.wq
+        if cfg.qkv_bias:
+            q = q + p.bq
+        q = q.reshape(B, L, H, hd)
+        if rope:
+            q = apply_rope(q, positions, cfg.rope_theta)
+        Lk = kv_x.shape[1]
+        k = (kv_x @ p.wk).reshape(B, Lk, KV, hd)
+        v = (kv_x @ p.wv).reshape(B, Lk, KV, hd)
     out = _attend(cfg, q, k, v, causal, window)
     return out.reshape(B, L, -1) @ p.wo
 
@@ -287,6 +309,67 @@ def full_attention_prefill(cfg, p, x, positions, lengths, cache,
         c[:, :Lp] = torch.where(valid, t.to(c.dtype), c[:, :Lp])
         new[name] = c
     return out, new
+
+
+def local_attention_decode_init(cfg, B: int, dtype=torch.float32,
+                                device=None):
+    """The ring of a local-attention layer: the last W keys and values
+    {"k", "v": (B, W, KV, hd)} and their positions {"kpos": (B, W)} int32,
+    -1 where a slot is empty; position p lives in slot p % W."""
+    W, KV, hd = cfg.local_window, cfg.num_kv_heads, cfg.head_dim
+    return {"k": torch.zeros((B, W, KV, hd), dtype=dtype, device=device),
+            "v": torch.zeros((B, W, KV, hd), dtype=dtype, device=device),
+            "kpos": torch.full((B, W), -1, dtype=torch.int32,
+                               device=device)}
+
+
+def local_attention_decode(cfg, p, x, pos, cache):
+    """Sliding-window decode over the ring (keys roped at their true
+    position when written). pos: () or (B,)."""
+    B = x.shape[0]
+    H, hd, W = cfg.num_heads, cfg.head_dim, cfg.local_window
+    pos_v = _positions_vec(pos, B, x.device)
+    q, k_new, v_new = _project_qkv(cfg, p, x, pos_v[:, None])
+    rows, slot = torch.arange(B, device=x.device), (pos_v % W).long()
+    k, v, kpos = (cache[n].clone() for n in ("k", "v", "kpos"))
+    k[rows, slot] = k_new[:, 0].to(k.dtype)
+    v[rows, slot] = v_new[:, 0].to(v.dtype)
+    kpos[rows, slot] = pos_v
+    mask = (kpos >= 0) & (kpos <= pos_v[:, None])  # the ring is the window
+    out = _sdpa(cfg, q, k, v, mask[:, None, None, :])
+    return out.reshape(B, 1, H * hd) @ p.wo, {"k": k, "v": v, "kpos": kpos}
+
+
+def local_attention_prefill(cfg, p, x, positions, lengths, cache):
+    """Whole-prompt local attention (`_attend` under the window, so B5 on
+    "cuda"; the reference runs its dense `_sdpa` here, the same function)
+    that builds each valid row's ring from its last min(W, lengths[b])
+    tokens only, kpos -1 elsewhere: junk keys past a row's length would be
+    visible to later decode steps. Rows with lengths[b] == 0 keep their
+    ring."""
+    B, Lp, _ = x.shape
+    W = cfg.local_window
+    q, k_new, v_new = _project_qkv(cfg, p, x, positions)
+    out = _attend(cfg, q, k_new, v_new, True, W)
+    out = out.reshape(B, Lp, -1) @ p.wo
+    dev = x.device
+    widx = lengths[:, None] - W + torch.arange(W, device=dev)[None, :]
+    valid_w = (widx >= 0) & (lengths[:, None] > 0)  # (B, W) positions
+    gidx = widx.clamp(0, max(Lp - 1, 0)).long()
+    rows = torch.arange(B, device=dev)[:, None]
+    slot = (widx % W).long()  # W consecutive positions: W distinct slots
+    new = {}
+    for name, t in (("k", k_new), ("v", v_new)):
+        ring = torch.zeros_like(cache[name])
+        ring[rows, slot] = torch.where(valid_w[..., None, None], t[rows, gidx],
+                                       0.0).to(ring.dtype)
+        new[name] = ring
+    ring_p = torch.full_like(cache["kpos"], -1)
+    ring_p[rows, slot] = torch.where(valid_w, widx, -1).to(torch.int32)
+    new["kpos"] = ring_p
+    valid = lengths > 0
+    return out, {n: torch.where(valid.reshape((B,) + (1,) * (t.ndim - 1)),
+                                t, cache[n]) for n, t in new.items()}
 
 
 # ----------------------------------------------------------------------------

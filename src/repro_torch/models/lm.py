@@ -3,36 +3,50 @@
 architecture), "performer" (causal linear attention) or "topo" (the
 paper's Topological Transformer LM), the moe family (DeepSeek: MLA or GQA
 attention, first_dense_layers dense blocks, then MoE blocks, and the
-multi-token-prediction head of DeepSeek-V3) and the ssm family (Mamba-1).
+multi-token-prediction head of DeepSeek-V3), the ssm family (Mamba-1), the
+hybrid family (RecurrentGemma: RG-LRU blocks and local attention) and the
+vlm family (LLaVA-NeXT: a dense backbone over projected patch embeddings
+ahead of the text). The encoder-decoder family is `encdec.py`.
 
-dense: [norm -> attention, norm -> gated MLP] x num_layers; moe: the same
-for the first first_dense_layers layers, then [norm -> attention, norm ->
-MoE FFN]; ssm: [norm -> mamba] x num_layers, no MLP. Layers run in a plain
-Python loop (the reference's lax.scan is not copied). `model.blocks` holds
-every layer in order; the reference stacks each segment of `stack_desc`
-under its own key, `blocks{si}`, and parameter names follow its pytree
-paths with the layer unstacked (`blocks0/attn/wq[l]` ->
-`blocks.{l}.attn.wq`, `blocks1/moe/router[j]` -> `blocks.{f + j}.moe.
-router` with f the first segment's count), so `convert.py` is a renaming.
-The decode cache keeps the reference's layout, each segment stacked over
-its layers under "blocks{si}": full {"k", "v": (n, B, S, KV, hd)} and MLA
-{"ckv": (n, B, S, kv_lora_rank), "krope": (n, B, S, qk_rope_dim)} in the
-model's dtype; performer {"S": (n, B, H, hd, hd), "z": (n, B, H, hd)};
-topo {"S": (n, B, H, R, m, hd), "z": (n, B, H, R, m)}, both in float32;
-ssm {"conv": (n, B, K-1, d_inner)} in the model's dtype and {"h": (n, B,
-d_inner, N)} in float32. Hybrid, encdec, vlm and local attention come with
-ROADMAP A10b.
+dense and vlm: [norm -> attention, norm -> gated MLP] x num_layers; moe:
+the same for the first first_dense_layers layers, then [norm -> attention,
+norm -> MoE FFN]; ssm: [norm -> mamba] x num_layers, no MLP; hybrid:
+num_superblocks x cfg.superblock, then cfg.tail_blocks, each "rec" a
+[norm -> RG-LRU, norm -> gated MLP] block and each "attn" a [norm ->
+causal attention under cfg.local_window, norm -> gated MLP] block. Layers
+run in a plain Python loop (the reference's lax.scan is not copied).
+`model.blocks` holds every layer in order; the reference stacks each
+segment of `stack_desc` under its own key, `blocks{si}`, and parameter
+names follow its pytree paths with the layer unstacked (`blocks0/attn/
+wq[l]` -> `blocks.{l}.attn.wq`, `blocks1/moe/router[j]` -> `blocks.{f +
+j}.moe.router` with f the first segment's count; hybrid `blocks0/b{bi}_
+{kind}/...[j]` -> `blocks.{len(superblock) j + bi}...` and `tail{bi}/...`
+-> the tail's layers after the superblocks), so `convert.py` is a
+renaming. The decode cache keeps the reference's layout (`slots`), each
+segment stacked over its layers under "blocks{si}" (hybrid: under
+"blocks0"/"b{bi}_{kind}", and one unstacked "tail{bi}" each): full {"k",
+"v": (n, B, S, KV, hd)} and MLA {"ckv": (n, B, S, kv_lora_rank), "krope":
+(n, B, S, qk_rope_dim)} in the model's dtype; performer {"S": (n, B, H,
+hd, hd), "z": (n, B, H, hd)}; topo {"S": (n, B, H, R, m, hd), "z": (n, B,
+H, R, m)}, both in float32; ssm {"conv": (n, B, K-1, d_inner)} in the
+model's dtype and {"h": (n, B, d_inner, N)} in float32; local attention
+the ring {"k", "v": (n, B, W, KV, hd), "kpos": (n, B, W) int32}; RG-LRU
+{"conv": (n, B, 3, lru_width)} in the model's dtype and {"h": (n, B,
+lru_width)} in float32. The vlm's cache holds the text only, as the
+reference's: `forward_prefill_into_cache` and decode take tokens.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (Params, cross_entropy_loss,
                                        dense_init, dtype_of, embed_init,
@@ -40,21 +54,22 @@ from repro_torch.models.layers import (Params, cross_entropy_loss,
 
 
 VARIANTS = ("full", "performer", "topo")
-FAMILIES = ("dense", "moe", "ssm")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")  # and encdec (encdec.py)
 MTP_WEIGHT = 0.3  # the reference's weight of the multi-token-prediction loss
+PATCH_DIM = 1024  # the vlm's stub vision tower: patch embedding width
 
 
 def check_supported(cfg) -> None:
-    if cfg.is_encdec or cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r}"
-            f"{' (encoder-decoder)' if cfg.is_encdec else ''} is not ported "
-            "yet (ROADMAP A10b); the port serves the dense, moe and ssm "
-            "families")
+    """Raises ValueError on a config the reference has no meaning for: a
+    family or attention variant it does not define. (What the port does
+    not serve yet, the forest tree-mask prefill of ROADMAP A11, raises
+    where it is asked for.)"""
+    if not cfg.is_encdec and cfg.family not in FAMILIES:
+        raise ValueError(f"{cfg.name}: family {cfg.family!r}: expected one of "
+                         f"{FAMILIES + ('encdec',)}")
     if cfg.family != "ssm" and cfg.attention_variant not in VARIANTS:
-        raise NotImplementedError(
-            f"attention_variant={cfg.attention_variant!r} is not ported yet "
-            f"(ROADMAP A10b: local attention); the port serves {VARIANTS}")
+        raise ValueError(f"attention_variant={cfg.attention_variant!r}: "
+                         f"expected one of {VARIANTS}")
 
 
 # ----------------------------------------------------------------------------
@@ -99,14 +114,31 @@ class MambaBlock(nn.Module):
         self.ssm = SSM.SSM(cfg, dtype, device)
 
 
-BLOCKS = {"attn_mlp": DecoderBlock, "moe": MoEBlock, "mamba": MambaBlock}
+class RecBlock(nn.Module):
+    """One hybrid recurrent block: norm, lru (the RG-LRU's parameters),
+    mlp_norm, mlp."""
+
+    def __init__(self, cfg, dtype=torch.float32, device=None):
+        super().__init__()
+        d = cfg.d_model
+        self.norm = Params({"scale": (d,)}, dtype, device)
+        self.lru = RG.LRU(cfg, dtype, device)
+        self.mlp_norm = Params({"scale": (d,)}, dtype, device)
+        self.mlp = Params({"w_gate": (d, cfg.d_ff), "w_in": (d, cfg.d_ff),
+                           "w_out": (cfg.d_ff, d)}, dtype, device)
+
+
+# a hybrid attention block ("attn_local_mlp") has a dense block's params
+BLOCKS = {"attn_mlp": DecoderBlock, "attn_local_mlp": DecoderBlock,
+          "moe": MoEBlock, "mamba": MambaBlock, "rec_mlp": RecBlock}
 
 
 class DecoderLM(nn.Module):
     """embed, blocks (a ModuleList of the layers' blocks, in order),
     final_norm, lm_head unless the embeddings are tied, and the MTP head
-    (mtp_proj, mtp_block, mtp_norm) where cfg.mtp_depth > 0. Parameters
-    live in the config's dtype (the MoE router in float32).
+    (mtp_proj, mtp_block, mtp_norm) where cfg.mtp_depth > 0, and the vlm's
+    mm_projector (w1 (1024, d), w2 (d, d)). Parameters live in the
+    config's dtype (the MoE router in float32).
     `forward(tokens)` is the cacheless prefill (last-position logits)."""
 
     def __init__(self, cfg, device=None):
@@ -124,6 +156,9 @@ class DecoderLM(nn.Module):
             self.mtp_proj = Params({"kernel": (2 * d, d)}, dtype, device)
             self.mtp_block = DecoderBlock(cfg, dtype, device)
             self.mtp_norm = Params({"scale": (d,)}, dtype, device)
+        if cfg.family == "vlm":
+            self.mm_projector = Params({"w1": (PATCH_DIM, d), "w2": (d, d)},
+                                       dtype, device)
 
     def forward(self, tokens):
         return forward_prefill(self.cfg, self, {"tokens": tokens})
@@ -140,6 +175,13 @@ def _block_init(gen: torch.Generator, cfg, kind: str, dtype) -> dict:
         return {"norm": {"scale": torch.zeros((d,), dtype=dtype,
                                               device=gen.device)},
                 "ssm": SSM.ssm_init(gen, cfg, dtype)}
+    if kind == "rec_mlp":
+        zeros = lambda: torch.zeros((d,), dtype=dtype,  # noqa: E731
+                                    device=gen.device)
+        return {"norm": {"scale": zeros()},
+                "lru": RG.lru_init(gen, cfg, dtype),
+                "mlp_norm": {"scale": zeros()},
+                "mlp": gated_mlp_init(gen, d, cfg.d_ff, dtype)}
     p = {"attn_norm": {"scale": torch.zeros((d,), dtype=dtype,
                                             device=gen.device)},
          "attn": (A.mla_init if cfg.mla else A.attn_init)(gen, cfg, dtype)}
@@ -154,7 +196,7 @@ def _block_init(gen: torch.Generator, cfg, kind: str, dtype) -> dict:
     return p
 
 
-def _attn_train(cfg, p, x, positions):
+def _attn_train(cfg, p, x, positions, window: int = 0):
     h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
     if cfg.mla:
         return A.mla_attention_train(cfg, p.attn, h, positions)
@@ -162,7 +204,7 @@ def _attn_train(cfg, p, x, positions):
         return A.topo_attention_train(cfg, p.attn, p.topo, h, positions)
     if cfg.attention_variant == "performer":
         return A.performer_attention_train(cfg, p.attn, h, positions)
-    return A.full_attention_train(cfg, p.attn, h, positions)
+    return A.full_attention_train(cfg, p.attn, h, positions, window=window)
 
 
 def _ffn(cfg, kind, p, x):
@@ -176,7 +218,12 @@ def _ffn(cfg, kind, p, x):
 
 
 def _mamba_in(cfg, p, x):
+    """The norm ahead of a Mamba or RG-LRU mixer."""
     return rms_norm(x, p.norm.scale, cfg.norm_eps, plus_one=True)
+
+
+def _window(cfg, kind) -> int:
+    return cfg.local_window if kind == "attn_local_mlp" else 0
 
 
 def _block_train(cfg, kind, p, x, positions):
@@ -185,7 +232,11 @@ def _block_train(cfg, kind, p, x, positions):
     if kind == "mamba":
         return (x + SSM.mamba_block_train(cfg, p.ssm, _mamba_in(cfg, p, x)),
                 None)
-    return _ffn(cfg, kind, p, x + _attn_train(cfg, p, x, positions))
+    if kind == "rec_mlp":
+        return _ffn(cfg, kind, p, x + RG.lru_block_train(
+            cfg, p.lru, _mamba_in(cfg, p, x)))
+    return _ffn(cfg, kind, p, x + _attn_train(cfg, p, x, positions,
+                                              _window(cfg, kind)))
 
 
 def _block_decode(cfg, kind, p, x, pos, cache, S):
@@ -194,6 +245,10 @@ def _block_decode(cfg, kind, p, x, pos, cache, S):
         y, cache = SSM.mamba_block_decode(cfg, p.ssm, _mamba_in(cfg, p, x),
                                           cache)
         return x + y, cache
+    if kind == "rec_mlp":
+        y, cache = RG.lru_block_decode(cfg, p.lru, _mamba_in(cfg, p, x),
+                                       cache)
+        return _ffn(cfg, kind, p, x + y)[0], cache
     h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
     if cfg.mla:
         y, cache = A.mla_attention_decode(cfg, p.attn, h, pos, cache)
@@ -202,6 +257,8 @@ def _block_decode(cfg, kind, p, x, pos, cache, S):
                                            cache, L=S)
     elif cfg.attention_variant == "performer":
         y, cache = A.performer_attention_decode(cfg, p.attn, h, pos, cache)
+    elif kind == "attn_local_mlp":
+        y, cache = A.local_attention_decode(cfg, p.attn, h, pos, cache)
     else:
         y, cache = A.full_attention_decode(cfg, p.attn, h, pos, cache)
     return _ffn(cfg, kind, p, x + y)[0], cache
@@ -216,6 +273,10 @@ def _block_prefill(cfg, kind, p, x, positions, lengths, cache, S,
         y, cache = SSM.mamba_block_prefill(cfg, p.ssm, _mamba_in(cfg, p, x),
                                            lengths, cache)
         return x + y, cache
+    if kind == "rec_mlp":
+        y, cache = RG.lru_block_prefill(cfg, p.lru, _mamba_in(cfg, p, x),
+                                        lengths, cache)
+        return _ffn(cfg, kind, p, x + y)[0], cache
     h = rms_norm(x, p.attn_norm.scale, cfg.norm_eps, plus_one=True)
     if cfg.mla:
         y, cache = A.mla_attention_prefill(cfg, p.attn, h, positions, lengths,
@@ -227,6 +288,9 @@ def _block_prefill(cfg, kind, p, x, positions, lengths, cache, S,
     elif cfg.attention_variant == "performer":
         y, cache = A.performer_attention_prefill(cfg, p.attn, h, positions,
                                                  lengths, cache)
+    elif kind == "attn_local_mlp":
+        y, cache = A.local_attention_prefill(cfg, p.attn, h, positions,
+                                             lengths, cache)
     else:
         y, cache = A.full_attention_prefill(cfg, p.attn, h, positions,
                                             lengths, cache)
@@ -236,12 +300,16 @@ def _block_prefill(cfg, kind, p, x, positions, lengths, cache, S,
 def _block_cache_init(cfg, kind, B, S, device=None):
     if kind == "mamba":
         return SSM.mamba_decode_init(cfg, B, dtype_of(cfg), device)
+    if kind == "rec_mlp":
+        return RG.lru_decode_init(cfg, B, dtype_of(cfg), device)
     if cfg.mla:
         return A.mla_decode_init(cfg, B, S, dtype_of(cfg), device)
     if cfg.attention_variant == "topo":
         return A.topo_decode_init(cfg, B, S, device=device)
     if cfg.attention_variant == "performer":
         return A.performer_decode_init(cfg, B, device=device)
+    if kind == "attn_local_mlp":
+        return A.local_attention_decode_init(cfg, B, dtype_of(cfg), device)
     shape = (B, S, cfg.num_kv_heads, cfg.head_dim)
     return {name: torch.zeros(shape, dtype=dtype_of(cfg), device=device)
             for name in ("k", "v")}
@@ -255,6 +323,10 @@ class StackDesc:
 
 def stack_desc(cfg) -> StackDesc:
     check_supported(cfg)
+    if cfg.family == "hybrid":
+        return StackDesc((("hybrid_superblocks", cfg.num_superblocks,
+                           cfg.scan_layers),
+                          ("hybrid_tail", len(cfg.tail_blocks), False)))
     if cfg.family == "moe":
         segs = []
         if cfg.first_dense_layers:
@@ -266,10 +338,15 @@ def stack_desc(cfg) -> StackDesc:
     return StackDesc(((kind, cfg.num_layers, cfg.scan_layers),))
 
 
+def _hybrid_kind(kind: str) -> str:
+    return "rec_mlp" if kind == "rec" else "attn_local_mlp"
+
+
 def segments(cfg) -> list:
     """(key, kind, first layer, count) of each segment that has layers:
     the reference's "blocks{si}" keys of its params and decode cache, and
-    where the segment's layers sit in `model.blocks`."""
+    where the segment's layers sit in `model.blocks`. Not for the hybrid
+    family, whose segments interleave kinds: see `slots`."""
     out, first = [], 0
     for si, (kind, count, _) in enumerate(stack_desc(cfg).segments):
         if count:
@@ -278,9 +355,31 @@ def segments(cfg) -> list:
     return out
 
 
+def slots(cfg) -> list:
+    """(path, kind, layers, stacked) of each place of the reference's param
+    and cache trees that holds blocks: `path` the keys down to it, `layers`
+    the numbers in `model.blocks` of its blocks, stacked along a leading
+    axis where `stacked`. Hybrid: superblock position bi under ("blocks0",
+    "b{bi}_{kind}"), layers bi, bi + n, ... (n = len(cfg.superblock)),
+    then each tail block under ("tail{bi}",), unstacked."""
+    if cfg.family != "hybrid":
+        return [((key,), kind, tuple(range(first, first + count)), True)
+                for key, kind, first, count in segments(cfg)]
+    n, nsb = len(cfg.superblock), cfg.num_superblocks
+    out = []
+    if nsb:
+        out += [(("blocks0", f"b{bi}_{k}"), _hybrid_kind(k),
+                 tuple(range(bi, n * nsb, n)), True)
+                for bi, k in enumerate(cfg.superblock)]
+    out += [((f"tail{bi}",), _hybrid_kind(k), (n * nsb + bi,), False)
+            for bi, k in enumerate(cfg.tail_blocks)]
+    return out
+
+
 def layer_kinds(cfg) -> list:
-    return [kind for _, kind, _, count in segments(cfg)
-            for _ in range(count)]
+    kinds = {layer: kind for _, kind, layers, _ in slots(cfg)
+             for layer in layers}
+    return [kinds[layer] for layer in range(len(kinds))]
 
 
 # ----------------------------------------------------------------------------
@@ -311,6 +410,9 @@ def init_state_dict(cfg, gen: torch.Generator) -> dict:
                 sd[f"mtp_block.{part}.{name}"] = t
         sd["mtp_norm.scale"] = torch.zeros((d,), dtype=dtype,
                                            device=gen.device)
+    if cfg.family == "vlm":
+        sd["mm_projector.w1"] = dense_init(gen, (PATCH_DIM, d), dtype=dtype)
+        sd["mm_projector.w2"] = dense_init(gen, (d, d), dtype=dtype)
     return sd
 
 
@@ -371,27 +473,46 @@ def _run_stack(cfg, model, x, positions, remat: bool = False):
     return x, aux
 
 
-def _positions(tokens, dev):
-    B, L = tokens.shape
-    return torch.arange(L, dtype=torch.int32, device=dev)[None].expand(B, L)
+def _positions(x):
+    """Aranges (B, L) int32 over the sequence of x (B, L, d)."""
+    B, L = x.shape[:2]
+    return torch.arange(L, dtype=torch.int32, device=x.device)[None].expand(
+        B, L)
+
+
+def _inputs(cfg, model, batch):
+    """The embedded sequence: the tokens' embeddings, and for the vlm the
+    projected patches gelu(patches @ w1) @ w2 ahead of them. Returns (x,
+    the number of prefix positions P)."""
+    te = embed_tokens(cfg, model, batch["tokens"])
+    if cfg.family != "vlm":
+        return te, 0
+    patches = batch.get("patch_embeds")
+    if patches is None:
+        raise ValueError("the vlm family takes batch['patch_embeds'] (B, P, "
+                         f"{PATCH_DIM}) ahead of the tokens")
+    mm = model.mm_projector
+    pe = F.gelu(patches.to(te.dtype) @ mm.w1, approximate="tanh") @ mm.w2
+    return torch.cat([pe, te], dim=1), patches.shape[1]
 
 
 def forward_train(cfg, model, batch):
-    """batch: {'tokens': (B, L)}. Returns (loss, {"aux": aux}): the mean
-    next-token CE over `padded_vocab()` with its z-loss, plus MTP_WEIGHT
-    times the multi-token-prediction loss where cfg.mtp_depth > 0, plus the
-    MoE blocks' summed auxiliary loss (0 without MoE blocks)."""
+    """batch: {'tokens': (B, L)} (+ 'patch_embeds' (B, P, 1024) for the
+    vlm). Returns (loss, {"aux": aux}): the mean next-token CE over the
+    text and `padded_vocab()` with its z-loss, plus MTP_WEIGHT times the
+    multi-token-prediction loss where cfg.mtp_depth > 0, plus the MoE
+    blocks' summed auxiliary loss (0 without MoE blocks)."""
     tokens = batch["tokens"]
-    x = embed_tokens(cfg, model, tokens)
-    positions = _positions(tokens, x.device)
+    x, P = _inputs(cfg, model, batch)
+    positions = _positions(x)
     x, aux = _run_stack(cfg, model, x, positions,
                         _remat(cfg) and torch.is_grad_enabled())
-    h = _final(cfg, model, x)
+    h = _final(cfg, model, x)[:, P:]  # the text region
     loss = cross_entropy_loss(unembed(cfg, model, h)[:, :-1], tokens[:, 1:],
                               cfg.padded_vocab())
     if cfg.mtp_depth > 0:
         loss = loss + MTP_WEIGHT * _mtp_loss(cfg, model, h, tokens,
-                                             positions)
+                                             positions[:, P:])
     return loss + aux, {"aux": aux}
 
 
@@ -408,33 +529,60 @@ def _mtp_loss(cfg, model, h, tokens, positions):
 
 
 def forward_prefill(cfg, model, batch):
-    """Prefill: logits for the last position (B, 1, V), no cache."""
-    tokens = batch["tokens"]
-    x = embed_tokens(cfg, model, tokens)
-    x, _ = _run_stack(cfg, model, x, _positions(tokens, x.device))
+    """Prefill: logits for the last position (B, 1, V), no cache (the vlm
+    with its patches ahead of the tokens)."""
+    x, _ = _inputs(cfg, model, batch)
+    x, _ = _run_stack(cfg, model, x, _positions(x))
     return unembed(cfg, model, _final(cfg, model, x)[:, -1:, :])
+
+
+def _node(tree: dict, path: tuple) -> dict:
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _put(tree: dict, path: tuple, val) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = val
 
 
 def init_decode_cache(cfg, B: int, S: int, device=None) -> dict:
     cache = {}
-    for key, kind, _, count in segments(cfg):
+    for path, kind, layers, stacked in slots(cfg):
         one = _block_cache_init(cfg, kind, B, S, device)
-        cache[key] = {k: torch.zeros((count,) + tuple(t.shape),
-                                     dtype=t.dtype, device=t.device)
-                      for k, t in one.items()}
+        _put(cache, path, {k: t.expand((len(layers),) + tuple(t.shape))
+                           .clone() if stacked else t
+                           for k, t in one.items()})
     return cache
 
 
 def _over_layers(cfg, model, cache, step):
     """Runs step(kind, block, layer cache) -> new layer cache over every
-    layer in order; returns the new cache, each segment stacked under its
-    key."""
-    new = {}
-    for key, kind, first, count in segments(cfg):
-        cs = [step(kind, model.blocks[first + j],
-                   {k: t[j] for k, t in cache[key].items()})
-              for j in range(count)]
-        new[key] = {k: torch.stack([c[k] for c in cs]) for k in cs[0]}
+    layer in order; returns the new cache in the reference's layout. Each
+    layer's new cache is copied into its slot of the new stack as soon as
+    it is made, so the call holds the old cache, the new one and one
+    layer's temporaries (not every layer's new cache besides)."""
+    where = {layer: (path, kind, j, stacked, len(layers))
+             for path, kind, layers, stacked in slots(cfg)
+             for j, layer in enumerate(layers)}
+    new: dict = {}
+    for layer in range(len(where)):
+        path, kind, j, stacked, count = where[layer]
+        c = _node(cache, path)
+        out = step(kind, model.blocks[layer],
+                   {k: t[j] for k, t in c.items()} if stacked else c)
+        if not stacked:
+            _put(new, path, out)
+            continue
+        if j == 0:
+            _put(new, path, {k: torch.empty((count,) + tuple(t.shape),
+                                            dtype=t.dtype, device=t.device)
+                             for k, t in out.items()})
+        for k, t in out.items():
+            _node(new, path)[k][j].copy_(t)
+        del out
     return new
 
 
@@ -462,7 +610,7 @@ def forward_prefill_into_cache(cfg, model, cache, tokens, lengths, S,
     last real token, new_cache)."""
     B, Lp = tokens.shape
     x = embed_tokens(cfg, model, tokens)
-    positions = _positions(tokens, x.device)
+    positions = _positions(x)
 
     def step(kind, blk, c):
         nonlocal x

@@ -79,23 +79,24 @@ def make_accumulating_step(cfg, opt_cfg: AdamWConfig, microbatches: int,
                            use_compression: bool, device=None):
     """step(model, opt_state, comp_state, batch) -> (opt_state, comp_state,
     metrics); the model's parameters are updated in place. With
-    microbatches > 1, batch["tokens"] is (microbatches, B / microbatches,
-    L), and the loss and each grad are the mean over the microbatches."""
+    microbatches > 1, each entry of batch (the tokens, and the vlm's or
+    encdec's embeddings) is (microbatches, B / microbatches, ...), and the
+    loss and each grad are the mean over the microbatches."""
 
     def step(model, opt_state, comp_state, batch):
         params = dict(model.named_parameters())
 
-        def value_and_grad(tokens):
-            loss, _ = api.loss_fn(cfg, model, {"tokens": tokens}, device)
+        def value_and_grad(mb):
+            loss, _ = api.loss_fn(cfg, model, mb, device)
             return loss.detach(), torch.autograd.grad(loss,
                                                       list(params.values()))
 
         if microbatches == 1:
-            loss, grads = value_and_grad(batch["tokens"])
+            loss, grads = value_and_grad(batch)
         else:
             losses, sums = [], None
-            for mb in batch["tokens"]:
-                lmb, gmb = value_and_grad(mb)
+            for i in range(microbatches):
+                lmb, gmb = value_and_grad({k: t[i] for k, t in batch.items()})
                 losses.append(lmb)
                 sums = ([g.float() for g in gmb] if sums is None
                         else [s.add_(g.float()) for s, g in zip(sums, gmb)])
@@ -141,8 +142,12 @@ def run_training(model_cfg, loop_cfg: TrainLoopConfig,
         if verbose:
             print(f"[resume] restored checkpoint at step {start_step}")
 
-    stream = SyntheticLMStream(model_cfg.vocab_size, loop_cfg.batch_size,
-                               loop_cfg.seq_len, seed=loop_cfg.seed)
+    stream = SyntheticLMStream(
+        model_cfg.vocab_size, loop_cfg.batch_size, loop_cfg.seq_len,
+        seed=loop_cfg.seed,
+        vlm_prefix=(model_cfg.num_prefix_embeddings
+                    if model_cfg.family == "vlm" else 0),
+        encdec_src=(model_cfg.max_source_len if model_cfg.is_encdec else 0))
     step_fn = make_accumulating_step(model_cfg, opt_cfg,
                                      loop_cfg.microbatches,
                                      loop_cfg.compress_grads, dev)
@@ -152,15 +157,17 @@ def run_training(model_cfg, loop_cfg: TrainLoopConfig,
     for step in range(start_step, loop_cfg.steps):
         if loop_cfg.fail_at_step is not None and step == loop_cfg.fail_at_step:
             raise RuntimeError(f"injected failure at step {step}")
-        tokens = torch.as_tensor(stream.batch_at(step)["tokens"],
-                                 device=dev).long()
+        batch = {k: torch.as_tensor(a, device=dev)
+                 for k, a in stream.batch_at(step).items()}
+        batch["tokens"] = batch["tokens"].long()
         if loop_cfg.microbatches > 1:
-            tokens = tokens.reshape((loop_cfg.microbatches,
-                                     tokens.shape[0] // loop_cfg.microbatches)
-                                    + tuple(tokens.shape[1:]))
+            batch = {k: t.reshape((loop_cfg.microbatches,
+                                   t.shape[0] // loop_cfg.microbatches)
+                                  + tuple(t.shape[1:]))
+                     for k, t in batch.items()}
         t0 = time.perf_counter()
         opt_state, comp_state, metrics = step_fn(model, opt_state, comp_state,
-                                                 {"tokens": tokens})
+                                                 batch)
         loss = float(metrics["loss"])
         dt = time.perf_counter() - t0
         slow = watchdog.observe(step, dt)

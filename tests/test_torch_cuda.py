@@ -1057,3 +1057,139 @@ def test_update_plan_birth_params_land_on_the_card(cuda_device):
     for a, b in zip(p1.cross_tgt_d + p1.leaf_dists,
                     p2.cross_tgt_d + p2.leaf_dists):
         assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+# ----------------------------------------------------------------------------
+# the flash kernel under a local window and with Lq != Lk (cross), and the
+# hybrid, encoder-decoder and vlm families served through it (ROADMAP A10b)
+# ----------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,hd,causal,window", [
+    (1, 10, 1, 300, 300, 256, True, 128),  # RecurrentGemma's MQA, G = 10
+    (1, 10, 1, 301, 301, 256, True, 70),   # ragged, window off the tiles
+    (2, 4, 4, 100, 100, 64, True, 200),    # window >= L
+    (1, 56, 8, 200, 200, 128, True, 0),    # LLaVA's GQA, G = 7
+    (2, 16, 16, 37, 301, 64, False, 0),    # cross, ragged both ways
+    (1, 16, 16, 512, 96, 64, False, 0)])   # cross, fewer keys
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_window_and_cross(B, H, KV, Lq, Lk, hd, causal, window,
+                                       dtype, cuda_device):
+    """The window and cross modes against the plain version: 2e-5 absolute
+    in float32, one bf16 rounding + 2e-5 in bfloat16; one launch, counted
+    under its mode."""
+    rng = np.random.default_rng(Lq + Lk + window)
+    dt = getattr(torch, dtype)
+    q = torch.tensor(rng.normal(size=(B, H, Lq, hd)), dtype=dt,
+                     device=cuda_device)
+    k, v = (torch.tensor(rng.normal(size=(B, KV, Lk, hd)), dtype=dt,
+                         device=cuda_device) for _ in range(2))
+    mode = flash_ops.mode(q, k, causal, window)
+    before = dict(flash_ops.LAUNCHES_BY_MODE)
+    got = flash_ops.flash_attention(q, k, v, causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_ops.LAUNCHES_BY_MODE[mode] == before[mode] + 1
+    assert got.dtype == dt and got.shape == (B, H, Lq, hd)
+    plain = flash_ops.flash_attention(q, k, v, causal, use_kernel=False,
+                                      window=window)
+    g, w = got.float(), plain.float()
+    ulp = 0.0 if dtype == "float32" else 2.0 ** -7
+    assert bool(((g - w).abs() <= ulp * torch.maximum(g.abs(), w.abs())
+                 + 2e-5).all())
+
+
+@pytest.mark.cuda
+def test_flash_kernel_refuses_causal_cross_lengths(cuda_device):
+    q = torch.zeros(1, 2, 64, 64, device=cuda_device)
+    k = torch.zeros(1, 2, 96, 64, device=cuda_device)
+    before = flash_ops.LAUNCHES
+    with pytest.raises(ValueError, match="causal"):
+        flash_ops.flash_attention(q, k, k, True)
+    assert flash_ops.LAUNCHES == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["recurrentgemma_2b", "seamless_m4t_medium",
+                                  "llava_next_34b"])
+def test_a10b_family_kernel_matches_plain(arch, cuda_device):
+    """A smoke model of each new family on the card, float32: attn_impl
+    "cuda" against "chunked" on the same weights, one B5 launch per
+    attention call in the prefill (by mode: window for RecurrentGemma,
+    full + causal + cross for SeamlessM4T, causal for LLaVA), none in
+    decode; prefill logits 1e-4, every cache leaf 1e-5, 4 decode steps
+    1e-4; then `loss_fn` and its grads, 1e-5 and 1e-4 of each leaf's max."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.models import api
+
+    S = 80
+    cfg = get_smoke_config(arch, attn_impl="cuda", dtype="float32")
+    model = api.init_params(cfg, 3)
+    rng = np.random.default_rng(5)
+    toks = rng.integers(0, cfg.vocab_size, (3, 70)).astype(np.int32)
+    lengths = np.array([70, 41, 0], np.int32)
+    batch = {"tokens": toks}
+    if cfg.is_encdec:
+        batch["src_embeds"] = rng.normal(size=(3, cfg.max_source_len, 1024))
+    if cfg.family == "vlm":
+        batch["patch_embeds"] = rng.normal(size=(3, 16, 1024))
+    want_modes = {"recurrentgemma_2b": {"window": 1},
+                  "seamless_m4t_medium": {"full": 2, "causal": 2,
+                                          "cross": 2},
+                  "llava_next_34b": {"causal": 2}}[arch]
+    out = {}
+    for impl in ("cuda", "chunked"):
+        c = cfg.replace(attn_impl=impl)
+        before = dict(flash_ops.LAUNCHES_BY_MODE)
+        if cfg.is_encdec:
+            logits = api.prefill_fn(c, model, batch)[:, 0]
+            cache = api.init_cache(c, 3, S)
+        else:
+            logits, cache = api.prefill_into_cache(c, model, api.init_cache(
+                c, 3, S), toks, lengths, S)
+        launched = {m: n - before[m]
+                    for m, n in flash_ops.LAUNCHES_BY_MODE.items()
+                    if n - before[m]}
+        pos = torch.tensor(lengths, device=cuda_device).long()
+        fed = out["cuda"][4] if impl == "chunked" else [logits.argmax(-1)]
+        steps = []
+        before = flash_ops.LAUNCHES
+        for t in range(4):
+            lg, cache = api.decode_fn(c, model, cache, fed[t][:, None], pos,
+                                      S)
+            steps.append(lg)
+            if impl == "cuda":
+                fed.append(lg[:, 0].argmax(-1))
+            pos = pos + 1
+        assert flash_ops.LAUNCHES == before  # decode runs no kernel
+        out[impl] = (logits, steps, cache, launched, fed)
+    assert out["cuda"][3] == want_modes and out["chunked"][3] == {}
+    assert _rel(out["cuda"][0][:2], out["chunked"][0][:2]) < 1e-4
+    for a, b in zip(out["cuda"][1], out["chunked"][1]):
+        assert _rel(a, b) < 1e-4
+
+    def leaves(tree, prefix=""):
+        for key, val in tree.items():
+            if isinstance(val, dict):
+                yield from leaves(val, f"{prefix}{key}.")
+            else:
+                yield f"{prefix}{key}", val
+
+    got, want = dict(leaves(out["cuda"][2])), dict(leaves(out["chunked"][2]))
+    for k, w in want.items():
+        if w.dtype == torch.int32:
+            assert torch.equal(got[k], w), k
+        elif float(w.abs().max()) > 0:
+            assert _rel(got[k], w) < 1e-5, k
+    grads = {}
+    for impl in ("cuda", "chunked"):
+        model.zero_grad()
+        loss, _ = api.loss_fn(cfg.replace(attn_impl=impl), model, batch)
+        loss.backward()
+        grads[impl] = (float(loss), {n: p.grad.clone()
+                                     for n, p in model.named_parameters()})
+    assert abs(grads["cuda"][0] - grads["chunked"][0]) <= 1e-5 * abs(
+        grads["chunked"][0])
+    for n, g in grads["chunked"][1].items():
+        assert float((grads["cuda"][1][n] - g).abs().max()) <= 1e-4 * max(
+            float(g.abs().max()), 1e-30), n

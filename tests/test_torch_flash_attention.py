@@ -248,14 +248,20 @@ def test_kernel_path_refuses_inputs_that_require_grad():
 
 
 def test_model_kernel_path_refuses_window_and_softcap():
+    """The kernel path refuses a logit softcap (the kernel has none, nor
+    has the reference's). A local window it no longer refuses: on CPU
+    tensors it runs the plain version under the window."""
     cfg = get_smoke_config("llama3_2_1b", attn_impl="cuda",
                            attn_logit_softcap=5.0)
     q = torch.zeros((1, 8, 4, 16))
     k = torch.zeros((1, 8, 2, 16))
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="softcap"):
         TA._attend(cfg, q, k, k, True, 0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        TA._attend(cfg.replace(attn_logit_softcap=0.0), q, k, k, True, 4)
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(a).transpose(1, 2)
+               for a in _qkv(rng, 1, 4, 2, 8, 16))
+    got = TA._attend(cfg.replace(attn_logit_softcap=0.0), q, k, v, True, 4)
+    assert torch.equal(got, ops.sdpa_chunked(q, k, v, True, 4))
     with pytest.raises(ValueError, match="attn_impl"):
         TA._attend(cfg.replace(attn_impl="pallas"), q, k, k, True, 0)
 
@@ -358,3 +364,165 @@ def test_flash_kernel_source_names_the_tpu_kernel_and_its_bound():
         assert word in note, word
     assert "later PR" not in note
     assert "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16" in src
+
+
+# ----------------------------------------------------------------------------
+# a local window (RecurrentGemma) and cross-attention (SeamlessM4T's
+# decoder over the encoder's memory, Lq != Lk)
+# ----------------------------------------------------------------------------
+
+
+def _seq(rng, B, L, n, hd):
+    return rng.normal(size=(B, L, n, hd)).astype(np.float32)
+
+
+@pytest.mark.parametrize("causal,window,Lq,Lk,blk", [
+    (True, 8, 40, 40, 8),      # the window binds, blocks tile L
+    (True, 8, 40, 40, 40),
+    (True, 64, 48, 48, 16),    # window >= L: causal
+    (True, 5, 33, 33, 33),     # ragged L, window not a tile's multiple
+    (False, 0, 16, 48, 16),    # cross: more keys than queries
+    (False, 0, 37, 24, 24),    # cross: fewer keys, ragged queries
+    (False, 0, 5, 96, 32)])
+def test_sdpa_chunked_window_and_cross_match_reference(causal, window, Lq,
+                                                       Lk, blk):
+    """The plain version under a local window and with Lq != Lk (G = 5,
+    not a power of two) against the reference's `_sdpa_chunked` (blocks
+    that tile Lk, its precondition) and its dense `_sdpa` under the same
+    mask (the reference's local prefill and cross branch)."""
+    B, H, KV, hd = 2, 10, 2, 16
+    rng = np.random.default_rng(Lq + Lk + window)
+    q, k, v = _seq(rng, B, Lq, H, hd), _seq(rng, B, Lk, KV, hd), \
+        _seq(rng, B, Lk, KV, hd)
+    rcfg = ref_smoke("llama3_2_1b")
+    got = ops.sdpa_chunked(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), causal, window, blk=blk)
+    assert got.shape == (B, Lq, H, hd)
+    twin = JA._sdpa_chunked(rcfg, jnp.asarray(q), jnp.asarray(k),
+                            jnp.asarray(v), causal, window, blk=blk)
+    iq, ik = np.arange(Lq)[:, None], np.arange(Lk)[None, :]
+    mask = np.ones((Lq, Lk), bool)
+    if causal:
+        mask &= iq >= ik
+    if window:
+        mask &= iq - ik < window
+    dense = JA._sdpa(rcfg, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                     jnp.asarray(mask)[None, None])
+    assert _err(got, twin) < TOL
+    assert _err(got, dense) < TOL
+
+
+def test_wrapper_takes_a_window_and_cross_lengths_on_the_cpu():
+    """The wrapper's CPU path under a window and with Lq != Lk is the plain
+    version; a causal call with Lq != Lk, a window without causal and a
+    negative window raise on either device; grads flow through the plain
+    VJP with the forward's window and k/v length. `mode` names the
+    launch's `LAUNCHES_BY_MODE` key."""
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(a) for a in _qkv(rng, 1, 7, 1, 50, 16))
+    kc, vc = (torch.from_numpy(rng.normal(size=(1, 1, 80, 16))
+                               .astype(np.float32)) for _ in range(2))
+    before = ops.LAUNCHES
+    got = ops.flash_attention(q, k, v, True, window=9)
+    assert torch.equal(got, ops.flash_attention(q, k, v, True, window=9,
+                                                use_kernel=False))
+    want = ops.sdpa_chunked(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), True, 9).transpose(1, 2)
+    assert torch.equal(got, want)
+    cross = ops.flash_attention(q, kc, vc, False)
+    assert cross.shape == (1, 7, 50, 16)
+    assert torch.equal(cross, ops.sdpa_chunked(
+        q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2),
+        False).transpose(1, 2))
+    assert ops.LAUNCHES == before
+    assert set(ops.LAUNCHES_BY_MODE) == {"causal", "full", "window", "cross"}
+    assert [ops.mode(q, k, True, 9), ops.mode(q, k, True, 0),
+            ops.mode(q, kc, False, 0), ops.mode(q, k, False, 0)] == [
+        "window", "causal", "cross", "full"]
+    for bad in (dict(k=kc, v=vc, causal=True), dict(k=k, v=v, causal=False,
+                                                    window=4),
+                dict(k=k, v=v, causal=True, window=-1)):
+        with pytest.raises(ValueError):
+            ops.flash_attention(q, **bad)
+    u = torch.from_numpy(rng.normal(size=q.shape).astype(np.float32))
+    for kk, vv, causal, window in ((k, v, True, 9), (kc, vc, False, 0)):
+        grads = []
+        for use_kernel in (True, False):
+            ins = [t.clone().requires_grad_(True) for t in (q, kk, vv)]
+            (ops.flash_attention(*ins, causal=causal, use_kernel=use_kernel,
+                                 window=window) * u).sum().backward()
+            grads.append([t.grad for t in ins])
+        for g_kernel, g_plain in zip(*grads):
+            assert float(g_plain.abs().max()) > 0
+            assert torch.equal(g_kernel, g_plain)
+
+
+def _kernel_loop_emulation(q, k, v, causal, window):
+    """The fp32 kernel's loop (flash_attention.cu, `key_tiles` and
+    `masked`) in PyTorch: each 64-row q tile visits key tiles [kt0, nk),
+    kt0 the tile of key q0 - W + 1 under a window, nk past the diagonal
+    when causal; masked logits are -inf, the running max starts at
+    -1e30."""
+    B, H, Lq, hd = q.shape
+    Lk, G = k.shape[2], H // k.shape[1]
+    kf, vf = k.repeat_interleave(G, 1), v.repeat_interleave(G, 1)
+    out = torch.zeros((B, H, Lq, v.shape[-1]))
+    nk_all = -(-Lk // 64)
+    for qt in range(-(-Lq // 64)):
+        q0 = qt * 64
+        rows = q0 + torch.arange(64)
+        nk = min(qt + 1, nk_all) if causal else nk_all
+        kt0 = max(0, q0 - window + 1) // 64 if causal and window else 0
+        qs = torch.nn.functional.pad(q[:, :, q0:q0 + 64],
+                                     (0, 0, 0, 64 - len(q[0, 0, q0:q0 + 64])))
+        qs = qs / np.float32(np.sqrt(hd))
+        m = torch.full((B, H, 64), -1e30)
+        l = torch.zeros((B, H, 64))
+        acc = torch.zeros((B, H, 64, v.shape[-1]))
+        for kt in range(kt0, nk):
+            keys = kt * 64 + torch.arange(64)
+            kk = torch.nn.functional.pad(kf[:, :, kt * 64:kt * 64 + 64],
+                                         (0, 0, 0, 64 - len(keys[keys < Lk])))
+            vv = torch.nn.functional.pad(vf[:, :, kt * 64:kt * 64 + 64],
+                                         (0, 0, 0, 64 - len(keys[keys < Lk])))
+            s = qs @ kk.transpose(-1, -2)
+            bad = keys[None, :] >= Lk
+            if causal:
+                bad = bad | (keys[None, :] > rows[:, None])
+            if window:
+                bad = bad | (rows[:, None] - keys[None, :] >= window)
+            s = torch.where(bad, -torch.inf, s)
+            m_new = torch.maximum(m, s.amax(-1))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(s - m_new[..., None])
+            l = l * corr + p.sum(-1)
+            acc = acc * corr[..., None] + p @ vv
+            m = m_new
+        l = torch.where(l == 0.0, 1.0, l)
+        n = min(64, Lq - q0)
+        out[:, :, q0:q0 + n] = (acc / l[..., None])[:, :, :n]
+    return out
+
+
+@pytest.mark.parametrize("B,H,KV,Lq,Lk,causal,window", [
+    (1, 10, 1, 300, 300, True, 128),   # RecurrentGemma's MQA G = 10
+    (1, 10, 1, 300, 300, True, 70),    # a window off the 64-key tiles
+    (1, 2, 1, 130, 130, True, 64),
+    (1, 7, 1, 100, 100, True, 200),    # window >= L; LLaVA's G = 7
+    (1, 7, 1, 200, 200, True, 0),
+    (1, 4, 4, 37, 301, False, 0),      # cross, ragged both ways
+    (1, 4, 4, 128, 64, False, 0)])
+def test_kernel_tile_band_matches_plain(B, H, KV, Lq, Lk, causal, window):
+    """The kernel's choice of key tiles and its -inf masking, emulated in
+    float32: a window's edge tiles hold rows whose keys are all masked
+    (they add nothing, where the plain version adds what the next visible
+    key's correction wipes out), and the loop's start skips whole tiles;
+    within 2e-5 of the plain version."""
+    rng = np.random.default_rng(Lq + Lk + window)
+    q = torch.from_numpy(rng.normal(size=(B, H, Lq, 16)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.normal(size=(B, KV, Lk, 16))
+                             .astype(np.float32)) for _ in range(2))
+    got = _kernel_loop_emulation(q, k, v, causal, window)
+    want = ops.flash_attention(q, k, v, causal, use_kernel=False,
+                               window=window)
+    assert _err(got, want) < TOL

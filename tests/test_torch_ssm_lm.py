@@ -268,5 +268,5 @@ def test_an_unknown_scan_impl_raises():
             TA.prefill_fn(cfg.replace(attn_impl=bad), model,
                           {"tokens": np.zeros((1, 4), np.int32)},
                           device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TA.init_params(cfg.replace(family="hybrid"), 0, device="cpu")
+    with pytest.raises(ValueError, match="family"):
+        TA.init_params(cfg.replace(family="mixture"), 0, device="cpu")

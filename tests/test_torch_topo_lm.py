@@ -196,12 +196,11 @@ def test_what_is_not_ported_raises_naming_the_roadmap():
             cfg.replace(topo_attn_impl="torch"), model,
             TA.init_cache(cfg, 1, 16, device="cpu"), torch.zeros(1, 8).long(),
             torch.tensor([8]), 16, tree_mask={})
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TA.init_params(cfg.replace(family="vlm"), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
-        TA.init_cache(cfg.replace(is_encdec=True), 1, 16, device="cpu")
-    with pytest.raises(ValueError, match="not ported"):
-        get_smoke_config("recurrentgemma_2b")
+    # the hybrid, encdec and vlm families are ported (ROADMAP A10b): every
+    # reference arch resolves, and an unknown one raises
+    assert get_smoke_config("recurrentgemma_2b").family == "hybrid"
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_smoke_config("not_an_arch")
 
 
 def _grads(cfg, model, toks):

@@ -154,9 +154,11 @@ def test_cross_entropy_loss_is_the_reference_formula():
 
 
 def test_loss_refuses_what_is_not_ported():
+    """The vlm family is ported (ROADMAP A10b): its loss refuses a batch
+    without the patch embeddings it reads ahead of the tokens."""
     cfg = get_smoke_config("llama3_2_1b", dtype="float32", family="vlm")
-    model = api.init_params(cfg.replace(family="dense"), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10b"):
+    model = api.init_params(cfg, 0, device="cpu")
+    with pytest.raises(ValueError, match="patch_embeds"):
         api.loss_fn(cfg, model, {"tokens": np.zeros((1, 8), np.int32)},
                     device="cpu")
 
