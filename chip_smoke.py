@@ -147,6 +147,24 @@ of the text, then prefill_into_cache and 32 decode steps on the text,
 its lengths halved to fit the card), and times the new modes beside
 `scaled_dot_product_attention` (the window as an explicit mask).
 
+The serving engine (slice 14): `serve.engine.ServeEngine` over 4 slots
+on cell (d)'s topo Llama-3.2-1B at degree 1, full width and depth. 4k
+gates it in float32: (d) first, the fault matrix (serve.logits NaN-ing
+one slot, serve.step raising: the clean run's tokens and the counters of
+tests/test_serving_faults.py), then nothing armed; (a) 8 requests of
+517-4,096 tokens through 4 slots with mid-wave admission, "cuda" against
+"torch": equal tokens and counters, no failure counter set, the ladder
+unmoved, B2 16 launches per plain prefill group and none in decode
+(counted from 0 around the "cuda" run: the slice's main path), one
+trace_guard record per bucket; (b) fused against replay; (c) 4 requests
+with their own prompt trees served from one packed forest plan: the
+packed prefill against single-tree prefills (<= 1e-5), batched tokens
+against single-slot ones, an incremental eviction, no B2 launch. 5i
+times the same traffic in bf16 (time to first token and total per
+request, prefill and decode host ms, tokens/s, peak memory), one tree
+group, and profiles one plain prefill group, one tree group (the
+fastmult's share) and one decode tick.
+
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
 
@@ -4764,6 +4782,518 @@ def phase_a10b(card, device):
                                     times)
 
 
+# ----------------------------------------------------------------------------
+# slice 14: the serving engine (continuous batching with mid-wave admission,
+# tree-masked prefill from one packed forest plan, the fault matrix) on
+# cell (d)'s topo Llama-3.2-1B at degree 1: B2 in each plain prefill group
+# ----------------------------------------------------------------------------
+
+# cell (s): 8 requests through 4 slots (requests 5-8 admit mid-wave as the
+# budgets free the slots); (b) 4 prompts fused against replay; (c) 4 tree
+# requests over random_tree(n, seed=i), a quarter of (d)'s lengths (the
+# 750-token request's early end patches the live plan); (d) the faults of
+# tests/test_serving_faults.py:332-365 on 2 requests
+ENGINE = {"slots": 4, "max_len": 4160, "seed": 0, "leaf": 8,
+          "lengths": (4096, 3001, 1537, 4096, 2048, 517, 1024, 3500),
+          "max_new": (32, 8, 24, 16, 32, 12, 20, 28),
+          "replay": (4, 64, 8),  # requests, prompt length, new tokens
+          "tree_lengths": (1024, 750, 384, 1024),
+          "tree_max_new": (16, 4, 16, 16),
+          "fault": (2, 64, 4)}  # requests, prompt length, new tokens
+ENGINE_PACKED_TOL = 1e-5  # tests/test_serve_prefill.py:271
+ENGINE_FAILURES = ("prefill_failures", "step_failures", "slot_faults",
+                   "evictions", "failed", "stopped_inflight")
+ENGINE_SCOPE = "topo.tree_fastmult"  # models/attention.py's profiler range
+
+
+def _engine_cfg(impl="cuda", dtype=None):
+    """Cell (d)'s model at degree 1 (`_topo_cfg`)."""
+    return _topo_cfg(1, impl, dtype)
+
+
+def _engine_prompts(cfg, lengths, seed=None):
+    rng = np.random.default_rng(ENGINE["seed"] if seed is None else seed)
+    return [rng.integers(0, cfg.vocab_size, int(n)).tolist()
+            for n in lengths]
+
+
+def _engine_trees(lengths):
+    from repro_torch.graphs.graph import random_tree
+
+    return [random_tree(int(n), seed=i) for i, n in enumerate(lengths)]
+
+
+class _EngineProbe:
+    """Wraps one ServeEngine's model calls (the gates' engines, not the
+    timed ones): B2's launches in plain prefill groups, in tree groups and
+    in decode; the prompt bucket of each prefill call; and, for each
+    emitted token, the top-2 logit gap of the row it came from (read on the
+    card from the call's logits)."""
+
+    def __init__(self, eng, ops):
+        self.eng, self.ops = eng, ops
+        self.launches = {"_prefill": 0, "_prefill_tree": 0, "_decode": 0}
+        self.buckets = []
+        self.gaps: dict = {}
+        self._top2 = None
+        for name in self.launches:
+            setattr(eng, name, self._wrap(name, getattr(eng, name)))
+        emit = eng._emit
+
+        def _emit(req, token):
+            s = next(s for s, r in enumerate(eng.slot_req) if r is req)
+            top = self._top2[s]
+            self.gaps.setdefault(req.rid, []).append(float(top[0] - top[1]))
+            emit(req, token)
+
+        eng._emit = _emit
+
+    def _wrap(self, name, fn):
+        def call(*args):
+            before = self.ops.LAUNCHES
+            logits, cache = fn(*args)
+            rows = logits[:, -1] if logits.ndim == 3 else logits
+            self._top2 = rows.float().topk(2, dim=-1).values.cpu().numpy()
+            self.launches[name] += self.ops.LAUNCHES - before
+            if name != "_decode":
+                self.buckets.append(int(args[0].shape[1]))
+            return logits, cache
+
+        return call
+
+
+def _engine_run(cfg, model, prompts, max_new, device, ops=None, trees=None,
+                **kw):
+    """A ServeEngine over 4 slots (or `kw`'s) serving the prompts; with
+    `ops`, probed. Returns (engine, requests, probe, ticks, seconds)."""
+    import torch
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    opts = dict(batch_slots=ENGINE["slots"], max_len=ENGINE["max_len"],
+                mask_leaf_size=ENGINE["leaf"])
+    opts.update(kw)
+    eng = ServeEngine(cfg, model, device=device, **opts)
+    probe = _EngineProbe(eng, ops) if ops is not None else None
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=int(mn),
+                    tree=None if trees is None else trees[i])
+            for i, (p, mn) in enumerate(zip(prompts, max_new))]
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    ticks = eng.run()
+    torch.cuda.synchronize()
+    return eng, reqs, probe, ticks, time.perf_counter() - t0
+
+
+def _engine_counters(eng) -> dict:
+    """stats() without the `_s` times."""
+    return {k: v for k, v in eng.stats().items() if not k.endswith("_s")}
+
+
+def _clean_outcome(label, eng, reqs):
+    """Every request done with its whole answer, no failure counter set."""
+    st = eng.stats()
+    bad = [r.rid for r in reqs if not r.done or r.error is not None
+           or r.retries or r.truncated
+           or len(r.out) != r.max_new_tokens]
+    bad_counts = {k: st[k] for k in ENGINE_FAILURES if st[k]}
+    if bad or bad_counts:
+        raise AssertionError(
+            f"{label}: requests {bad} not served whole "
+            f"({[(r.rid, r.error, r.retries) for r in reqs if r.rid in bad]})"
+            f", failure counters {bad_counts}: nothing was injected")
+
+
+def _same_tokens(label, runs):
+    """Each request's tokens equal across the runs {name: (reqs, probe)};
+    on a difference, the top-2 logit gaps at that token in every run."""
+    names = list(runs)
+    first = runs[names[0]][0]
+    for i, r in enumerate(first):
+        for name in names[1:]:
+            other = runs[name][0][i]
+            if other.out == r.out:
+                continue
+            j = next((k for k, (a, b) in enumerate(zip(r.out, other.out))
+                      if a != b), min(len(r.out), len(other.out)))
+            gaps = {}
+            for n in names:
+                got = runs[n][1].gaps.get(runs[n][0][i].rid, [])
+                gaps[n] = got[j] if j < len(got) else None
+            raise AssertionError(
+                f"{label}: request {r.rid} differs at token {j} "
+                f"({names[0]} {r.out[:j + 1]}, {name} {other.out[:j + 1]}); "
+                f"top-2 logit gap there: {gaps}")
+
+
+def phase_engine_faults(cfg, model, device):
+    """4k (d), float32, before the measured runs: 2 requests through 2
+    slots, clean, then with serve.logits NaN-ing slot 1 at tick 2 and with
+    serve.step raising at tick 3 (tests/test_serving_faults.py:332-365):
+    the tokens of the clean run and those tests' counters. Then every
+    fault is disarmed."""
+    from repro_torch.testing import faults
+
+    n, L, new = ENGINE["fault"]
+    prompts = _engine_prompts(cfg, (L,) * n, seed=7)
+    kw = dict(batch_slots=2)
+    clean = _engine_run(cfg, model, prompts, (new,) * n, device, **kw)
+    _clean_outcome("4k (d) clean", clean[0], clean[1])
+    cases = {
+        "slot fault": ("serve.logits", faults.nan_slot_at_tick(slot=1, k=2),
+                       {"slot_faults": 1, "evictions": 1, "retries": 1,
+                        "failed": 0}, [0, 1]),
+        "step crash": ("serve.step", faults.raise_at_tick(3),
+                       {"step_failures": 1, "evictions": 2, "failed": 0},
+                       None),
+    }
+    out = {}
+    for name, (point, handler, want, retries) in cases.items():
+        try:
+            with faults.injected(point, handler):
+                eng, reqs, _, ticks, _ = _engine_run(
+                    cfg, model, prompts, (new,) * n, device, **kw)
+        finally:
+            faults.clear()
+        st = eng.stats()
+        got = {k: st[k] for k in want}
+        if (got != want or any(r.error is not None or not r.done
+                               for r in reqs)
+                or [r.out for r in reqs] != [r.out for r in clean[1]]
+                or (retries is not None
+                    and [r.retries for r in reqs] != retries)):
+            raise AssertionError(
+                f"4k (d) {name}: counters {got} (want {want}), retries "
+                f"{[r.retries for r in reqs]}, errors "
+                f"{[r.error for r in reqs]}, tokens equal to the clean "
+                f"run's: {[r.out for r in reqs] == [r.out for r in clean[1]]}")
+        out[name] = {"point": point, "counters": got, "ticks": ticks,
+                     "retries": [r.retries for r in reqs]}
+    faults.clear()
+    if faults.armed():
+        raise AssertionError(f"faults still armed: {faults.armed()}")
+    print(f"[engine faults 4k(d)] float32, {n} requests of {L} tokens, "
+          f"{new} new, 2 slots: slot fault (serve.logits, slot 1, tick 2) "
+          f"{out['slot fault']['counters']}, retries "
+          f"{out['slot fault']['retries']}; step crash (serve.step, tick 3) "
+          f"{out['step crash']['counters']}; tokens equal to the clean "
+          f"run's; nothing armed after", flush=True)
+    return out
+
+
+def phase_engine_batching(cfg, model, device, ops):
+    """4k (a), float32: ENGINE's 8 requests through 4 slots on "cuda"
+    against "torch" (the plain sweep), the same weights. The "cuda" run is
+    the slice's main path: B2's count from 0 just before it, read just
+    after."""
+    from repro_torch.analysis import trace_guard
+    from repro_torch.core import ladder
+
+    prompts = _engine_prompts(cfg, ENGINE["lengths"])
+    lad = ladder.stats()
+    runs = {}
+    for impl in ("cuda", "torch"):
+        c = cfg.replace(topo_attn_impl=impl)
+        trace_guard.reset()
+        if impl == "cuda":
+            ops.LAUNCHES = 0
+        eng, reqs, probe, ticks, secs = _engine_run(
+            c, model, prompts, ENGINE["max_new"], device, ops=ops)
+        runs[impl] = {"eng": eng, "reqs": reqs, "probe": probe,
+                      "ticks": ticks, "seconds": secs,
+                      "launches": ops.LAUNCHES,
+                      "counters": _engine_counters(eng),
+                      "trace_guard": trace_guard.stats()}
+        _clean_outcome(f"4k (a) {impl}", eng, reqs)
+        buckets = sorted(set(probe.buckets))
+        want_tg = {"sites": {"serve.decode": 1,
+                             "serve.prefill": len(buckets)},
+                   "keys": {f"serve.prefill [L{b}]": 1 for b in buckets}}
+        if runs[impl]["trace_guard"] != want_tg:
+            raise AssertionError(f"4k (a) {impl}: trace_guard "
+                                 f"{runs[impl]['trace_guard']}, want "
+                                 f"{want_tg}")
+    _same_tokens("4k (a) cuda vs torch", {
+        k: (v["reqs"], v["probe"]) for k, v in runs.items()})
+    cu, pl = runs["cuda"], runs["torch"]
+    if cu["counters"] != pl["counters"]:
+        raise AssertionError(f"4k (a): counters differ: {cu['counters']} "
+                             f"against {pl['counters']}")
+    if ladder.stats() != lad:
+        raise AssertionError(f"4k (a): the ladder moved: {ladder.stats()}")
+    calls = cu["counters"]["prefill_calls"]
+    n_layers = cfg.num_layers
+    if (cu["launches"] != n_layers * calls or cu["launches"] == 0
+            or cu["probe"].launches["_prefill"] != cu["launches"]
+            or cu["probe"].launches["_decode"] or pl["probe"].launches[
+                "_prefill"] or pl["probe"].launches["_decode"]):
+        raise AssertionError(f"4k (a): B2 launches {cu['launches']} for "
+                             f"{calls} prefill calls of {n_layers} layers; "
+                             f"by call: cuda {cu['probe'].launches}, torch "
+                             f"{pl['probe'].launches}")
+    if calls < 3:
+        raise AssertionError(f"4k (a): {calls} prefill calls: no mid-wave "
+                             "admission")
+    gaps = [g for v in cu["probe"].gaps.values() for g in v]
+    print(f"[engine batching 4k(a)] float32, {len(prompts)} requests "
+          f"(lengths {ENGINE['lengths']}, new {ENGINE['max_new']}) through "
+          f"{ENGINE['slots']} slots, max_len {ENGINE['max_len']}: cuda and "
+          f"torch give equal tokens and counters ({calls} prefill calls, "
+          f"buckets {sorted(set(cu['probe'].buckets))}, {cu['ticks']} "
+          f"ticks, {cu['counters']['decode_tokens']} decode tokens); B2 "
+          f"{cu['launches']} launches = {n_layers} x {calls} prefill calls, "
+          f"0 in decode; trace_guard {cu['trace_guard']['sites']}; least "
+          f"top-2 logit gap {min(gaps):.3e}; ladder unchanged", flush=True)
+    return {"requests": list(ENGINE["lengths"]),
+            "max_new": list(ENGINE["max_new"]),
+            "launches": cu["launches"], "prefill_calls": calls,
+            "buckets": cu["probe"].buckets, "ticks": cu["ticks"],
+            "counters": {k: v for k, v in cu["counters"].items()
+                         if not isinstance(v, dict)},
+            "trace_guard": cu["trace_guard"], "min_top2_gap": min(gaps),
+            "tokens": [r.out[:8] for r in cu["reqs"]]}
+
+
+def phase_engine_replay(cfg, model, device, ops):
+    """4k (b), float32: 4 prompts fused against replay, the same tokens;
+    replay prefills nothing."""
+    n, L, new = ENGINE["replay"]
+    prompts = _engine_prompts(cfg, (L,) * n, seed=5)
+    runs = {}
+    for mode in ("fused", "replay"):
+        eng, reqs, probe, ticks, _ = _engine_run(
+            cfg, model, prompts, (new,) * n, device, ops=ops,
+            prefill_mode=mode)
+        _clean_outcome(f"4k (b) {mode}", eng, reqs)
+        runs[mode] = (reqs, probe, eng.stats(), ticks)
+    _same_tokens("4k (b) fused vs replay",
+                 {k: v[:2] for k, v in runs.items()})
+    f, r = runs["fused"][2], runs["replay"][2]
+    if f["prefill_calls"] != 1 or r["prefill_calls"] != 0:
+        raise AssertionError(f"4k (b): prefill calls fused "
+                             f"{f['prefill_calls']}, replay "
+                             f"{r['prefill_calls']}")
+    print(f"[engine replay 4k(b)] float32, {n} prompts of {L} tokens, {new} "
+          f"new: fused ({runs['fused'][3]} ticks, 1 prefill call) and "
+          f"replay ({runs['replay'][3]} ticks, 0) give equal tokens",
+          flush=True)
+    return {"ticks": {k: v[3] for k, v in runs.items()},
+            "prefill_tokens": {k: v[2]["prefill_tokens"]
+                               for k, v in runs.items()}}
+
+
+def _tree_group(cfg, model, prompts, trees, device):
+    """One tree-masked prefill group of every prompt, through a fresh
+    engine's own call (its cache untouched, its forest plan built by its
+    mask manager). Returns (logits (B, V), engine, (tokens, lengths,
+    pack, unpack), the prefill's host seconds)."""
+    import torch
+    from repro_torch.serve.engine import ServeEngine, _next_pow2
+
+    B = len(prompts)
+    eng = ServeEngine(cfg, model, batch_slots=B, max_len=ENGINE["max_len"],
+                      mask_leaf_size=ENGINE["leaf"], device=device)
+    Lp = _next_pow2(max(8, max(len(p) for p in prompts)))
+    toks = np.zeros((B, Lp), np.int32)
+    for s, (p, t) in enumerate(zip(prompts, trees)):
+        eng.masks.admit(s, t)
+        toks[s, :len(p)] = p
+    lens = np.array([len(p) for p in prompts], np.int32)
+    pack, unpack = eng.masks.pack_maps(Lp, list(range(B)), B)
+    t0 = time.perf_counter()
+    logits, _ = eng._prefill_tree(toks, lens, eng.masks.spec,
+                                  eng.masks.params, pack, unpack)
+    torch.cuda.synchronize()
+    return logits, eng, (toks, lens, pack, unpack), time.perf_counter() - t0
+
+
+def phase_engine_trees(cfg, model, device, ops):
+    """4k (c), float32: the packed forest prefill of ENGINE's 4 tree
+    requests against each one's single-tree prefill (<= 1e-5, the bound of
+    tests/test_serve_prefill.py:271); each request's engine tokens batched
+    (4 slots, the short one evicted early: an incremental plan patch)
+    against its single-slot engine's; no B2 launch in a tree group."""
+    lengths, new = ENGINE["tree_lengths"], ENGINE["tree_max_new"]
+    prompts = _engine_prompts(cfg, lengths, seed=3)
+    trees = _engine_trees(lengths)
+    before = ops.LAUNCHES
+    packed, packed_eng, _, packed_s = _tree_group(cfg, model, prompts,
+                                                  trees, device)
+    errs = []
+    for s in range(len(trees)):
+        single = _tree_group(cfg, model, prompts[s:s + 1], trees[s:s + 1],
+                             device)[0]
+        errs.append(rel_err(packed[s], single[0]))
+    if not max(errs) <= ENGINE_PACKED_TOL:
+        raise AssertionError(f"4k (c): packed vs single-tree prefill "
+                             f"logits {errs} (> {ENGINE_PACKED_TOL})")
+    singles = []
+    for s in range(len(trees)):
+        eng, reqs, probe, _, _ = _engine_run(
+            cfg, model, prompts[s:s + 1], new[s:s + 1], device, ops=ops,
+            trees=trees[s:s + 1], batch_slots=1)
+        _clean_outcome(f"4k (c) single {s}", eng, reqs)
+        singles.append((reqs[0], probe))
+    batched, reqs, probe, ticks, secs = _engine_run(
+        cfg, model, prompts, new, device, ops=ops, trees=trees)
+    _clean_outcome("4k (c) batched", batched, reqs)
+    for s, r in enumerate(reqs):
+        _same_tokens(f"4k (c) request {s} batched vs single-slot",
+                     {"batched": ([r], probe),
+                      "single": ([singles[s][0]], singles[s][1])})
+    fm = batched.stats()["forest_masks"]
+    launches = ops.LAUNCHES - before
+    if (fm["builds"] < 1 or fm["incremental_evictions"] < 1
+            or fm["swaps_validated"] < fm["builds"] or launches):
+        raise AssertionError(f"4k (c): forest masks {fm}, B2 launches "
+                             f"{launches} in tree groups (want 0)")
+    B, N = len(trees), int(packed_eng.masks.spec.n)
+    print(f"[engine trees 4k(c)] float32, {B} tree requests (lengths "
+          f"{lengths}, random_tree(n, seed=i), new {new}), forest N = {N}: "
+          f"packed vs single-tree prefill logits "
+          f"{max(errs):.2e} (<= {ENGINE_PACKED_TOL}; packed prefill "
+          f"{packed_s:.2f} s); batched tokens equal single-slot; forest "
+          f"masks {fm}; {ticks} ticks in {secs:.2f} s; B2 launches 0",
+          flush=True)
+    return {"lengths": list(lengths), "forest_n": N,
+            "packed_vs_single": errs, "packed_prefill_s": packed_s,
+            "forest_masks": fm, "ticks": ticks, "seconds": secs}
+
+
+def phase_engine_gates(device, ops):
+    """4k: (d) the injected faults, then (a), (b), (c), on one float32
+    model at full width and depth."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.testing import faults
+
+    cfg = _engine_cfg("cuda", "float32")
+    model = api.init_params(cfg, ENGINE["seed"], device=device)
+    out = {"faults": phase_engine_faults(cfg, model, device)}
+    faults.clear()
+    if faults.armed():
+        raise AssertionError(f"faults armed before 4k: {faults.armed()}")
+    out["batching"] = phase_engine_batching(cfg, model, device, ops)
+    out["replay"] = phase_engine_replay(cfg, model, device, ops)
+    out["trees"] = phase_engine_trees(cfg, model, device, ops)
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_engine_times(card, device):
+    """5i, bf16: ENGINE's 8 requests through 4 slots, timed (host clock):
+    each request's time to first token and total, prefill calls and ms,
+    decode ms per tick, generated tokens/s, peak memory; one tree group
+    (the 4 tree requests); the profiles of one plain prefill group (the
+    first 4 prompts at 4,096), one tree group and one decode tick."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.serve.engine import _next_pow2
+    from repro_torch.testing import faults
+
+    if faults.armed():
+        raise AssertionError(f"faults armed before 5i: {faults.armed()}")
+    cfg = _engine_cfg("cuda")
+    model = api.init_params(cfg, ENGINE["seed"], device=device)
+    prompts = _engine_prompts(cfg, ENGINE["lengths"])
+    n, L, new = ENGINE["replay"]
+    _engine_run(cfg, model, _engine_prompts(cfg, (L,) * n, seed=5),
+                (new,) * n, device)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    eng, reqs, _, ticks, secs = _engine_run(cfg, model, prompts,
+                                            ENGINE["max_new"], device)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _clean_outcome("5i", eng, reqs)
+    st = eng.stats()
+    gen = sum(len(r.out) for r in reqs)
+    per = [{"rid": r.rid, "prompt": len(r.prompt), "new": len(r.out),
+            "ttft_ms": (r.t_first_token - r.t_submit) * 1e3,
+            "total_ms": (r.t_done - r.t_submit) * 1e3} for r in reqs]
+    out = {"ticks": ticks, "seconds": secs, "requests": per,
+           "prefill_calls": st["prefill_calls"],
+           "prefill_ms": st["prefill_s"] * 1e3,
+           "decode_ms_per_tick": st["decode_s"] * 1e3 / ticks,
+           "generated_tokens": gen, "generated_tokens_per_s": gen / secs,
+           "peak_gib": peak, "card": card,
+           "health": eng.health_banner(), "plan": eng.plan_banner()}
+    print(f"[engine times 5i] {cfg.name} topo degree 1, bf16, "
+          f"{len(reqs)} requests through {ENGINE['slots']} slots: {ticks} "
+          f"ticks in {secs:.3f} s, {gen} generated tokens "
+          f"({out['generated_tokens_per_s']:.1f} tok/s); "
+          f"{st['prefill_calls']} prefill calls, {out['prefill_ms']:.1f} "
+          f"host ms; decode {out['decode_ms_per_tick']:.2f} ms a tick; "
+          f"peak {peak:.2f} GiB | {card}", flush=True)
+    print("[engine times 5i] per request (prompt, new): ttft / total ms: "
+          + "; ".join(f"{p['rid']} ({p['prompt']}, {p['new']}) "
+                      f"{p['ttft_ms']:.1f} / {p['total_ms']:.1f}"
+                      for p in per) + f" | {card}", flush=True)
+    print(f"[engine times 5i] {out['health']}", flush=True)
+    print(f"[engine times 5i] {out['plan']}", flush=True)
+    lengths = ENGINE["tree_lengths"]
+    tprompts = _engine_prompts(cfg, lengths, seed=3)
+    trees = _engine_trees(lengths)
+    teng, treqs, _, tticks, tsecs = _engine_run(
+        cfg, model, tprompts, ENGINE["tree_max_new"], device, trees=trees)
+    _clean_outcome("5i trees", teng, treqs)
+    tst = teng.stats()
+    out["tree"] = {"ticks": tticks, "seconds": tsecs,
+                   "prefill_calls": tst["prefill_calls"],
+                   "prefill_ms": tst["prefill_s"] * 1e3,
+                   "decode_ms_per_tick": tst["decode_s"] * 1e3 / tticks,
+                   "ttft_ms": [(r.t_first_token - r.t_submit) * 1e3
+                               for r in treqs],
+                   "forest_masks": tst["forest_masks"]}
+    print(f"[engine times 5i trees] bf16, {len(treqs)} tree requests "
+          f"(lengths {lengths}): {tticks} ticks in {tsecs:.3f} s; tree "
+          f"prefill {out['tree']['prefill_ms']:.1f} host ms "
+          f"({tst['prefill_calls']} call); decode "
+          f"{out['tree']['decode_ms_per_tick']:.2f} ms a tick; ttft "
+          f"{max(out['tree']['ttft_ms']):.1f} ms (the forest builds "
+          f"included) | {card}", flush=True)
+    # profiles: one plain prefill group, one tree group, one decode tick
+    B = ENGINE["slots"]
+    Lp = _next_pow2(max(ENGINE["lengths"][:B]))
+    toks = np.zeros((B, Lp), np.int32)
+    for s, p in enumerate(prompts[:B]):
+        toks[s, :len(p)] = p
+    lens = np.array([len(p) for p in prompts[:B]], np.int32)
+    out["profile_prefill"] = phase_calls_profile(
+        "engine plain prefill group", lambda: eng._prefill(toks, lens))
+    _, geng, (ttoks, tlens, pack, unpack), _ = _tree_group(
+        cfg, model, tprompts, trees, device)
+    prof = phase_calls_profile(
+        "engine tree prefill group", lambda: geng._prefill_tree(
+            ttoks, tlens, geng.masks.spec, geng.masks.params, pack, unpack),
+        scopes=(ENGINE_SCOPE,))
+    prof["fastmult_share"] = (prof["scopes"][ENGINE_SCOPE]
+                              / prof["device_ms"])
+    out["profile_tree_prefill"] = prof
+    dtoks = np.array([[r.out[-1]] for r in reqs[:B]], np.int32)
+    pos = np.array([len(r.prompt) + 1 for r in reqs[:B]], np.int32)
+    out["profile_decode"] = phase_calls_profile(
+        "engine decode tick", lambda: eng._decode(dtoks, pos), calls=4)
+    print(f"[engine times 5i profiles] plain prefill group busy "
+          f"{out['profile_prefill']['busy']:.2f}; tree group busy "
+          f"{prof['busy']:.2f}, the fastmult {prof['fastmult_share']:.0%} "
+          f"of its device time ({prof['scopes'][ENGINE_SCOPE]:.1f} of "
+          f"{prof['device_ms']:.1f} ms); decode tick busy "
+          f"{out['profile_decode']['busy']:.2f} | {card}", flush=True)
+    del model, eng, teng, geng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_engine(card, device):
+    """Slice 14: 4k's gates (the engine's main path, B2 counted from 0
+    around 4k (a)'s "cuda" run), then 5i's times. Returns the record."""
+    from repro_torch.kernels.topo_linear_attention import ops as topo_ops
+
+    gates = phase_engine_gates(device, topo_ops)
+    times = phase_engine_times(card, device)
+    return {"engine_gates": gates, "engine_times": times}
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -5057,7 +5587,19 @@ def run(cfg, device, out_path=None) -> dict:
     torch.cuda.empty_cache()
     a10b, a10b_rows = phase_a10b(card, device)
     kernels += a10b_rows
-    record = {**deepseek, **a10b, "device": info, "build": build, "main_path": rows_a + rows_b,
+    # slice 14: the serving engine on cell (d)'s model at degree 1 (4k:
+    # B2 counted from 0 around its "cuda" run of (a), its main path; 5i)
+    torch.cuda.empty_cache()
+    engine = phase_engine(card, device)
+    for k in kernels:
+        if k["name"] == "topo_attention_sweep[decay]":
+            k.update(engine_launches=engine["engine_gates"]["batching"][
+                "launches"], engine_at=(
+                "4k (a): ServeEngine, 8 requests through 4 slots, "
+                "float32, topo_attn_impl 'cuda'; one launch per layer per "
+                "plain prefill group (16 x prefill_calls), none in decode "
+                "or in a tree group"))
+    record = {**deepseek, **a10b, **engine, "device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
               "topo_serve": serves, "topo_times": {

@@ -185,6 +185,19 @@ def make_sequence_fastmult(g: str, coeffs, L: int, causal: bool,
 # columns) ran out of an H100's 80 GB; at 2^20 columns it peaks at 30.7
 # GiB. The multiply is column-wise, so chunking does not change the result
 FIELD_COL_CHUNK = 1 << 20
+# and at most this many elements in the executor's largest row table times
+# the chunk's columns: a reweightable plan keeps one source group per
+# (vertex, ancestor node), so its gathered tables hold ~10 rows a vertex
+# (34,602 groups for a 3,182-vertex forest of served prompt trees, 418 on
+# the grid plan, where FIELD_COL_CHUNK binds first)
+FIELD_CHUNK_ELEMS = 1 << 30
+
+
+def field_chunk(spec) -> int:
+    """Columns of the folded field per plan execution on `spec`."""
+    rows = max(int(spec.n), int(spec.n_src_groups or 0),
+               0 if spec.tgt_gather is None else len(spec.tgt_gather))
+    return max(1, min(FIELD_COL_CHUNK, FIELD_CHUNK_ELEMS // rows))
 
 
 def _resolve_plan_handle(plan):
@@ -222,7 +235,7 @@ def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
     multiply is linear, so they fold into the trailing column axis of one
     plan execution.
 
-    The folded field runs through the executor `FIELD_COL_CHUNK` columns
+    The folded field runs through the executor `field_chunk(spec)` columns
     at a time, which bounds its temporaries on the card.
 
     The closure is built on every call (no memo: building it touches no
@@ -234,13 +247,15 @@ def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
     base = plan_api.fastmult(spec, mask_f(g, _coeffs(coeffs, dev), dist_scale),
                              backend=backend, device=dev)
 
+    chunk = field_chunk(spec)
+
     def fastmult(X):  # X: (..., L, c)
         shape = X.shape
         L = shape[-2]
         Xf = X.reshape(-1, L, shape[-1]).movedim(0, -1)  # (L, c, B*)
         Xf = Xf.reshape(L, -1).float()
-        out = [base(params, Xf[:, c0:c0 + FIELD_COL_CHUNK])
-               for c0 in range(0, Xf.shape[1], FIELD_COL_CHUNK)]
+        out = [base(params, Xf[:, c0:c0 + chunk])
+               for c0 in range(0, Xf.shape[1], chunk)]
         out = (out[0] if len(out) == 1 else torch.cat(out, dim=1)).reshape(
             L, shape[-1], -1)
         return out.movedim(-1, 0).reshape(shape)

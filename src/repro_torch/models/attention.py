@@ -27,7 +27,11 @@ train/prefill and O(1)-per-token decode.
     decode uses O(1)-state cordial recurrences (a non-separable f through
     the Chebyshev rank-R separable expansion shared with the sweep).
 
-The forest tree-mask prefill comes with ROADMAP A11.
+The topo prefill also takes a per-request tree mask served from one
+packed forest plan (`tree_mask`, serve/forest_masks.py): the prompt then
+attends bidirectionally under each request's tree metric through Alg. 1
+with `masks.make_tree_fastmult` (the plan executor's Chebyshev engine, no
+kernel), and generated tokens continue through the causal recurrence.
 """
 from __future__ import annotations
 
@@ -820,13 +824,24 @@ def topo_attention_prefill(cfg, p, p_topo, x, positions, lengths, cache,
 
     set (not accumulated) into the cache so a reused slot never inherits a
     previous request's state. Rows with lengths[b] == 0 keep their state.
+
+    `tree_mask` (optional) replaces the sequence mask over the prompt by a
+    per-request tree mask served from a packed forest plan (see
+    serve.forest_masks): {"make_fastmult": coeffs -> FastMult over the
+    packed row space, "pack": (N,) packed row -> flat token b * Lp + l (-1:
+    a foreign block or a ghost), "unpack": (B * Lp,) token -> packed row
+    (-1: in no tree)}. The prompt attends bidirectionally under its tree
+    metric (prefix-LM style: the prompt is completed context); the decode
+    state is the sequence one above, so generated tokens continue through
+    the causal cordial recurrence.
     """
-    if tree_mask is not None:
-        raise NotImplementedError("forest tree-mask prefill is not ported yet "
-                                  "(ROADMAP A11)")
     B, Lp, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    out = topo_attention_train(cfg, p, p_topo, x, positions, causal=True)
+    if tree_mask is None:
+        out = topo_attention_train(cfg, p, p_topo, x, positions, causal=True)
+    else:
+        out = _topo_tree_masked_attention(cfg, p, p_topo, x, positions,
+                                          tree_mask)
     # only k and v feed the state: skip the q projection
     k, v = x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
@@ -853,3 +868,53 @@ def topo_attention_prefill(cfg, p, p_topo, x, positions, lengths, cache,
         "z": torch.where(valid[:, None, None, None],
                          z.to(cache["z"].dtype), cache["z"]),
     }
+
+
+def _topo_tree_masked_attention(cfg, p, p_topo, x, positions, tree_mask):
+    """Masked linear attention (Alg. 1) under per-request TREE masks: the
+    tokens are packed into their forest rows, ONE block-diagonal plan
+    execution applies every request's own M_t = [f(dist_{T_t}(i, j))], and
+    the outputs scatter back to (B, Lp). Synced heads fold into one
+    fastmult, unsynced heads take one each. Tokens outside every tree block
+    get zero attention output (their rows are padding by construction).
+    The maps hold -1 for "foreign": gathers take index max(i, 0) and are
+    then zeroed, never index -1 (which would read the last row)."""
+    from repro_torch.core.masks import masked_linear_attention
+
+    B, Lp, _ = x.shape
+    H, hd = cfg.num_heads, cfg.head_dim
+    q, k, v = _project_qkv(cfg, p, x, positions, rope=False)
+    k, v = _expand_kv(cfg, k, v)
+    scale = topo_logit_scale(cfg, p_topo)
+    qf = phi_features(q * scale[None, None, :, None], cfg.performer_phi)
+    kf = phi_features(k, cfg.performer_phi)
+    m = qf.shape[-1]
+    pack = torch.as_tensor(tree_mask["pack"], device=x.device).long()
+    unpack = torch.as_tensor(tree_mask["unpack"], device=x.device).long()
+    take = pack.clamp(min=0)
+    in_tree = (pack >= 0).float()[:, None, None]
+
+    def packed(t, width):  # (B, Lp, H, width) -> (H, N, width), float32
+        return (t.reshape(B * Lp, H, width)[take].float()
+                * in_tree).movedim(1, 0)
+
+    qp, kp, vp = packed(qf, m), packed(kf, m), packed(v, hd)
+    coeffs = topo_mask_coeffs(cfg, p_topo)  # (H, t+1)
+
+    def mk(c):  # the fastmult, its device time under one profiler range
+        fm = tree_mask["make_fastmult"](c)
+
+        def scoped(X):
+            with record_function("topo.tree_fastmult"):
+                return fm(X)
+        return scoped
+
+    if cfg.topo_synced:
+        out_p = masked_linear_attention(qp, kp, vp, mk(coeffs[0]))
+    else:
+        out_p = torch.stack([
+            masked_linear_attention(qp[h], kp[h], vp[h], mk(coeffs[h]))
+            for h in range(H)])
+    out_tok = out_p.movedim(0, 1)[unpack.clamp(min=0)]  # (B*Lp, H, hd)
+    out_tok = out_tok * (unpack >= 0).to(out_tok.dtype)[:, None, None]
+    return out_tok.to(x.dtype).reshape(B, Lp, H * hd) @ p.wo

@@ -61,9 +61,7 @@ PATCH_DIM = 1024  # the vlm's stub vision tower: patch embedding width
 
 def check_supported(cfg) -> None:
     """Raises ValueError on a config the reference has no meaning for: a
-    family or attention variant it does not define. (What the port does
-    not serve yet, the forest tree-mask prefill of ROADMAP A11, raises
-    where it is asked for.)"""
+    family or attention variant it does not define."""
     if not cfg.is_encdec and cfg.family not in FAMILIES:
         raise ValueError(f"{cfg.name}: family {cfg.family!r}: expected one of "
                          f"{FAMILIES + ('encdec',)}")
@@ -606,8 +604,10 @@ def forward_prefill_into_cache(cfg, model, cache, tokens, lengths, S,
     pass that also writes each row's state into the decode cache.
 
     tokens: (B, Lp) int, right-padded; lengths: (B,) int; rows with
-    lengths[b] == 0 keep their cache. Returns (logits (B, V) of each row's
-    last real token, new_cache)."""
+    lengths[b] == 0 keep their cache. `tree_mask` (the topo variant's
+    forest mask, `attention.topo_attention_prefill`) reaches every topo
+    layer. Returns (logits (B, V) of each row's last real token,
+    new_cache)."""
     B, Lp = tokens.shape
     x = embed_tokens(cfg, model, tokens)
     positions = _positions(x)

@@ -15,9 +15,15 @@ points currently wired in the port:
                         simulates a kernel build/launch failure
   ladder.out.<level>    transforms that level's output field — returning
                         NaNs simulates a numerically-broken kernel
-
-(The reference's serve.* points come with the serving engine, ROADMAP
-A11.)
+  serve.prefill         fired before a fused prefill group runs
+                        (`ServeEngine`) — raising evicts and re-queues the
+                        group
+  serve.prefill_logits  transforms a prefill group's (B, V) float32 host
+                        logits — a NaN row evicts only that slot
+  serve.step            fired before each batched decode step — raising
+                        evicts and re-queues the whole wave
+  serve.logits          transforms a decode step's (B, V) float32 host
+                        logits — a NaN row evicts only that slot
 
 Helpers below build the common fault shapes: `raise_at_tick`,
 `nan_slot_at_tick`, `corrupt_file` (bit flips / truncation for artifact
@@ -59,6 +65,11 @@ def injected(point: str, handler: Callable):
 
 def active(point: str) -> bool:
     return point in _active
+
+
+def armed() -> list[str]:
+    """The points with a handler armed, sorted."""
+    return sorted(_active)
 
 
 def fire(point: str, **ctx) -> None:

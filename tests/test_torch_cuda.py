@@ -8,8 +8,10 @@ and the smoke Llama with full and Performer attention served on
 attn_impl "cuda" against "chunked"; the selective scan kernel against its
 plain version and the sequential oracle, and the smoke Falcon-Mamba
 served on attn_impl "cuda" against "chunked"; the float64 Toeplitz
-products and the topo "fft" impl on the card, and the smoke TopoViT on
-impl "cuda" against "ref" and the CPU. These tests need a card (the
+products and the topo "fft" impl on the card, the smoke TopoViT on
+impl "cuda" against "ref" and the CPU, and the serving engine on the
+smoke topo Llama ("cuda" against "torch", and tree-masked requests).
+These tests need a card (the
 kernels have no CPU mode) and skip without one; they import nothing of
 jax, so they run where only the port is installed:
 
@@ -325,6 +327,63 @@ def test_topo_linear_attention_kernel_path(causal, g, degree, L,
     ref = topo_linear_attention_ref(qf, kf, v, cs, **kw)
     assert _rel(got, plain) < 1e-4
     assert _rel(got, ref) < 1e-3
+
+
+@pytest.mark.cuda
+def test_serve_engine_on_the_card(cuda_device):
+    """The serving engine on the card (device None): the smoke topo Llama,
+    5 requests through 2 slots with mid-wave admission, impl "cuda" (one
+    kernel launch per layer per plain prefill group, none in decode)
+    against impl "torch", float32: the same tokens and counters; then two
+    tree-masked requests served from one packed forest plan (no sweep
+    launch) with their single-slot tokens."""
+    from repro_torch.configs.base import get_smoke_config
+    from repro_torch.graphs.graph import random_tree
+    from repro_torch.models import api
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    S = 64
+    cfg = get_smoke_config("llama3_2_1b", attention_variant="topo",
+                           topo_attn_impl="cuda", topo_dist_scale=1.0 / S,
+                           dtype="float32")
+    model = api.init_params(cfg, 4)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (21, 9, 33, 14, 5)]
+    budgets = (6, 2, 5, 3, 4)
+
+    def serve(c, reqs, slots):
+        eng = ServeEngine(c, model, batch_slots=slots, max_len=S)
+        for r in reqs:
+            eng.submit(r)
+        before = topo_ops.LAUNCHES
+        eng.run()
+        return eng, topo_ops.LAUNCHES - before
+
+    out = {}
+    for impl in ("cuda", "torch"):
+        reqs = [Request(rid=i, prompt=p, max_new_tokens=mn)
+                for i, (p, mn) in enumerate(zip(prompts, budgets))]
+        eng, launched = serve(cfg.replace(topo_attn_impl=impl), reqs, 2)
+        st = {k: v for k, v in eng.stats().items() if not k.endswith("_s")}
+        assert all(r.done and r.error is None for r in reqs)
+        out[impl] = ([r.out for r in reqs], st, launched)
+    assert out["cuda"][0] == out["torch"][0]
+    assert out["cuda"][1] == out["torch"][1]
+    assert out["cuda"][1]["prefill_calls"] >= 3
+    assert out["cuda"][2] == cfg.num_layers * out["cuda"][1]["prefill_calls"]
+    assert out["torch"][2] == 0
+    trees = [random_tree(len(p), seed=i) for i, p in enumerate(prompts[:2])]
+    singles = []
+    for p, t in zip(prompts[:2], trees):
+        r = Request(rid=0, prompt=p, max_new_tokens=4, tree=t)
+        serve(cfg, [r], 1)
+        singles.append(r.out)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=4, tree=t)
+            for i, (p, t) in enumerate(zip(prompts[:2], trees))]
+    eng, launched = serve(cfg, reqs, 2)
+    assert [r.out for r in reqs] == singles and launched == 0
+    assert eng.stats()["forest_masks"]["builds"] >= 1
 
 
 @pytest.mark.cuda

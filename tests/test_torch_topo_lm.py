@@ -180,6 +180,27 @@ def test_full_width_config_is_the_reference_one():
     assert cfg.padded_vocab() == want.padded_vocab() == 128256
 
 
+def _tree_mask(cfg, package):
+    """The one-request forest mask of an 8-token prompt over
+    random_tree(8, seed=3), in the reference's or the port's package."""
+    if package == "reference":
+        from repro.core.masks import make_tree_fastmult
+        from repro.graphs.graph import random_tree
+        from repro.serve.forest_masks import ForestMaskManager
+        mgr, kw = ForestMaskManager(1, leaf_size=4), {}
+    else:
+        from repro_torch.core.masks import make_tree_fastmult
+        from repro_torch.graphs.graph import random_tree
+        from repro_torch.serve.forest_masks import ForestMaskManager
+        mgr = ForestMaskManager(1, leaf_size=4, device="cpu")
+        kw = {"device": "cpu"}
+    mgr.admit(0, random_tree(8, seed=3))
+    pack, unpack = mgr.pack_maps(8, [0], 1)
+    return {"make_fastmult": lambda c: make_tree_fastmult(
+        (mgr.spec, mgr.params), cfg.topo_g, c, cfg.topo_dist_scale, **kw),
+        "pack": pack, "unpack": unpack}
+
+
 def test_what_is_not_ported_raises_naming_the_roadmap():
     cfg = get_smoke_config("llama3_2_1b", **OVER)
     model = TA.init_params(cfg, 0, device="cpu")
@@ -191,11 +212,22 @@ def test_what_is_not_ported_raises_naming_the_roadmap():
     want = TA.prefill_fn(deg2.replace(topo_attn_impl="torch"), model2,
                          {"tokens": toks}, device="cpu")
     assert _rel(got, want) <= 1e-3
-    with pytest.raises(NotImplementedError, match="A11"):
-        TLM.forward_prefill_into_cache(
-            cfg.replace(topo_attn_impl="torch"), model,
-            TA.init_cache(cfg, 1, 16, device="cpu"), torch.zeros(1, 8).long(),
-            torch.tensor([8]), 16, tree_mask={})
+    # the forest tree-mask prefill is ported (ROADMAP A11): the same call
+    # serves, with the reference's logits and cache on the same weights
+    tcfg = cfg.replace(topo_attn_impl="torch")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (1, 8))
+    with torch.no_grad():
+        got, got_cache = TLM.forward_prefill_into_cache(
+            tcfg, model, TA.init_cache(cfg, 1, 16, device="cpu"),
+            torch.as_tensor(toks).long(), torch.tensor([8]), 16,
+            tree_mask=_tree_mask(tcfg, "torch"))
+    rcfg = ref_smoke("llama3_2_1b", **OVER)
+    want, want_cache = RA.prefill_into_cache(
+        rcfg, convert.to_reference(model), RA.init_cache(rcfg, 1, 16),
+        jnp.asarray(toks, jnp.int32), jnp.asarray([8], jnp.int32), 16,
+        tree_mask=_tree_mask(rcfg, "reference"))
+    assert _rel(got, want) <= 1e-4
+    assert _cache_err(got_cache, jax.tree.map(np.asarray, want_cache)) <= 1e-5
     # the hybrid, encdec and vlm families are ported (ROADMAP A10b): every
     # reference arch resolves, and an unknown one raises
     assert get_smoke_config("recurrentgemma_2b").family == "hybrid"
