@@ -165,6 +165,29 @@ request, prefill and decode host ms, tokens/s, peak memory), one tree
 group, and profiles one plain prefill group, one tree group (the
 fastmult's share) and one decode tick.
 
+Multi-rank FTFI (slice 15, cell (t)): `core.plan_shard` over
+`torch.distributed`, each rank one process (`launch.mesh.run_local`, a
+FileStore in a temporary directory). 4l(a) runs `apply_sharded` on one
+NCCL rank at cell (a)'s plan (d = 4 and 64; the four B1 families on "cuda",
+exp and poly on "torch") against single-device `apply` (<= 1e-5), one B1
+launch per cross bucket; 4l(b) on one gloo group of 4 processes sharing
+the card (D = 4 shards): exp, poly and rational on "cuda" and a raw
+callable through the Chebyshev engine, grads into X and the params, a
+64-edit `update_plan` plan and cell (c)'s forest, each against
+single-device `apply` on the card (<= 1e-5), exactly one all_to_all, one
+reduce_scatter and one all_gather per forward and one B1 launch per live
+cross bucket on each rank; 4l(c) the sharded kernel faces on a (2, 2) mesh
+(B1 at (a)'s largest bucket with a ragged B; B2 at cell (d)'s shape in
+decay and rank-16 mode, and at H = 30 and 31: 31 drops the head axis) against the
+single-device calls (<= 1e-6, the largest difference printed); 4l(d)
+TopoViT-B/16 at full width in float32 with `topo_shard_plan` over the 4
+ranks, 8 images, against the single-device forward (<= 1e-4), 2 x 12
+sharded fastmults with their collectives, and each block's mask
+coefficient grads on one image against the single-device backward's
+(<= 1e-3 of their largest, 4e's bound). 5j prints `shard_stats` at D = 1, 2, 4, 8 and each rank's
+host and CUDA-event ms of `apply_sharded` and of each collective, labelled
+"one rank" or "4 processes sharing one H100": none is a multi-GPU time.
+
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
 
@@ -3021,6 +3044,31 @@ class _Edits:
                             [w for _, _, w in self.edges]), np.asarray(live)
 
 
+def _random_edits(tree, edits: int, seed: int):
+    """`edits` seeded update_plan ops on `tree` (inserts, deletes of live
+    leaves, one reweight halfway), with the edited tree beside them."""
+    rng = np.random.default_rng(seed)
+    model = _Edits(tree)
+    ops_list = []
+    for k in range(edits):
+        if k == edits // 2:
+            w = rng.uniform(0.1, 1.0, len(model.edges))
+            model.edges = [(u, v, float(x)) for (u, v, _), x in
+                           zip(model.edges, w)]
+            ops_list.append(("reweight", w))
+        elif rng.random() < 0.6:
+            parent = int(rng.choice([v for v in range(model.n)
+                                     if v not in model.ghosts]))
+            w = float(rng.uniform(0.1, 1.0))
+            model.insert(parent, w)
+            ops_list.append(("insert_leaf", parent, w))
+        else:
+            v = int(rng.choice(model.leaves()))
+            model.delete(v)
+            ops_list.append(("delete_leaf", v))
+    return ops_list, model
+
+
 def phase_maintenance(prob, cfg, device, card):
     """4h/5g on (j)'s plan: 64 seeded edits through `update_plan` (inserts,
     deletes, one reweight) held on "cuda" against a fresh reweightable
@@ -3050,25 +3098,7 @@ def phase_maintenance(prob, cfg, device, card):
 
     spec, params, tree = prob["spec"], prob["params"], prob["tree"]
     fn = C.Exponential(prob["lam"])
-    rng = np.random.default_rng(cfg["edit_seed"])
-    model = _Edits(tree)
-    ops_list = []
-    for k in range(cfg["edits"]):
-        if k == cfg["edits"] // 2:
-            w = rng.uniform(0.1, 1.0, len(model.edges))
-            model.edges = [(u, v, float(x)) for (u, v, _), x in
-                           zip(model.edges, w)]
-            ops_list.append(("reweight", w))
-        elif rng.random() < 0.6:
-            parent = int(rng.choice([v for v in range(model.n)
-                                     if v not in model.ghosts]))
-            w = float(rng.uniform(0.1, 1.0))
-            model.insert(parent, w)
-            ops_list.append(("insert_leaf", parent, w))
-        else:
-            v = int(rng.choice(model.leaves()))
-            model.delete(v)
-            ops_list.append(("delete_leaf", v))
+    ops_list, model = _random_edits(tree, cfg["edits"], cfg["edit_seed"])
     t0 = time.perf_counter()
     s2, p2 = ftfi.update_plan(spec, params, ops_list)
     torch.cuda.synchronize()
@@ -5294,6 +5324,571 @@ def phase_engine(card, device):
     return {"engine_gates": gates, "engine_times": times}
 
 
+# ----------------------------------------------------------------------------
+# slice 15: multi-rank FTFI over torch.distributed (core.plan_shard)
+# ----------------------------------------------------------------------------
+
+# cell (t): the sharded executor on the one card. 4l(a) one NCCL rank, 4l(b)
+# to 4l(d) one gloo group of 4 processes sharing the card; none of these
+# times is a multi-GPU time
+SHARD = {"ranks": 4, "d": 64, "edits": 64, "edit_seed": 22, "vit_batch": 8,
+         "vit_grad_batch": 1, "face_topo": (4, 32, 4096, 64, 64),
+         "face_topo_h": (30, 31), "reps": 5, "stats_D": (1, 2, 4, 8),
+         "timeout": 600}
+SHARD_FACE_TOL = 1e-6  # tests/test_torch_plan_shard.py, relative to max
+SHARD_VIT_TOL = 1e-4  # tests/test_distribution.py:93
+# 4l(d)'s mask coefficient grads, relative to each block's largest: 4e's
+# bound for two single-device impls of the ViT ("cuda" vs "ref"). The
+# grads sum many terms that cancel, through `index_add_`'s atomics, so two
+# single-device impls differ too (4l(d) prints "torch" vs "cuda"); a
+# rank-sum left out would differ by ~1
+SHARD_GRAD_TOL = 1e-3
+SHARD_LABELS = {"nccl": "one rank", "gloo": "4 processes sharing one H100"}
+
+
+def _event_ms(fn, reps: int) -> float:
+    """CUDA-event time per call of fn() on this rank's stream, warm: the
+    host's launch gaps and the waits inside collectives included."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _shard_setup():
+    """Rank start-up: the float32 settings of the parent (phase_device)."""
+    import torch
+
+    from repro_torch.device import resolve_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return resolve_device(None)
+
+
+def _shard_check(label, got, want, tol):
+    import torch
+
+    err = rel_err(got, want)
+    if not (got.shape == want.shape and bool(torch.isfinite(got).all())
+            and err <= tol):
+        raise AssertionError(f"{label}: sharded vs single-device {err:.3e} "
+                             f"(<= {tol}), shape {tuple(got.shape)}")
+    return err
+
+
+def _shard_times(spec, params, mesh, fn, X, reps) -> dict:
+    """Host ms and CUDA-event ms of apply_sharded against single-device
+    apply ("cuda", d of X), and the ms of each collective at this plan's
+    buffer shapes (host clock to synchronize, all ranks started together
+    by a barrier)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import ftfi
+    from repro_torch.core import plan_shard
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import sharding
+
+    dev = X.device
+    axis = sharding.plan_axis(mesh)
+    D, group = sharding.axis_size(mesh, axis), sharding.axis_group(mesh, axis)
+    sp = plan_shard.partition_plan(spec, D)
+
+    def sharded():
+        return ftfi.apply_sharded(spec, params, fn, X, mesh=mesh,
+                                  backend="cuda")
+
+    def single():
+        return ftfi.apply(spec, params, fn, X, backend="cuda", device=dev)
+
+    out = {}
+    for name, f in (("sharded", sharded), ("single", single)):
+        dist.barrier()
+        out[f"{name}_host_ms"] = host_ms(f, reps)
+        dist.barrier()
+        out[f"{name}_event_ms"] = _event_ms(f, reps)
+    d = X.shape[1]
+    bufs = {"all_to_all": (C.all_to_all, torch.randn(
+                (D * max(sp.halo_width, 1), d), device=dev)),
+            "reduce_scatter": (C.reduce_scatter, torch.randn(
+                (D * sp.block, d), device=dev)),
+            "all_gather": (C.all_gather, torch.randn((sp.block, d),
+                                                     device=dev))}
+    for name, (f, buf) in bufs.items():
+        dist.barrier()
+        out[f"{name}_ms"] = host_ms(lambda: f(buf, group), reps)
+        out[f"{name}_bytes"] = buf.numel() * 4
+    # no host route: each collective runs on the buffers where they lie
+    out["route"] = f"{dist.get_backend(group)} on {dev.type} tensors"
+    return out
+
+
+def _shard_nccl_rank(a) -> dict:
+    """4l(a): one NCCL rank. apply_sharded on plan (a) at each width, the
+    four kernel families on "cuda" and exp/poly on "torch", against
+    single-device apply; one B1 launch per cross bucket on "cuda"."""
+    import torch
+
+    from repro_torch import ftfi
+    from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import mesh as M
+
+    dev = _shard_setup()
+    mesh = M.make_plan_mesh()
+    spec, params = ftfi.load_plan(a["a"], device=dev)
+    nb = len(spec.cross_tgt_d0)
+    rows = []
+    # the slice's main path: B1 counted from 0 around each sharded call
+    # (the single-device calls it is held against are not counted)
+    main_by_td = {td: 0 for td in ops.LAUNCHES_BY_TD}
+    for d in a["widths"]:
+        X = torch.tensor(np.random.default_rng(11 + d).normal(
+            size=(spec.n, d)), dtype=torch.float32, device=dev)
+        for fname, fn in families():
+            for backend in (("cuda", "torch")
+                            if fname in ("Exponential", "Polynomial")
+                            else ("cuda",)):
+                ops.LAUNCHES = 0
+                ops.LAUNCHES_BY_TD.update({td: 0 for td in main_by_td})
+                C.reset_counts()
+                got = ftfi.apply_sharded(spec, params, fn, X, mesh=mesh,
+                                         backend=backend)
+                torch.cuda.synchronize()
+                launched, counts = ops.LAUNCHES, dict(C.COUNTS)
+                for td, c in ops.LAUNCHES_BY_TD.items():
+                    main_by_td[td] += c
+                want = ftfi.apply(spec, params, fn, X, backend=backend,
+                                  device=dev)
+                err = _shard_check(f"4l(a) {fname} d={d} {backend}", got,
+                                   want, EXACT_TOL)
+                if launched != (nb if backend == "cuda" else 0):
+                    raise AssertionError(f"4l(a) {fname} d={d} {backend}: "
+                                         f"{launched} B1 launches, {nb} "
+                                         "cross buckets")
+                rows.append({"family": fname, "d": d, "backend": backend,
+                             "rel_err": err, "launches": launched,
+                             "collectives": counts})
+    from repro_torch.kernels.fdist_matvec import kernel as fdist_kernel
+
+    for d in a["widths"]:
+        if main_by_td[fdist_kernel.tile_width(d)] == 0:
+            raise AssertionError(f"4l(a) launched no fdist_matvec kernel of "
+                                 f"d-tile {d}")
+    X = torch.tensor(np.random.default_rng(5).normal(size=(spec.n, a["d"])),
+                     dtype=torch.float32, device=dev)
+    times = _shard_times(spec, params, mesh, families()[0][1], X, a["reps"])
+    return {"rows": rows, "cross_buckets": nb,
+            "launches": sum(main_by_td.values()),
+            "launches_by_td": main_by_td, "times": times,
+            "device": str(dev)}
+
+
+def _shard_grads(spec, params, fn, X, mesh):
+    """Grads of sum(Y * W) in X and the three distance groups, sharded and
+    single-device on "cuda"; the relative error of each."""
+    import torch
+
+    from repro_torch import ftfi
+
+    W = torch.tensor(np.random.default_rng(9).normal(size=tuple(X.shape)),
+                     dtype=torch.float32, device=X.device)
+    grads = []
+    for sharded in (True, False):
+        x = X.clone().requires_grad_(True)
+        p = ftfi.PlanParams(*(tuple(t.detach().clone().requires_grad_(True)
+                                    for t in group) for group in (
+            params.cross_tgt_d, params.cross_src_d, params.leaf_dists)))
+        y = (ftfi.apply_sharded(spec, p, fn, x, mesh=mesh, backend="cuda")
+             if sharded else ftfi.apply(spec, p, fn, x, backend="cuda",
+                                        device=X.device))
+        (y * W).sum().backward()
+        grads.append({"X": x.grad,
+                      **{name: torch.cat([t.grad.reshape(-1)
+                                          for t in getattr(p, name)])
+                         for name in ("cross_tgt_d", "cross_src_d",
+                                      "leaf_dists")}})
+    return {k: _shard_check(f"4l(b) grad {k}", grads[0][k], grads[1][k],
+                            EXACT_TOL) for k in grads[0]}
+
+
+def _shard_gloo_rank(a) -> dict:
+    """4l(b)-(d) and 5j's per-rank times on one of 4 gloo ranks sharing the
+    card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import ftfi
+    from repro_torch.core import cordial as Cf
+    from repro_torch.core import plan_shard
+    from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.kernels.fdist_matvec.ops import (
+        fdist_matvec_batched, fdist_matvec_batched_sharded)
+    from repro_torch.kernels.topo_linear_attention import ops as topo_ops
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding
+    from repro_torch.models import vit
+
+    dev = _shard_setup()
+    rank = dist.get_rank()
+    mesh = M.make_plan_mesh()  # ("data",) of 4: D = 4 shards
+    out = {"rank": rank, "device": str(dev)}
+    spec, params = ftfi.load_plan(a["a"], device=dev)
+    sp = plan_shard.partition_plan(spec, dist.get_world_size())
+    live = sum(plan_shard.live_buckets(sp, rank))
+    X = torch.tensor(np.random.default_rng(5).normal(size=(spec.n, a["d"])),
+                     dtype=torch.float32, device=dev)
+    fams = dict(families())
+    cases = [("Exponential", fams["Exponential"], "cuda"),
+             ("Polynomial", fams["Polynomial"], "cuda"),
+             ("Rational", fams["Rational"], "cuda"),
+             ("raw 1/(1+s^2)", lambda s: 1.0 / (1.0 + s * s), "torch")]
+    rows = []
+    main = 0  # the slice's main path on this rank: B1 from 0 around each
+    for fname, fn, backend in cases:  # sharded call
+        ops.LAUNCHES = 0
+        C.reset_counts()
+        got = ftfi.apply_sharded(spec, params, fn, X, mesh=mesh,
+                                 backend=backend)
+        torch.cuda.synchronize()
+        launched, counts = ops.LAUNCHES, dict(C.COUNTS)
+        main += launched
+        want = ftfi.apply(spec, params, fn, X, backend=backend, device=dev)
+        err = _shard_check(f"4l(b) {fname}", got, want, EXACT_TOL)
+        if counts != {"all_to_all": 1, "reduce_scatter": 1, "all_gather": 1}:
+            raise AssertionError(f"4l(b) {fname}: collectives {counts}")
+        if launched != (live if backend == "cuda" else 0):
+            raise AssertionError(f"4l(b) {fname}: {launched} B1 launches on "
+                                 f"rank {rank}, {live} live cross buckets")
+        rows.append({"family": fname, "backend": backend, "rel_err": err,
+                     "launches": launched, "collectives": counts,
+                     "engine": ftfi.describe(spec, fn, backend)[
+                         "cross_engine"]})
+    out["launches"] = main
+    if main == 0:
+        raise AssertionError(f"4l(b): rank {rank} launched no B1")
+    out.update(rows=rows, live_buckets=live, cross_buckets=len(
+        spec.cross_tgt_d0), stats=sp.stats)
+    out["grad_rel_err"] = _shard_grads(spec, params, fams["Exponential"], X,
+                                       mesh)
+    s2, p2 = ftfi.load_plan(a["a_edit"], device=dev)
+    X2 = torch.tensor(np.random.default_rng(6).normal(size=(s2.n, a["d"])),
+                      dtype=torch.float32, device=dev)
+    out["edited_rel_err"] = _shard_check(
+        "4l(b) update_plan-edited (a)", ftfi.apply_sharded(
+            s2, p2, fams["Exponential"], X2, mesh=mesh, backend="cuda"),
+        ftfi.apply(s2, p2, fams["Exponential"], X2, backend="cuda",
+                   device=dev), EXACT_TOL)
+    fs, fp = ftfi.load_plan(a["c"], device=dev)
+    sizes = np.asarray(fs.tree_sizes)
+    E = torch.zeros((fs.n, int(sizes.max())), dtype=torch.float32,
+                    device=dev)
+    E[torch.arange(fs.n), torch.from_numpy(np.concatenate(
+        [np.arange(s) for s in sizes])).to(dev)] = 1.0
+    out["forest_rel_err"] = _shard_check(
+        "4l(b) forest (c)", ftfi.apply_sharded(
+            fs, fp, Cf.Exponential(-0.5), E, mesh=mesh, backend="cuda"),
+        ftfi.apply(fs, fp, Cf.Exponential(-0.5), E, backend="cuda",
+                   device=dev), EXACT_TOL)
+    out["times"] = _shard_times(spec, params, mesh, fams["Exponential"], X,
+                                a["reps"])
+
+    # 4l(c): the kernel faces on a (data 2, model 2) mesh
+    mesh2 = M.make_local_mesh(2, 2)
+    sizes_b = [x.numel() * y.shape[1] for x, y in zip(params.cross_tgt_d,
+                                                       params.cross_src_d)]
+    i = int(np.argmax(sizes_b))
+    B = params.cross_tgt_d[i].shape[0]
+    Bf = B - 1 if B % 2 == 0 else B  # ragged over the 2 data ranks
+    x = params.cross_tgt_d[i][:Bf].contiguous()
+    y = params.cross_src_d[i][:Bf].contiguous()
+    v = torch.tensor(np.random.default_rng(8).normal(
+        size=(Bf, y.shape[1], a["d"])), dtype=torch.float32, device=dev)
+    cs = torch.tensor(MODES[1][1], dtype=torch.float32, device=dev)
+    faces = []
+    before = ops.LAUNCHES
+    got = fdist_matvec_batched_sharded(x, y, v, cs, mesh=mesh2, mode="exp")
+    face_launches = ops.LAUNCHES - before
+    want = fdist_matvec_batched(x, y, v, cs, mode="exp")
+    faces.append({"face": "fdist_matvec_batched_sharded", "shape": (
+        Bf, x.shape[1], y.shape[1], a["d"]), "launches": face_launches,
+        "max_abs_diff": float((got - want).abs().max()),
+        "bitwise": bool(torch.equal(got, want)),
+        "rel_err": _shard_check("4l(c) fdist face", got, want,
+                                SHARD_FACE_TOL)})
+    Bq, H, L, m, hd = a["face_topo"]
+    rng = np.random.default_rng(12)
+
+    def t(shape, pos=False):
+        arr = rng.normal(size=shape)
+        return torch.tensor(np.abs(arr) if pos else arr,
+                            dtype=torch.float32, device=dev)
+
+    qf, kf, vv = t((Bq, H, L, m), True), t((Bq, H, L, m), True), t(
+        (Bq, H, L, hd))
+    for mode, deg in (("decay", 1), ("rank16", 2)):
+        co = t((H, deg + 1)) * 0.3
+        for h in (H, *a["face_topo_h"]):
+            kw = dict(g="exp", dist_scale=1.0 / L, causal=True)
+            before = topo_ops.LAUNCHES
+            got = topo_ops.topo_linear_attention_sharded(
+                qf[:, :h], kf[:, :h], vv[:, :h], co[:h], mesh=mesh2, **kw)
+            torch.cuda.synchronize()
+            launched = topo_ops.LAUNCHES - before
+            want = topo_ops.topo_linear_attention(qf[:, :h], kf[:, :h],
+                                                  vv[:, :h], co[:h], **kw)
+            faces.append({
+                "face": "topo_linear_attention_sharded", "mode": mode,
+                "shape": (Bq, h, L, m, hd), "launches": launched,
+                "head_axis": "model" if h % 2 == 0 else "dropped",
+                "max_abs_diff": float((got - want).abs().max()),
+                "bitwise": bool(torch.equal(got, want)),
+                "rel_err": _shard_check(f"4l(c) topo face {mode} H={h}",
+                                        got, want, SHARD_FACE_TOL)})
+            if launched != 1:
+                raise AssertionError(f"4l(c) topo face {mode} H={h}: "
+                                     f"{launched} B2 launches on rank {rank}")
+    del qf, kf, vv
+    out["faces"] = faces
+
+    # 4l(d): TopoViT-B/16 at full width with topo_shard_plan over the 4 ranks
+    cfg = _vit_cfg("cuda", "float32", topo_shard_plan=True)
+    model = vit.init_params(cfg, VIT["seed"], VIT["classes"],
+                            VIT["patch_dim"], device=dev)
+    patches = _patches(cfg, a["vit_batch"], torch.float32, dev)
+    C.reset_counts()
+    b1, b2 = ops.LAUNCHES, topo_ops.LAUNCHES
+    with sharding.use_sharding(mesh):
+        t0 = time.perf_counter()
+        got = _vit_forward(cfg, model, patches, dev)
+        torch.cuda.synchronize()
+        vit_s = time.perf_counter() - t0
+    counts = dict(C.COUNTS)
+    want = _vit_forward(cfg.replace(topo_shard_plan=False), model, patches,
+                        dev)
+    err = _shard_check("4l(d) TopoViT logits", got, want, SHARD_VIT_TOL)
+    n_fm = 2 * cfg.num_layers
+    if counts != {"all_to_all": n_fm, "reduce_scatter": n_fm,
+                  "all_gather": n_fm}:
+        raise AssertionError(f"4l(d): collectives {counts}, {n_fm} sharded "
+                             "fastmults expected")
+    # the mask coefficients' grads, sharded against single-device on the
+    # same image: each rank reads only its share of every block's
+    # coefficients, so their grads must be summed over the ranks
+    p1 = _patches(cfg, a["vit_grad_batch"], torch.float32, dev)
+    coeffs = [blk.topo.coeffs for blk in model.blocks]
+    with sharding.use_sharding(mesh):
+        g_sh = torch.autograd.grad(vit.forward(cfg, model, p1,
+                                               device=dev).sum(), coeffs)
+    # the single-device backwards on rank 0 alone (four at once do not fit
+    # on the card beside the parent's memory), sent to every rank through
+    # the host: impl "cuda" (the reference of the check) and "torch" (the
+    # float32 spread of two single-device runs, printed)
+    torch.cuda.empty_cache()
+    dist.barrier()
+    n_c = sum(c.numel() for c in coeffs)
+    flat = torch.zeros(2 * n_c)
+    if rank == 0:
+        flat = torch.cat([g.reshape(-1) for impl in ("cuda", "torch")
+                          for g in torch.autograd.grad(vit.forward(
+                              cfg.replace(topo_shard_plan=False,
+                                          topo_attn_impl=impl), model, p1,
+                              device=dev).sum(), coeffs)]).cpu()
+        torch.cuda.empty_cache()
+    dist.broadcast(flat, src=0)
+    sizes = [c.numel() for c in coeffs]
+    g_one, g_torch = ([g.view_as(c).to(dev) for g, c in zip(
+        part.split(sizes), coeffs)] for part in flat.split(n_c))
+    gerr = [_shard_check(f"4l(d) block {i} mask coefficient grads", gs, g1,
+                         SHARD_GRAD_TOL)
+            for i, (gs, g1) in enumerate(zip(g_sh, g_one))]
+    gfloor = [rel_err(gt, g1) for gt, g1 in zip(g_torch, g_one)]
+    gmax = [float(g.abs().max()) for g in g_one]
+    if min(gmax) <= 0:
+        raise AssertionError(f"4l(d): mask coefficient grads {gmax}")
+    out["vit"] = {"batch": a["vit_batch"], "layers": cfg.num_layers,
+                  "rel_err": err, "collectives": counts,
+                  "sharded_forward_s": vit_s,
+                  "port_kernel_launches": (ops.LAUNCHES - b1,
+                                           topo_ops.LAUNCHES - b2),
+                  "mask_grad_max_by_layer": gmax,
+                  "mask_grad_rel_err_by_layer": gerr,
+                  "mask_grad_single_spread_by_layer": gfloor}
+    return out
+
+
+def _edited_plan(tree, cfg, device):
+    """Cell (a)'s tree built reweightable and edited by `SHARD["edits"]`
+    seeded update_plan ops."""
+    from repro_torch import ftfi
+
+    spec, params = ftfi.build(tree, leaf_size=cfg["leaf"], reweightable=True,
+                              device=device)
+    ops_list, _ = _random_edits(tree, SHARD["edits"], SHARD["edit_seed"])
+    return ftfi.update_plan(spec, params, ops_list)
+
+
+def shard_kernel_rows(kernels, shard, widths) -> None:
+    """Add slice 15's launches (4l's ranks, counted from 0 in each) to the
+    kernels line's B1 and B2 rows."""
+    from repro_torch.kernels.fdist_matvec import kernel as fdist_kernel
+
+    nccl, gloo = shard["shard_nccl"], shard["shard_gloo"]
+
+    def faces(g, pick):
+        return sum(f["launches"] for f in g["faces"] if pick(f))
+
+    for k in kernels:
+        for d in widths:
+            if k["name"] != f"fdist_matvec_batched[d={d}]":
+                continue
+            on = d == SHARD["d"]  # 4l(b)/(c) run at this width only
+            k.update(
+                shard_launches={
+                    "nccl_one_rank": nccl["launches_by_td"][
+                        fdist_kernel.tile_width(d)],
+                    "gloo_per_rank": [g["launches"] if on else 0
+                                      for g in gloo]},
+                shard_face_launches=[faces(g, lambda f: f["face"] ==
+                                           "fdist_matvec_batched_sharded")
+                                     if on else 0 for g in gloo],
+                shard_at=("4l(a): apply_sharded on one NCCL rank, one "
+                          "launch per cross bucket; 4l(b): per rank of 4 "
+                          "gloo processes sharing the card, one launch per "
+                          "live cross bucket; 4l(c): the sharded face on a "
+                          "(2, 2) mesh, per rank"))
+        for mode in ("decay", "rank16"):
+            if k["name"] == f"topo_attention_sweep[{mode}]":
+                k.update(shard_face_launches=[
+                    faces(g, lambda f: f.get("mode") == mode) for g in gloo],
+                    shard_at=("4l(c): topo_linear_attention_sharded on a "
+                              "(2, 2) mesh of gloo ranks sharing the card, "
+                              "per rank, at H = 32, 30 and 31"))
+
+
+def phase_shard(cfg, device, card):
+    """Slice 15 (cell (t)): the plans are built on the host and saved to a
+    temporary directory; 4l(a) runs on one NCCL rank, 4l(b)-(d) and 5j's
+    per-rank times on one gloo group of 4 processes sharing the card
+    (`launch.mesh.run_local`); 5j's partition statistics on the host.
+    Returns the record."""
+    import shutil
+    import tempfile
+
+    from repro_torch import ftfi
+    from repro_torch.graphs.graph import Forest
+    from repro_torch.graphs.mst import minimum_spanning_forest
+    from repro_torch.launch import mesh as M
+    from repro_torch.models import vit
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        tree = synthetic_tree(cfg)
+        spec, params = ftfi.build(tree, leaf_size=cfg["leaf"], device=device)
+        ftfi.save_plan(f"{tmp}/a.npz", spec, params)
+        s2, p2 = _edited_plan(tree, cfg, device)
+        ftfi.save_plan(f"{tmp}/a_edit.npz", s2, p2)
+        forest = Forest(minimum_spanning_forest(graph_dataset(cfg)))
+        fs, fp = ftfi.build(forest, leaf_size=cfg["forest_leaf"],
+                            device=device)
+        w = np.random.default_rng(3).uniform(0.5, 2.0, forest.num_trees)
+        ftfi.save_plan(f"{tmp}/c.npz", fs, ftfi.PlanParams(
+            fp.cross_tgt_d, fp.cross_src_d, fp.leaf_dists,
+            tree_w=np.asarray(w, np.float32)))
+        gs, _ = vit.build_grid_plan(_vit_cfg(), device)
+        stats = {name: {D: ftfi.shard_stats(s, D) for D in SHARD["stats_D"]}
+                 for name, s in (("a", spec), ("c", fs), ("vit_grid", gs))}
+        for name, by_d in stats.items():
+            for D, st in by_d.items():
+                print(f"[5j shard_stats] {name} D={D}: block {st['block']}, "
+                      f"halo width {st['halo_width']}, halo total "
+                      f"{st['halo_total']}, src rows {st['src_rows']}, tgt "
+                      f"rows {st['tgt_rows']} (host)", flush=True)
+        del s2, p2, fp
+        args = {"a": f"{tmp}/a.npz", "a_edit": f"{tmp}/a_edit.npz",
+                "c": f"{tmp}/c.npz", "widths": cfg["widths"], **SHARD}
+        t0 = time.perf_counter()
+        (nccl,) = M.run_local(_shard_nccl_rank, 1, (args,), backend="nccl",
+                              timeout=SHARD["timeout"])
+        nccl_s = time.perf_counter() - t0
+        for r in nccl["rows"]:
+            print(f"[4l(a) nccl, one rank] {r['family']} d={r['d']} "
+                  f"{r['backend']}: apply_sharded vs apply {r['rel_err']:.2e}"
+                  f" (<= {EXACT_TOL}), B1 launches {r['launches']} "
+                  f"({nccl['cross_buckets']} cross buckets), collectives "
+                  f"{r['collectives']}", flush=True)
+        t0 = time.perf_counter()
+        gloo = M.run_local(_shard_gloo_rank, SHARD["ranks"], (args,),
+                           backend="gloo", timeout=SHARD["timeout"])
+        gloo_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for g in gloo:
+        k = g["rank"]
+        for r in g["rows"]:
+            print(f"[4l(b) gloo rank {k}/4] {r['family']} ({r['engine']}, "
+                  f"{r['backend']}): vs apply {r['rel_err']:.2e} (<= "
+                  f"{EXACT_TOL}), B1 launches {r['launches']} = live buckets "
+                  f"{g['live_buckets']} of {g['cross_buckets']}, collectives "
+                  f"{r['collectives']}", flush=True)
+        print(f"[4l(b) gloo rank {k}/4] grads vs apply's "
+              + ", ".join(f"{n} {e:.2e}" for n, e in
+                          g["grad_rel_err"].items())
+              + f" (<= {EXACT_TOL}); {SHARD['edits']}-edit plan "
+              f"{g['edited_rel_err']:.2e}; forest (c) "
+              f"{g['forest_rel_err']:.2e}", flush=True)
+        for f in g["faces"]:
+            print(f"[4l(c) gloo rank {k}/4] {f['face']} "
+                  f"{f.get('mode', '')} {f['shape']}"
+                  f"{' head axis ' + f['head_axis'] if 'head_axis' in f else ''}"
+                  f": max |diff| {f['max_abs_diff']:.3e}, bitwise "
+                  f"{f['bitwise']}, launches {f['launches']}", flush=True)
+        v = g["vit"]
+        print(f"[4l(d) gloo rank {k}/4] TopoViT-B/16 float32 B={v['batch']}"
+              f" topo_shard_plan: logits vs single-device {v['rel_err']:.2e}"
+              f" (<= {SHARD_VIT_TOL}), collectives {v['collectives']}, "
+              f"sharded forward {v['sharded_forward_s']:.2f} s; mask "
+              f"coefficient grads ({SHARD['vit_grad_batch']} image) vs "
+              f"single-device, worst block "
+              f"{max(v['mask_grad_rel_err_by_layer']):.2e} (<= "
+              f"{SHARD_GRAD_TOL}); single-device 'torch' vs 'cuda' "
+              f"{max(v['mask_grad_single_spread_by_layer']):.2e}",
+              flush=True)
+    for label, recs in (("nccl", [nccl]), ("gloo", gloo)):
+        for g in recs:
+            t = g["times"]
+            print(f"[5j times, {SHARD_LABELS[label]}] rank "
+                  f"{g.get('rank', 0)}: apply_sharded host "
+                  f"{t['sharded_host_ms']:.3f} ms, events "
+                  f"{t['sharded_event_ms']:.3f} ms | single-device apply host "
+                  f"{t['single_host_ms']:.3f} ms, events "
+                  f"{t['single_event_ms']:.3f} ms | all_to_all "
+                  f"{t['all_to_all_ms']:.3f} ms ({t['all_to_all_bytes']} B), "
+                  f"reduce_scatter {t['reduce_scatter_ms']:.3f} ms "
+                  f"({t['reduce_scatter_bytes']} B), all_gather "
+                  f"{t['all_gather_ms']:.3f} ms ({t['all_gather_bytes']} B) "
+                  f"({t['route']}) "
+                  f"| plan (a), exp, cuda, d={SHARD['d']} | {card}",
+                  flush=True)
+    print(f"[slice 15] nccl run {nccl_s:.1f} s, gloo run {gloo_s:.1f} s "
+          "(process start-up included); no time here is a multi-GPU time",
+          flush=True)
+    return {"shard_stats": {k: {str(D): s for D, s in v.items()}
+                            for k, v in stats.items()},
+            "shard_nccl": nccl, "shard_gloo": gloo,
+            "shard_seconds": {"nccl": nccl_s, "gloo": gloo_s}}
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -5599,7 +6194,13 @@ def run(cfg, device, out_path=None) -> dict:
                 "float32, topo_attn_impl 'cuda'; one launch per layer per "
                 "plain prefill group (16 x prefill_calls), none in decode "
                 "or in a tree group"))
-    record = {**deepseek, **a10b, **engine, "device": info, "build": build, "main_path": rows_a + rows_b,
+    # slice 15: multi-rank FTFI (cell (t)); B1 counted from 0 inside each
+    # rank around 4l(a) and 4l(b), the slice's main path, B1/B2 around each
+    # kernel face of 4l(c)
+    torch.cuda.empty_cache()
+    shard = phase_shard(cfg, device, card)
+    shard_kernel_rows(kernels, shard, cfg["widths"])
+    record = {**deepseek, **a10b, **engine, **shard, "device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
               "topo_serve": serves, "topo_times": {

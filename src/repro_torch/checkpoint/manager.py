@@ -13,7 +13,7 @@ records its dtype under "dtypes": a restore is bitwise. Every other dtype
 is stored as itself. A restore copies into the tensors of `like_*` (their
 device and dtype), so it takes a live model and optimizer state.
 Resharding on restore (the reference's elastic path) comes with ROADMAP
-A12.
+A12b, the parameter sharding.
 """
 from __future__ import annotations
 

@@ -58,8 +58,9 @@ class ModelConfig:
     # plan backend of the ViT's grid-mask fastmult, "torch" | "cuda" (None:
     # follow topo_attn_impl — cuda -> cuda, else torch)
     topo_backend: Optional[str] = None
-    # multi-device plan executor (ROADMAP A12): a no-op without a process
-    # group of more than one rank, which raises
+    # the multi-rank plan executor (core.plan_shard) for the ViT's mask
+    # fastmults over the active launch.sharding mesh; without one, or with
+    # one rank on its plan axis, the single-device executor
     topo_shard_plan: bool = False
 
     # mlp

@@ -222,8 +222,23 @@ def _resolve_plan_handle(plan):
         f"pair from ftfi.build / ftfi.load_plan, got {type(plan).__name__}")
 
 
+def _shard_mesh(sharded: bool, mesh):
+    """The mesh a `sharded=True` fastmult runs over: `mesh`, else the
+    active `use_sharding` one, when it has more than one rank on its plan
+    axis; else None (the single-device executor)."""
+    if not sharded:
+        return None
+    from repro_torch.launch import sharding
+
+    mesh = mesh if mesh is not None else sharding.current_mesh()
+    if mesh is None or sharding.axis_size(mesh, sharding.plan_axis(mesh)) < 2:
+        return None
+    return mesh
+
+
 def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
-                       backend: str | None = None, device=None) -> Callable:
+                       backend: str | None = None, device=None,
+                       sharded: bool = False, mesh=None) -> Callable:
     """FastMult_M for M = [f(dist_T(i,j))] through the plan executor.
 
     `plan` is an `Integrator` of backend "torch" or "cuda" or a
@@ -238,14 +253,36 @@ def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
     The folded field runs through the executor `field_chunk(spec)` columns
     at a time, which bounds its temporaries on the card.
 
+    `sharded=True` runs the multi-rank executor
+    (`plan_shard.sharded_fastmult`) over `mesh` (default: the active
+    `launch.sharding` mesh): leaf blocks over the plan axis, one halo
+    all_to_all and one reduce_scatter per execution, every rank the same
+    result. With no mesh, or one rank on its plan axis, it runs the
+    single-device executor, so model code can pass
+    `sharded=cfg.topo_shard_plan` unconditionally.
+
     The closure is built on every call (no memo: building it touches no
     device data) and captures the coeffs, so their gradients flow through
     the leaf blocks, the Hankel mask values and the diagonal correction."""
     spec, params, own = _resolve_plan_handle(plan)
     backend = backend or own or "torch"
     dev = resolve_device(device)
-    base = plan_api.fastmult(spec, mask_f(g, _coeffs(coeffs, dev), dist_scale),
-                             backend=backend, device=dev)
+    c = _coeffs(coeffs, dev)
+    mesh = _shard_mesh(sharded, mesh)
+    if mesh is not None:
+        from repro_torch.core import plan_shard
+        from repro_torch.launch import collectives, sharding
+
+        # every rank reads the replicated coefficients for its own share of
+        # the plan: their grads are summed over the plan axis
+        (c,) = collectives.replicated((c,), sharding.axis_group(
+            mesh, sharding.plan_axis(mesh)))
+        base = plan_shard.sharded_fastmult(spec, mask_f(g, c, dist_scale),
+                                           mesh=mesh, backend=backend,
+                                           device=dev)
+    else:
+        base = plan_api.fastmult(spec, mask_f(g, c, dist_scale),
+                                 backend=backend, device=dev)
 
     chunk = field_chunk(spec)
 

@@ -20,7 +20,9 @@ Entry points (also exposed as `repro_torch.ftfi`):
   update_plan(spec, params, ops)  -> (spec', params')  incremental edits
   describe(spec, fn)              -> engine choice
   save_plan / load_plan           npz round trip, the reference's format,
-                                  bounds-checked by `plan_guard` on load
+                                  bounds-checked by `plan_guard` on load;
+                                  `save_plan(..., mesh=)` stamps the mesh
+  apply(..., mesh=)               the multi-rank executor (`plan_shard`)
   from_numpy(spec_fields, params_fields) -> (spec, params) from the numpy
                                      arrays of a live reference pair
 
@@ -518,6 +520,15 @@ def hankel_batched_matvec(fn_eval, h: float, it: np.ndarray, isrc: np.ndarray,
     batched over IT nodes."""
     Ms = int(isrc.max()) + 1 if isrc.size else 1
     L = (int(it.max()) if it.size else 0) + Ms  # covers all k + m
+    return hankel_grid_matvec(fn_eval, h, it_t, isrc_t, Xp, L, Ms)
+
+
+def hankel_grid_matvec(fn_eval, h: float, it_t: torch.Tensor,
+                       isrc_t: torch.Tensor, Xp, L: int, Ms: int):
+    """The Hankel-FFT multiply of `hankel_batched_matvec` with the
+    transform sizes given: L grid values of f, Ms source grid slots (the
+    sharded executor passes a bucket's global sizes with one rank's
+    rows)."""
     F = fn_eval(h * torch.arange(L, dtype=Xp.dtype, device=Xp.device))  # (L,)
     B, Us, d = Xp.shape
     # scatter source mass onto the grid: P[b, m] = sum_{u: isrc[b,u]=m} Xp[b,u]
@@ -671,14 +682,23 @@ def _fspec(fn) -> FamilySpec:
 
 
 def apply(spec: PlanSpec, params: PlanParams, fn, X, *,
-          backend: str = "torch", degree: int = 32, device=None):
+          backend: str = "torch", degree: int = 32, device=None, mesh=None,
+          axis: str | None = None):
     """Integration: Y = M_f X with distances/weights from `params`.
 
     `fn` is a CordialFn, FamilySpec, or torch-evaluable callable. `backend`
     picks the cross-engine family: "torch" (exact LDR + Hankel on grids +
     Chebyshev) or "cuda" (the fdist_matvec kernel for the in-kernel
     families). X (numpy or torch, (n,) or (n, d)) and params are moved to
-    `device` as float32."""
+    `device` as float32.
+
+    `mesh` (a `DeviceMesh`, optionally with `axis`) routes through the
+    multi-rank executor — see `plan_shard.apply_sharded`."""
+    if mesh is not None:
+        from repro_torch.core.plan_shard import apply_sharded
+
+        return apply_sharded(spec, params, fn, X, mesh=mesh, axis=axis,
+                             backend=backend, degree=degree, device=device)
     return fastmult(spec, fn, backend=backend, degree=degree,
                     device=device)(params, X)
 
@@ -783,9 +803,23 @@ _SPEC_SCALAR_DEFAULTS = {"mesh_devices": 0, "mesh_axes": (),
 _PARAM_TUPLE_FIELDS = ("cross_tgt_d", "cross_src_d", "leaf_dists")
 
 
-def save_plan(path, spec: PlanSpec, params: PlanParams) -> None:
+def save_plan(path, spec: PlanSpec, params: PlanParams, *,
+              mesh=None) -> None:
     """Serialize (spec, params) to one .npz artifact (no pickle), in the
-    reference's format: either package loads the other's artifacts."""
+    reference's format: either package loads the other's artifacts.
+
+    `mesh` (a `DeviceMesh`) stamps mesh/device provenance (device count,
+    axis names, shard layout version) into the artifact: loading it where
+    that mesh cannot be formed then fails fast in `plan_guard` /
+    `apply_sharded` instead of crashing at gather time."""
+    if mesh is not None:
+        from repro_torch.core.plan_shard import SHARD_LAYOUT_VERSION
+        from repro_torch.launch import sharding
+
+        spec = dataclasses.replace(
+            spec, mesh_devices=sharding.mesh_size(mesh),
+            mesh_axes=tuple(str(a) for a in sharding.mesh_axes(mesh)),
+            shard_layout=SHARD_LAYOUT_VERSION)
     arrays: dict = {}
     meta: dict = {"version": _SAVE_VERSION}
     for name in _SPEC_SCALAR_FIELDS:

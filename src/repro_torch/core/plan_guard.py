@@ -21,8 +21,10 @@ torch tensors on any device (their finiteness is read there, one scalar a
 bucket).
 
 The reference's `repro.core.plan_guard`, check for check. Its mesh check
-reads `SHARD_LAYOUT_VERSION` (copied here; sharded execution is ROADMAP
-A12) and counts the CUDA devices in place of jax's.
+reads `plan_shard.SHARD_LAYOUT_VERSION` and counts the devices a mesh can
+be formed from where the reference counts `jax.device_count()`: the ranks
+of the initialized process group, else the visible CUDA cards, else 1 (one
+CPU device).
 """
 from __future__ import annotations
 
@@ -31,9 +33,7 @@ import warnings
 
 import numpy as np
 
-# the reference's `plan_shard.SHARD_LAYOUT_VERSION`: the newest shard layout
-# an artifact may record
-SHARD_LAYOUT_VERSION = 1
+from repro_torch.core.plan_shard import SHARD_LAYOUT_VERSION
 
 _ENV_POLICY = "FTFI_PLAN_GUARD"
 _POLICIES = ("strict", "warn", "off")
@@ -211,6 +211,19 @@ def _offsets_ok(name, offs, masks, total, issues):
                       f"size {expect}")
 
 
+def mesh_device_count() -> int:
+    """Devices a mesh can be formed from here: the world size of the
+    initialized process group (one rank a device), else the visible CUDA
+    cards, else 1 — the reference's `jax.device_count()` on one CPU
+    device."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return int(dist.get_world_size())
+    return max(torch.cuda.device_count(), 1)
+
+
 def check_spec(spec, params=None, max_issues: int = 16) -> list[str]:
     """Every inconsistency that could make the fused executor read or write
     out of bounds (or silently mis-integrate), as human-readable strings.
@@ -247,9 +260,7 @@ def check_spec(spec, params=None, max_issues: int = 16) -> list[str]:
                 f"layout than this build supports "
                 f"(SHARD_LAYOUT_VERSION={SHARD_LAYOUT_VERSION})")
         if mesh_devices:
-            import torch
-
-            avail = torch.cuda.device_count()
+            avail = mesh_device_count()
             if mesh_devices > avail:
                 issues.append(
                     f"mesh_devices={mesh_devices}: sharded artifact needs "

@@ -47,7 +47,9 @@ digest stays lazy).
 
 Requires `build(..., reweightable=True)` (per-vertex slots + LCA tables)
 compiled by this codebase version (update tables present). A spec laid out
-for a device mesh is refused: sharded plans are ROADMAP A12.
+for a device mesh keeps its provenance (`mesh_devices`, `mesh_axes`,
+`shard_layout`) through an edit, and the sharded executor
+(`plan_shard.apply_sharded`) consumes the edited plan.
 """
 from __future__ import annotations
 
@@ -88,12 +90,6 @@ class _State:
     growth never triggers per-edit remaps of the big flat arrays."""
 
     def __init__(self, spec):
-        if spec.mesh_devices or spec.shard_layout:
-            raise NotImplementedError(
-                "update_plan on a plan laid out for a device mesh "
-                f"(mesh_devices={spec.mesh_devices}, shard_layout="
-                f"{spec.shard_layout}) is not ported yet: sharded plans are "
-                "ROADMAP A12")
         if (spec.path_rows is None or spec.children is None
                 or spec.edges_u is None):
             raise ValueError(

@@ -39,8 +39,20 @@ fdist_matvec kernel for poly/exp/expq/rational; the reference's "pallas")
 and "auto" ("cuda" from `ladder.AUTO_CUDA_MIN_N` vertices up, else
 "torch"; env `FTFI_AUTO_CUDA_MIN_N`). Every entry point takes
 `device=None`, meaning the CUDA card; pass `device="cpu"` to run on the
-CPU, where "cuda" uses the kernel's plain version. Sharded execution
-(the reference's `apply_sharded` and friends) is ROADMAP A12.
+CPU, where "cuda" uses the kernel's plain version.
+
+Sharded execution: every rank of a process group (one process a device)
+calls the same entry point with the same field and gets the whole result.
+
+    from repro_torch.launch import mesh as M, sharding
+    # in each rank (e.g. started by M.run_local(fn, 4)):
+    mesh = M.make_plan_mesh()                        # ("data",) over the group
+    with sharding.use_sharding(mesh):                # or pass mesh=...
+        Y = ftfi.apply_sharded(spec, params, fn, X)  # == apply(...) to round-off
+        fm = ftfi.sharded_fastmult(spec, fn)         # (params, X) -> Y
+    Y = ftfi.apply(spec, params, fn, X, mesh=mesh)   # the same route
+    ftfi.save_plan("plan.npz", spec, params, mesh=mesh)  # stamps the mesh
+    ftfi.shard_stats(spec, num_shards)               # block/halo/work stats
 """
 from repro_torch.core import ladder, plan_cache, plan_guard  # noqa: F401
 from repro_torch.core.ladder import (  # noqa: F401
@@ -52,3 +64,6 @@ from repro_torch.core.plan_api import (  # noqa: F401
     specialize, update_plan)
 from repro_torch.core.plan_guard import (  # noqa: F401
     PlanValidationError, validate)
+from repro_torch.core.plan_shard import (  # noqa: F401
+    SHARD_LAYOUT_VERSION, apply_sharded, partition_plan, shard_stats,
+    sharded_fastmult)

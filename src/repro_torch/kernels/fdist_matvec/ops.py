@@ -119,3 +119,34 @@ def fdist_matvec(x, y, v, coeffs, mode: str = "poly"):
             f"expected x (a,), y (b,), v (b, d); got {tuple(x.shape)}, "
             f"{tuple(y.shape)}, {tuple(v.shape)}")
     return fdist_matvec_batched(x[None], y[None], v[None], coeffs, mode)[0]
+
+
+def fdist_matvec_batched_sharded(x, y, v, coeffs, *, mesh, axis=None,
+                                 mode: str = "poly"):
+    """`fdist_matvec_batched` over the ranks of `mesh`: the bucket (job) dim
+    is split over the mesh's plan axis (`data` by default), each rank
+    launching the kernel on its B/D slab — buckets are independent, so the
+    slabs need no collective — and one all_gather assembles the (B, a, d)
+    result on every rank. A ragged bucket count is zero-padded to a
+    multiple of the axis size (the pad slabs' rows are sliced off). Each
+    job's output is the single-device call's. Every rank passes the same
+    inputs and gets the whole gradient of each: a rank differentiates
+    only its slab, so the inputs' grads are summed over the axis."""
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import sharding
+
+    axis = axis or sharding.plan_axis(mesh)
+    D = sharding.axis_size(mesh, axis)
+    if D == 1:
+        return fdist_matvec_batched(x, y, v, coeffs, mode=mode)
+    group = sharding.axis_group(mesh, axis)
+    x, y, v, coeffs = C.replicated((x, y, v, coeffs), group)
+    B = x.shape[0]
+    pad = (-B) % D
+    if pad:
+        x, y, v = (torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+                   for t in (x, y, v))
+    k, S = sharding.axis_rank(mesh, axis), x.shape[0] // D
+    mine = fdist_matvec_batched(*(t[k * S:(k + 1) * S].contiguous()
+                                  for t in (x, y, v)), coeffs, mode=mode)
+    return C.all_gather(mine, group)[:B]

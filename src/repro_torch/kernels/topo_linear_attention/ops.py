@@ -343,3 +343,54 @@ def topo_linear_attention(qf, kf, v, coeffs, *, g: str = "exp",
     if use_kernel:
         return _Fused.apply(spec, qf, kf, v, coeffs)
     return _plain_forward(spec, qf, kf, v, coeffs)
+
+
+def topo_linear_attention_sharded(qf, kf, v, coeffs, *, mesh,
+                                  batch_axis: str = "data",
+                                  head_axis: str = "model", **kw):
+    """`topo_linear_attention` over the ranks of `mesh`: batch over its
+    `batch_axis` and heads over its `head_axis`. Every (batch, head) pair's
+    sweep is independent, so each rank runs the identical fused sweep on
+    its (B/b, H/h) slab with no collective, and all_gathers (heads, then
+    batch) assemble the (B, H, L, hd) result on every rank, equal to the
+    single-device call's. An axis whose extent does not divide its dim is
+    dropped (that dim runs replicated), as the reference's
+    `launch.sharding.shard` drops it. Every rank passes the same inputs
+    and gets the whole gradient of each: a rank differentiates only its
+    slab, so the inputs' grads are summed over each kept axis."""
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import sharding
+
+    B, H = qf.shape[0], qf.shape[1]
+    coeffs = torch.as_tensor(coeffs, dtype=torch.float32, device=qf.device)
+    if coeffs.ndim == 1:
+        coeffs = coeffs[None].expand(H, coeffs.shape[0])
+
+    def keep(axis, n):
+        size = sharding.axis_size(mesh, axis)
+        return axis if size > 1 and n % size == 0 else None
+
+    ba, ha = keep(batch_axis, B), keep(head_axis, H)
+    if ba is None and ha is None:
+        return topo_linear_attention(qf, kf, v, coeffs, **kw)
+
+    def part(axis, n):
+        if axis is None:
+            return slice(0, n)
+        s = n // sharding.axis_size(mesh, axis)
+        k = sharding.axis_rank(mesh, axis)
+        return slice(k * s, (k + 1) * s)
+
+    for axis in (ba, ha):
+        if axis is not None:
+            qf, kf, v, coeffs = C.replicated(
+                (qf, kf, v, coeffs), sharding.axis_group(mesh, axis))
+    bs, hs = part(ba, B), part(ha, H)
+    out = topo_linear_attention(qf[bs, hs], kf[bs, hs], v[bs, hs],
+                                coeffs[hs], **kw)
+    if ha is not None:
+        out = C.all_gather(out.transpose(0, 1).contiguous(),
+                           sharding.axis_group(mesh, ha)).transpose(0, 1)
+    if ba is not None:
+        out = C.all_gather(out.contiguous(), sharding.axis_group(mesh, ba))
+    return out

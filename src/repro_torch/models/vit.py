@@ -261,7 +261,7 @@ def topo_vit_attention(cfg, p, x, plan, backend: str):
     else:
         fastmult = make_tree_fastmult(
             plan, cfg.topo_g, coeffs, cfg.topo_dist_scale, backend=backend,
-            device=x.device)
+            device=x.device, sharded=cfg.topo_shard_plan)
         out = masked_linear_attention(qf_, kf_, v_, fastmult)
     out = out.transpose(1, 2).reshape(B, L, -1).to(x.dtype)
     return out @ p.attn.wo
@@ -275,21 +275,17 @@ def forward(cfg, model, patches, plan=None, *, backend: str | None = None,
     Integrator (default `build_grid_integrator`, probed on "cuda"), run on
     `attention.resolve_topo_backend`'s backend; the "ref" impl and
     the "performer" variant need none. Differentiable: serving wraps it in
-    `torch.no_grad()`. `cfg.topo_shard_plan` under a process group of more
-    than one rank raises: the sharded plan executor is ROADMAP A12."""
+    `torch.no_grad()`. `cfg.topo_shard_plan` runs each mask fastmult on the
+    multi-rank plan executor over the active `launch.sharding` mesh (leaf
+    blocks over its plan axis); the model and the patches are replicated,
+    so every rank returns the same logits. With no mesh, or one rank on
+    its plan axis, it runs the single-device executor."""
     if cfg.attention_variant not in VARIANTS:
         raise ValueError(f"attention_variant={cfg.attention_variant!r}: the "
                          f"ViT runs {VARIANTS}")
     if cfg.topo_attn_impl not in A.IMPLS:
         raise ValueError(f"cfg.topo_attn_impl={cfg.topo_attn_impl!r}: "
                          f"expected one of {A.IMPLS}")
-    dist = torch.distributed
-    if (cfg.topo_shard_plan and dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1):
-        raise NotImplementedError(
-            f"cfg.topo_shard_plan over a process group of "
-            f"{dist.get_world_size()} ranks: the sharded plan executor is "
-            "not ported yet (ROADMAP A12)")
     dev = api._on(model, device)
     topo = cfg.attention_variant == "topo"
     backend = A.resolve_topo_backend(cfg, backend)

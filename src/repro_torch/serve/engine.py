@@ -291,7 +291,7 @@ class ServeEngine:
         """Device provenance segment: how many devices this process sees
         (the CUDA cards, or 1 on the CPU) against what the preloaded plan
         artifact was sharded for."""
-        from repro_torch.core.plan_guard import SHARD_LAYOUT_VERSION
+        from repro_torch.core.plan_shard import SHARD_LAYOUT_VERSION
 
         n = torch.cuda.device_count() if self.device.type == "cuda" else 1
         seg = f"devices={n}"

@@ -5,7 +5,7 @@ optimizer state round-trips exactly, bfloat16 tensors round-trip bit for
 bit (as 16-bit patterns: numpy has no bfloat16), and a `params.npz` that
 the reference's manager wrote restores into the port through `convert`.
 Restoring under another sharding (the reference's elastic case) comes
-with ROADMAP A12."""
+with ROADMAP A12b, the parameter sharding."""
 import json
 import os
 

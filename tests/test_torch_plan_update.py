@@ -302,9 +302,14 @@ def test_update_error_cases():
         T.update_plan(spec, pp, [("reweight", np.ones(7))])
     with pytest.raises(ValueError, match="unknown update op"):
         T.update_plan(spec, pp, [("frobnicate", 3)])
-    sharded = dataclasses.replace(spec, mesh_devices=4, shard_layout=1)
-    with pytest.raises(NotImplementedError, match="A12"):
-        T.update_plan(sharded, pp, [("insert_leaf", 0, 1.0)])
+    # a spec stamped for a mesh keeps its provenance through an edit (the
+    # reference's behaviour; one device, so it passes the guard here)
+    sharded = dataclasses.replace(spec, mesh_devices=1, mesh_axes=("data",),
+                                  shard_layout=T.SHARD_LAYOUT_VERSION)
+    s2, _ = T.update_plan(sharded, pp, [("insert_leaf", 0, 1.0)])
+    assert (s2.mesh_devices, s2.mesh_axes, s2.shard_layout) == (
+        1, ("data",), T.SHARD_LAYOUT_VERSION)
+    assert s2.n == spec.n + 1
 
 
 def test_deleting_all_but_root_leaves_zero_plan():

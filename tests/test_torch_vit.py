@@ -257,7 +257,7 @@ def test_grid_plan_takes_the_hankel_engine():
         cfg.replace(topo_attn_impl="torch"), device="cpu")
 
 
-def test_refusals(ref_vit, monkeypatch):
+def test_refusals(ref_vit):
     _, tree, patches, _ = ref_vit
     cfg, model = _model("torch", tree)
     with pytest.raises(ValueError, match="attention_variant"):
@@ -266,18 +266,13 @@ def test_refusals(ref_vit, monkeypatch):
     with pytest.raises(ValueError, match="topo_attn_impl"):
         TV.forward(cfg.replace(topo_attn_impl="pallas"), model, patches,
                    device="cpu")
-    # a process group of two ranks: the sharded plan executor is A12; with
-    # none, topo_shard_plan runs the single-device executor
+    # with no process group and no mesh, topo_shard_plan runs the
+    # single-device executor (tests/test_torch_plan_shard.py runs it over
+    # real ranks)
     with torch.no_grad():
         want = TV.forward(cfg, model, patches, device="cpu")
         assert torch.equal(TV.forward(cfg.replace(topo_shard_plan=True),
                                       model, patches, device="cpu"), want)
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A12"):
-        TV.forward(cfg.replace(topo_shard_plan=True), model, patches,
-                   device="cpu")
-    monkeypatch.undo()
     if not torch.cuda.is_available():  # the entry points default to the card
         for call in (lambda: TV.forward(cfg, model, patches),
                      lambda: TV.build_grid_plan(cfg),
