@@ -25,7 +25,7 @@ thread a row) and d = 64 (the register-blocked tile).
 Topo-LM: it holds the sweep kernel against its plain version (decay and
 rank mode, causal and the bidirectional pair) at the served layer's shape
 and against the dense oracle at small shapes; serves 4 requests (prefill
-into the cache, then 32 greedy decode steps at per-slot positions) of the
+into the cache, then greedy decode steps at per-slot positions) of the
 full-width Llama-3.2-1B with the paper's topological attention at mask
 degree 1 (decay mode) and 2 (rank mode), with `topo_attn_impl="cuda"`
 held against `"torch"` in float32; then times prefill, decode and the
@@ -62,8 +62,8 @@ bidirectional, L = 1024) and times it beside the sweep kernel at L = 4096;
 holds the full TopoViT-B/16 (12 layers, the grid-MST mask through the plan
 executor's Hankel engine, which launches no kernel of the port) in float32
 on impl "cuda" against "ref" on the card and against "torch" on the CPU at
-2 images, and against "ref" at 64 (the field in several column chunks);
-then serves a batch of 64 images in bf16, and the Performer variant at the
+2 images, and against "ref" at 32 (the field in two column chunks); then
+serves a batch of 16 images in bf16, and the Performer variant at the
 same shape: forward ms, images/s, peak memory, a profile of one forward and
 the fastmult's share of its device time, the dense mask's forward for
 scale, and the ops of one Hankel-engine call (the FFT's layout).
@@ -143,7 +143,7 @@ launches a prefill) on slice 2's requests, (p) SeamlessM4T-medium (12 +
 12 layers; prefill_fn over 4 x (3,072 frames + 512 tokens): 12 "full",
 12 "causal", 12 "cross" launches; 64 decode_fn steps of replay) and (q)
 LLaVA-NeXT-34B (60 layers, 64.1 GiB; prefill_fn over 1,152 patches ahead
-of the text, then prefill_into_cache and 32 decode steps on the text,
+of the text, then prefill_into_cache and decode steps on the text,
 its lengths halved to fit the card), and times the new modes beside
 `scaled_dot_product_attention` (the window as an explicit mask).
 
@@ -181,12 +181,38 @@ cross bucket on each rank; 4l(c) the sharded kernel faces on a (2, 2) mesh
 decay and rank-16 mode, and at H = 30 and 31: 31 drops the head axis) against the
 single-device calls (<= 1e-6, the largest difference printed); 4l(d)
 TopoViT-B/16 at full width in float32 with `topo_shard_plan` over the 4
-ranks, 8 images, against the single-device forward (<= 1e-4), 2 x 12
-sharded fastmults with their collectives, and each block's mask
-coefficient grads on one image against the single-device backward's
+ranks, 2 images (cut from 8), against the single-device forward (<=
+1e-4), 2 x 12 sharded fastmults with their collectives, and each block's
+mask coefficient grads on one image against the single-device backward's
 (<= 1e-3 of their largest, 4e's bound). 5j prints `shard_stats` at D = 1, 2, 4, 8 and each rank's
 host and CUDA-event ms of `apply_sharded` and of each collective, labelled
 "one rank" or "4 processes sharing one H100": none is a multi-GPU time.
+
+The LM's parameter sharding (slice 16, path (u)): `launch.sharding`'s
+rules as DTensor placements on a (2, 2) mesh over ("data", "model") of 4
+gloo processes sharing the card, float32, every result against the
+single-device one of the same seed, computed first in this process. 4m(a)
+runs 2 steps of `launch.steps.make_train_step` on the full-width dense
+(B5) and topological (degree 2, B2 rank-16) Llama-3.2-1B cut to 2 layers,
+4 x 512 tokens: the losses within the reference's bounds, the step's
+grads and grad norm within fixed bounds (a grad left partial must read
+above them), the parameters after the first step within 1e-5 on the
+elements whose one-device grad is clear of the rounding
+(`PSHARD_PARAM_TOL`), one kernel launch a layer a forward on every rank. 4m(b): DeepSeek-V2-Lite (1 dense + 1 MoE layer,
+64 experts over the model axis, 2 dispatch groups over data, MLA through
+B5) and Falcon-Mamba-7B (2 layers, B6 on each rank's 4,096 channels)
+losses within 1e-3, V2-Lite's routing equal per group. 4m(c): the dense
+state saved from (2, 2), restored on one device and on (1, 4) bit for
+bit, one more step on each, the two steps held to each other as 4m(a)'s. 4m(d): TopoViT-B/16, 8 images over data,
+logits within 1e-4, the mask coefficients' grads finite and non-zero.
+5k prints, per rank of "4 processes sharing one H100", the bytes of the
+parameters, grads and AdamW state against one device's, peak memory,
+step ms and the collectives of one step by kind, and the vocab-sharded
+cross-entropy's collectives alone (none of the logits' size).
+
+Cut for the script's time when slice 16 came: the served paths' decode
+steps 32 -> 8, 4e's float32 batch 64 -> 32 images (2 column chunks), 5e's
+bf16 batch 64 -> 16 images, 4l(d) 8 -> 2 images.
 
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
@@ -287,6 +313,16 @@ def device_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+_T0 = time.perf_counter()
+
+
+def _stamp(label: str) -> None:
+    """The script's elapsed host time at a slice's boundary (what the
+    run's time limit reads)."""
+    print(f"[elapsed] {time.perf_counter() - _T0:.1f} s: {label}",
+          flush=True)
 
 
 def host_ms(fn, reps: int) -> float:
@@ -788,7 +824,9 @@ def phase_profile(spec, params, device, steps=10):
 # paper's topo attention; 4 requests right-padded to Lp, a cache of S
 # positions for 32 decode steps
 TOPO = {"arch": "llama3_2_1b", "lengths": (4096, 3001, 1537, 4096),
-        "Lp": 4096, "S": 4128, "steps": 32, "gate_steps": 4,
+        # steps: the served paths' greedy decode steps (cut from 32 for the
+        # script's time)
+        "Lp": 4096, "S": 4128, "steps": 8, "gate_steps": 4,
         "degrees": (1, 2), "seed": 0,
         # (B, H, L, m, hd): the served layer's sweep, and two odd-L shapes
         # of tests/test_topo_attention.py
@@ -1128,8 +1166,9 @@ def phase_gate(label, cfg, plain_cfg, ops, device, req=None, expect=None):
 
 def phase_serve(label, cfg, ops, device, card, scopes=(), expect=None):
     """4b/4c main path + 5b/5c times at the config's dtype (bf16): 4
-    requests, prefill_into_cache then 32 greedy decode steps, with the
-    kernel count from 0 just before and read just after; then prefill and
+    requests, prefill_into_cache then TOPO["steps"] greedy decode steps,
+    with the kernel count from 0 just before and read just after; then
+    prefill and
     decode times, the peak device memory of the served run, and the
     profiles of one prefill and one decode step (with `scopes`' device
     ms). `expect`: the launches of the main path, one a layer unless
@@ -1760,7 +1799,11 @@ def phase_scan_times(served, info, card):
 # topovit_b16 (src/repro_torch/configs/topovit_b16.py) at full width and
 # depth: 224 x 224 images as 196 patches of 16 x 16 x 3 = 768 values
 VIT = {"arch": "topovit_b16", "patch_dim": 768, "classes": 1000,
-       "gate_batch": 2, "serve_batch": 64, "seed": 0, "reps": 3,
+       # serve_batch: 4e's batch, whose folded field spans 2 column
+       # chunks; time_batch: 5e's bf16 batch (cut from 64 images for the
+       # script's time)
+       "gate_batch": 2, "serve_batch": 32, "time_batch": 16, "seed": 0,
+       "reps": 3,
        # the topo-LM layer of phase 3e: (B, L) checked, (B, L) timed
        "fft_check": (4, 1024), "fft_time": (4, 4096), "fft_degrees": (2, 3)}
 FFT_REF_TOL = 1e-3  # tests/test_topo_attention.py:81, relative to max
@@ -1962,7 +2005,7 @@ def _fastmult_profile(cfg, device):
     from repro_torch.core.masks import make_tree_fastmult, mask_f
     from repro_torch.models import vit
 
-    B, H, L, m = (VIT["serve_batch"], cfg.num_heads,
+    B, H, L, m = (VIT["time_batch"], cfg.num_heads,
                   cfg.num_prefix_embeddings, cfg.head_dim)
     plan = vit.build_grid_plan(cfg, device=device)
     coeffs = [0.0, -1.0, -0.5]
@@ -2015,7 +2058,7 @@ def _fastmult_profile(cfg, device):
 
 
 def phase_vit_serve(card, device):
-    """5e: TopoViT-B/16 served in bf16, impl "cuda", a batch of 64 images
+    """5e: TopoViT-B/16 served in bf16, impl "cuda", a batch of 16 images
     (224 x 224, 196 patches of 768), and the "performer" variant at the same
     shape: forward ms and images/s (host clock to synchronize), peak
     device memory, the profile of one forward, and the fastmult's share of
@@ -2024,7 +2067,7 @@ def phase_vit_serve(card, device):
     from repro_torch.kernels.fdist_matvec import ops as fdist_ops
     from repro_torch.models import vit
 
-    B = VIT["serve_batch"]
+    B = VIT["time_batch"]
     out = {}
     for variant in ("topo", "performer"):
         cfg = _vit_cfg("cuda", attention_variant=variant)
@@ -4170,7 +4213,8 @@ def phase_deepseek(card, device):
             "library_backend": t["library_backend"],
             "at": (f"one causal launch, bf16, B={B} H={H} KV={KV} L={L} "
                    f"hd={hd} vd={vd}: one layer of the {arch} prefill; "
-                   f"launches: that served prefill + 32 decode steps"),
+                   f"launches: that served prefill + {TOPO['steps']} "
+                   "decode steps"),
         })
     record = {"flash_wide_checks": checks, "deepseek_gates": gates,
               "deepseek_train_gate": train_gate, "deepseek_serve": serves,
@@ -5331,7 +5375,8 @@ def phase_engine(card, device):
 # cell (t): the sharded executor on the one card. 4l(a) one NCCL rank, 4l(b)
 # to 4l(d) one gloo group of 4 processes sharing the card; none of these
 # times is a multi-GPU time
-SHARD = {"ranks": 4, "d": 64, "edits": 64, "edit_seed": 22, "vit_batch": 8,
+# vit_batch: 4l(d)'s images (cut from 8 for the script's time)
+SHARD = {"ranks": 4, "d": 64, "edits": 64, "edit_seed": 22, "vit_batch": 2,
          "vit_grad_batch": 1, "face_topo": (4, 32, 4096, 64, 64),
          "face_topo_h": (30, 31), "reps": 5, "stats_D": (1, 2, 4, 8),
          "timeout": 600}
@@ -5889,6 +5934,728 @@ def phase_shard(cfg, device, card):
             "shard_seconds": {"nccl": nccl_s, "gloo": gloo_s}}
 
 
+PSHARD = {"ranks": 4, "mesh": (2, 2), "batch": 4, "seq": 512, "layers": 2,
+          # vit_grad_batch: 4m(d)'s backward, one image a data rank (the 4
+          # ranks' backward of 8 images ran out of the card beside each
+          # other, as 4l(d)'s did)
+          "steps": 2, "seed": 0, "moe_groups": 2, "vit_batch": 8,
+          "vit_grad_batch": 2,
+          "timeout": 900}
+# tests/test_distribution.py's bounds: the dense step's loss (:52-55), the
+# topo LM's (:185-189), the archs' losses (:86), TopoViT's logits (:134)
+PSHARD_TOL = {"dense": 1e-4, "topo": 1e-3, "moe": 1e-3, "ssm": 1e-3,
+              "vit": 1e-4}
+# The step's grads at the seed's weights, each relative to its leaf's max
+# (4f's unit, `_leaf`): fixed bounds over the sharded-vs-one-device
+# readings on the card (H100 80GB HBM3, 700 W): dense 9.434e-6, topo
+# 9.458e-3 (the topo LM's relu feature map: 4f's kink). A grad left
+# partial (its reduction over the data or model axis skipped) reads far
+# above either: the script reads that too and fails if it does not
+PSHARD_GRAD_TOL = {"dense": 1e-4, "topo": 3e-2}
+# The parameters after a step, held on the elements where one device's
+# grad g of that step is clear of the rounding: |g| >= PSHARD_PICK x the
+# grad bound x its leaf's max, and |g| x the clip scale >= 1e3 eps. After
+# the first step Adam's update is g / (|g| + eps): where the sharded g has
+# g's sign (|g| >= 2 x the grads' error) the two updates differ by at most
+# eps / |g| of lr. After a later step from one state, m_hat / sqrt(v_hat)
+# moves by ~2 |dg| / |g|: 100 x the bound keeps that under 2e-2 of lr.
+# Elsewhere rounding may flip a near-eps grad's update by up to 2 lr: the
+# largest difference there is printed, not held
+PSHARD_PARAM_TOL = 1e-5
+PSHARD_PICK = {"first": 2.0, "later": 100.0}
+# tests/test_distribution.py's AdamWConfig
+PSHARD_OPT = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 10,
+              "weight_decay": 0.0}
+PSHARD_LABEL = "4 processes sharing one H100"
+
+
+def _pshard_cfg(name):
+    """The models of 4m: full width, depth cut to PSHARD["layers"],
+    float32, each on its kernel."""
+    n = PSHARD["layers"]
+    if name == "dense":
+        return _dense_cfg("full", "cuda", "float32").replace(num_layers=n)
+    if name == "topo":
+        return _train_cfg(2, "cuda", "float32", L=PSHARD["seq"]).replace(
+            num_layers=n)
+    if name == "moe":
+        return _wide_cfg("deepseek_v2_lite_16b", "cuda", "float32").replace(
+            num_layers=n, first_dense_layers=1,
+            moe_groups=PSHARD["moe_groups"])
+    if name == "ssm":
+        return _ssm_cfg("cuda", "float32").replace(num_layers=n)
+    return _vit_cfg("cuda", "float32")
+
+
+def _pshard_ops(name):
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.topo_linear_attention import ops as topo_ops
+
+    return {"dense": flash_ops, "moe": flash_ops, "topo": topo_ops,
+            "ssm": scan_ops}[name]
+
+
+def _pshard_batch(cfg, device):
+    import torch
+
+    rng = np.random.default_rng(PSHARD["seed"])
+    return {"tokens": torch.tensor(rng.integers(
+        0, cfg.vocab_size, (PSHARD["batch"], PSHARD["seq"])),
+        device=device)}
+
+
+def _pshard_trace(records) -> list:
+    return [{"expert_ids": r["expert_ids"].cpu(), "keep": r["keep"].cpu(),
+             "C": r["C"]} for r in records]
+
+
+def _pshard_single(tmp, device) -> dict:
+    """The single-device results of 4m, once, before the group starts (four
+    single-device runs at once would not fit beside each other): the
+    states after each train step to `tmp`, the losses, routing and logits
+    returned."""
+    import torch
+
+    from repro_torch.launch import steps
+    from repro_torch.models import api, moe, vit
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    out = {}
+    for name in ("dense", "topo"):
+        cfg = _pshard_cfg(name)
+        model = api.init_params(cfg, PSHARD["seed"], device=device)
+        params = dict(model.named_parameters())
+        batch = _pshard_batch(cfg, device)
+        grads = torch.autograd.grad(api.loss_fn(cfg, model, batch)[0],
+                                    list(params.values()))
+        torch.save({n: g.cpu() for n, g in zip(params, grads)},
+                   f"{tmp}/{name}_grads.pt")
+        del grads
+        opt = adamw_init(params)
+        step = steps.make_train_step(cfg, AdamWConfig(**PSHARD_OPT))
+        losses, norms = [], []
+        for i in range(PSHARD["steps"]):
+            _, opt, m = step(model, opt, batch)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+            if i == 0:
+                torch.save({k: v.detach().cpu() for k, v in
+                            model.state_dict().items()},
+                           f"{tmp}/{name}_step1.pt")
+        out[name] = {"losses": losses, "grad_norms": norms}
+        del model, opt, params
+        torch.cuda.empty_cache()
+    for name in ("moe", "ssm"):
+        cfg = _pshard_cfg(name)
+        model = api.init_params(cfg, PSHARD["seed"], device=device)
+        moe.TRACE = [] if name == "moe" else None
+        try:
+            loss = api.loss_fn(cfg, model, _pshard_batch(cfg, device))[0]
+            out[name] = {"loss": float(loss)}
+            if name == "moe":
+                out[name]["routing"] = _pshard_trace(moe.TRACE)
+        finally:
+            moe.TRACE = None
+        del model, loss
+        torch.cuda.empty_cache()
+    cfg = _pshard_cfg("vit")
+    model = vit.init_params(cfg, VIT["seed"], VIT["classes"],
+                            VIT["patch_dim"], device=device)
+    patches = _patches(cfg, PSHARD["vit_batch"], torch.float32, device)
+    out["vit"] = {"logits": _vit_forward(cfg, model, patches, device).cpu()}
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_tops(grads) -> dict:
+    """{leaf (`_leaf`): the largest |grad| of its parameters}."""
+    top = {}
+    for n, w in grads.items():
+        top[_leaf(n)] = max(top.get(_leaf(n), 0.0), float(w.abs().max()))
+    return top
+
+
+def _pshard_grad_check(cfg, model, batch, path, device) -> dict:
+    """The sharded loss's grads at the seed's weights, placed as their
+    parameters, against the single-device grads saved at `path`, relative
+    to their leaf's largest (4f's unit), each rank over its slabs, the max
+    over the ranks: {"max", "name", "partial"}; "partial": the same
+    reading of the grads still partial (a reduction skipped), where a
+    grad comes out partial."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import place_grads
+
+    params = dict(model.named_parameters())
+    with api.sharded_scope(model):
+        raw = torch.autograd.grad(api.loss_fn(cfg, model, batch)[0],
+                                  list(params.values()))
+    grads = place_grads(dict(zip(params, raw)), params)
+    want = torch.load(path, mmap=True)
+    top = _leaf_tops(want)
+    diffs = torch.zeros((2, len(params)), device=device)
+    for i, (n, g) in enumerate(grads.items()):
+        w = sharding.slab(want[n], g.device_mesh, g.placements)
+        diffs[0, i] = (sharding.local(g) - w.to(device)).abs().max()
+        r = raw[i]
+        if any(pl.is_partial() for pl in r.placements):
+            w = sharding.slab(want[n], r.device_mesh, r.placements)
+            diffs[1, i] = (sharding.local(r) - w.to(device)).abs().max()
+    dist.all_reduce(diffs, op=dist.ReduceOp.MAX)
+    scale = torch.tensor([1 / max(top[_leaf(n)], 1e-30) for n in params],
+                         device=device)
+    errs, bare = (diffs * scale).cpu().tolist()
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    return {"max": errs[worst], "name": list(params)[worst],
+            "partial": max(bare)}
+
+
+def _pshard_params(model, state_path, grads_path, gnorm: float,
+                   pick: float, device) -> dict:
+    """`model`'s parameters after a step against one device's saved at
+    `state_path`, on the elements PSHARD_PARAM_TOL's comment picks: one
+    device's grad g of that step (`grads_path`) with |g| >= pick x its
+    leaf's max and |g| min(1, clip / gnorm) >= 1e3 eps. Each rank over its
+    slabs, no gather, the max over the ranks: {"max", "name", "share" (of
+    the elements picked), "rest" (the largest difference elsewhere, not
+    held)}."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding
+    from repro_torch.optim.adamw import AdamWConfig
+
+    want = torch.load(state_path, mmap=True)
+    grads = torch.load(grads_path, mmap=True)
+    top = _leaf_tops(grads)
+    oc = AdamWConfig(**PSHARD_OPT)
+    floor = 1e3 * oc.eps / min(1.0, oc.clip_norm / (gnorm + 1e-9))
+    names = [n for n, _ in model.named_parameters()]
+    worst = torch.zeros((2, len(names)), device=device)
+    count = torch.zeros(2, dtype=torch.float64, device=device)
+    with torch.no_grad():
+        for i, (n, p) in enumerate(model.named_parameters()):
+            w, g = want[n], grads[n]
+            if sharding.is_dtensor(p):
+                w = sharding.slab(w, p.device_mesh, p.placements)
+                g = sharding.slab(g, p.device_mesh, p.placements)
+            g = g.to(device).abs()
+            d = (sharding.local(p) - w.to(device)).abs()
+            sel = g >= max(pick * top[_leaf(n)], floor)
+            worst[0, i] = torch.where(sel, d, 0).max()
+            worst[1, i] = torch.where(sel, 0, d).max()
+            count += torch.stack([sel.sum(), torch.tensor(
+                sel.numel(), device=device)]).double()
+    dist.all_reduce(worst, op=dist.ReduceOp.MAX)
+    dist.all_reduce(count)
+    i = int(worst[0].argmax())
+    return {"max": float(worst[0, i]), "name": names[i],
+            "share": float(count[0] / count[1]),
+            "rest": float(worst[1].max())}
+
+
+def _pshard_bytes(tensors) -> tuple:
+    """(this rank's bytes, the whole tensors' bytes)."""
+    from repro_torch.launch import sharding
+
+    mine = whole = 0
+    for t in tensors:
+        whole += t.numel() * t.element_size()
+        mine += sharding.local(t).numel() * t.element_size()
+    return mine, whole
+
+
+def _pshard_step(cfg, model, opt, batch, census: bool) -> dict:
+    """One train step, timed (host clock to synchronize and CUDA events,
+    all ranks started together), its peak memory and (census) its
+    collectives."""
+    import contextlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding, steps
+    from repro_torch.optim.adamw import AdamWConfig
+
+    step = steps.make_train_step(cfg, AdamWConfig(**PSHARD_OPT))
+    c = sharding.CollectiveCensus()
+    torch.cuda.reset_peak_memory_stats()
+    dist.barrier()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    with c if census else contextlib.nullcontext():
+        _, opt, m = step(model, opt, batch)
+    end.record()
+    torch.cuda.synchronize()
+    rec = {"host_ms": (time.perf_counter() - t0) * 1e3,
+           "event_ms": start.elapsed_time(end),
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "opt": opt}
+    if census:
+        rec["collectives"] = {k: {"count": c.counts[k], "bytes": c.bytes[k],
+                                  "largest": c.largest[k]} for k in c.counts}
+    return rec
+
+
+def _pshard_ce_census(cfg, device) -> dict:
+    """The collectives of the vocab-sharded cross-entropy alone, forward
+    and backward, at 4m(a)'s shape: logits (B, L - 1, V) sharded batch
+    over data and vocab over model."""
+    import torch
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.launch import sharding
+    from repro_torch.models.layers import cross_entropy_loss
+
+    mesh = sharding.current_mesh()
+    V = cfg.padded_vocab()
+    b = PSHARD["batch"] // mesh.size(0)
+    L = PSHARD["seq"] - 1
+    g = torch.Generator(device=device)
+    g.manual_seed(PSHARD["seed"] + sharding.axis_rank(mesh, "model"))
+    local = torch.randn((b, L, V // mesh.size(1)), generator=g,
+                        device=device, requires_grad=True)
+    logits = DTensor.from_local(local, mesh, [Shard(0), Shard(2)],
+                                run_check=False)
+    labels = sharding.distribute_batch(
+        _pshard_batch(cfg, device)["tokens"][:, 1:], mesh)
+    c = sharding.CollectiveCensus()
+    with c, sharding.dtensor_scope():
+        cross_entropy_loss(logits, labels, V).backward()
+    logit_bytes = local.numel() * local.element_size()
+    largest = max(c.largest.values())
+    if largest * 100 > logit_bytes:
+        raise AssertionError(f"4m(a) cross-entropy: a collective of "
+                             f"{largest} B against {logit_bytes} B of "
+                             "logits a rank")
+    return {"counts": c.counts, "bytes": c.bytes, "largest": largest,
+            "logit_bytes_per_rank": logit_bytes}
+
+
+def _pshard_rank(a) -> dict:
+    """4m(a)-(d) and 5k on one of 4 gloo ranks sharing the card, a (2, 2)
+    mesh over ("data", "model")."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding
+    from repro_torch.models import api, moe, vit
+    from repro_torch.optim.adamw import adamw_init
+
+    dev = _shard_setup()
+    rank = dist.get_rank()
+    mesh = M.make_local_mesh(*PSHARD["mesh"])
+    data = sharding.axis_rank(mesh, "data")
+    out = {"rank": rank, "coords": (data, sharding.axis_rank(mesh, "model"))}
+    single = a["single"]
+
+    # 4m(a): the sharded train steps, and 5k on the dense one
+    for name in ("dense", "topo"):
+        cfg = _pshard_cfg(name)
+        model = api.init_params(cfg, PSHARD["seed"], device=dev)
+        ops = _pshard_ops(name)
+        with sharding.use_sharding(mesh):
+            sharding.distribute_params(model, mesh)
+            torch.cuda.empty_cache()
+            batch = _pshard_batch(cfg, dev)
+            gcheck = _pshard_grad_check(cfg, model, batch,
+                                        f"{a['tmp']}/{name}_grads.pt", dev)
+            torch.cuda.empty_cache()
+            opt = adamw_init(dict(model.named_parameters()))
+            ops.LAUNCHES = 0
+            recs = []
+            g_tol = PSHARD_GRAD_TOL[name]
+            for i in range(PSHARD["steps"]):
+                r = _pshard_step(cfg, model, opt, batch,
+                                 census=name == "dense"
+                                 and i == PSHARD["steps"] - 1)
+                opt = r.pop("opt")
+                recs.append(r)
+                if i == 0:
+                    pcheck = _pshard_params(
+                        model, f"{a['tmp']}/{name}_step1.pt",
+                        f"{a['tmp']}/{name}_grads.pt",
+                        single[name]["grad_norms"][0],
+                        PSHARD_PICK["first"] * g_tol, dev)
+            launches = ops.LAUNCHES
+            tol = PSHARD_TOL[name]
+            dl = max(abs(r["loss"] - w) for r, w in
+                     zip(recs, single[name]["losses"]))
+            gn = single[name]["grad_norms"][0]
+            dn = abs(recs[0]["grad_norm"] - gn) / gn
+            # one launch a layer a forward, and the remat's recompute of
+            # each block in the backward runs its forward again
+            per_step = cfg.num_layers * (2 if cfg.remat else 1)
+            if launches != per_step * PSHARD["steps"]:
+                raise AssertionError(f"4m(a) {name} rank {rank}: {launches} "
+                                     f"kernel launches, {per_step} a step "
+                                     "expected")
+            if not (dl < tol and gcheck["max"] < g_tol and dn < g_tol
+                    and pcheck["max"] < PSHARD_PARAM_TOL
+                    and pcheck["share"] > 0):
+                raise AssertionError(
+                    f"4m(a) {name} rank {rank}: losses {dl:.3e} (< {tol}), "
+                    f"grads {gcheck['max']:.3e} (< {g_tol}) at "
+                    f"{gcheck['name']}, grad norm {dn:.3e} (< {g_tol}), "
+                    f"parameters after a step {pcheck['max']:.3e} (< "
+                    f"{PSHARD_PARAM_TOL}) at {pcheck['name']} on "
+                    f"{pcheck['share']:.3%} of them, from one device's")
+            if not gcheck["partial"] > g_tol:
+                raise AssertionError(
+                    f"4m(a) {name} rank {rank}: a grad left partial reads "
+                    f"{gcheck['partial']:.3e}, under the bound {g_tol}: "
+                    "the gate cannot tell a skipped reduction")
+            rec = {"losses": [r["loss"] for r in recs], "loss_diff": dl,
+                   "grad_rel_err": gcheck["max"],
+                   "grad_worst": gcheck["name"],
+                   "grad_partial": gcheck["partial"], "grad_norm_diff": dn,
+                   "params": pcheck, "launches": launches,
+                   "launches_per_step": per_step, "steps": recs}
+            if name == "dense":
+                params = list(model.parameters())
+                rec["bytes"] = {
+                    "params": _pshard_bytes(params),
+                    "grads": _pshard_bytes(params),  # placed as the params
+                    "adamw": _pshard_bytes(list(opt.mu.values())
+                                           + list(opt.nu.values()))}
+                rec["ce"] = _pshard_ce_census(cfg, dev)
+                # 4m(c): save from (2, 2); restore on (1, 4); one more step
+                mgr = CheckpointManager(a["ckpt"], keep=2)
+                dist.barrier()
+                t0 = time.perf_counter()
+                saved = mgr.save(PSHARD["steps"], model, opt)
+                rec["save_s"] = time.perf_counter() - t0
+                del model, opt, params
+                torch.cuda.empty_cache()
+            out[name] = rec
+        if name == "dense":
+            out["ckpt"] = _pshard_restore(a, cfg, saved, dev)
+        else:
+            del model, opt
+        torch.cuda.empty_cache()
+
+    # 4m(b): the sharded losses
+    for name in ("moe", "ssm"):
+        cfg = _pshard_cfg(name)
+        model = api.init_params(cfg, PSHARD["seed"], device=dev)
+        ops = _pshard_ops(name)
+        with sharding.use_sharding(mesh):
+            sharding.distribute_params(model, mesh)
+            torch.cuda.empty_cache()
+            moe.TRACE = [] if name == "moe" else None
+            try:
+                ops.LAUNCHES = 0
+                t0 = time.perf_counter()
+                loss = float(sharding.full(api.loss_fn(
+                    cfg, model, _pshard_batch(cfg, dev))[0]))
+                rec = {"loss": loss, "loss_diff": abs(
+                    loss - single[name]["loss"]), "launches": ops.LAUNCHES,
+                    "seconds": time.perf_counter() - t0}
+                if name == "moe":
+                    rec.update(_pshard_routing(moe.TRACE, single[name][
+                        "routing"], cfg, data, sharding.axis_size(
+                            mesh, "data")))
+            finally:
+                moe.TRACE = None
+        if rec["launches"] != cfg.num_layers:
+            raise AssertionError(f"4m(b) {name} rank {rank}: "
+                                 f"{rec['launches']} kernel launches, "
+                                 f"{cfg.num_layers} expected")
+        if not rec["loss_diff"] < PSHARD_TOL[name]:
+            raise AssertionError(f"4m(b) {name} rank {rank}: loss "
+                                 f"{rec['loss_diff']:.3e} from one device's")
+        if rec.get("routing_mismatches"):
+            raise AssertionError(f"4m(b) moe rank {rank}: "
+                                 f"{rec['routing_mismatches']} routing "
+                                 "assignments differ from one device's")
+        out[name] = rec
+        del model
+        torch.cuda.empty_cache()
+
+    # 4m(d): TopoViT-B/16, batch over data, params by the rules
+    cfg = _pshard_cfg("vit")
+    model = vit.init_params(cfg, VIT["seed"], VIT["classes"],
+                            VIT["patch_dim"], device=dev)
+    patches = _patches(cfg, PSHARD["vit_batch"], torch.float32, dev)
+    with sharding.use_sharding(mesh):
+        sharding.distribute_params(model, mesh)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        with sharding.dtensor_scope():
+            with torch.no_grad():
+                logits = vit.forward(cfg, model, patches, device=dev)
+            vit_s = time.perf_counter() - t0
+            vit.forward(cfg, model, _patches(
+                cfg, PSHARD["vit_grad_batch"], torch.float32, dev),
+                device=dev).sum().backward()
+        got = sharding.full(logits.detach()).cpu()
+        grads = [sharding.full(b.topo.coeffs.grad).cpu()
+                 for b in model.blocks]
+    d = float((got - single["vit"]["logits"]).abs().max())
+    gmax = [float(g.abs().max()) for g in grads]
+    if not (d < PSHARD_TOL["vit"] and all(
+            bool(torch.isfinite(g).all()) for g in grads) and min(gmax) > 0):
+        raise AssertionError(f"4m(d) rank {rank}: logits {d:.3e} from one "
+                             f"device's, coefficient grads {gmax}")
+    out["vit"] = {"logit_diff": d, "placements": str(logits.placements),
+                  "coeff_grad_max": gmax, "seconds": vit_s}
+    return out
+
+
+def _pshard_routing(got, want, cfg, data: int, D: int) -> dict:
+    """This rank's routing records against one device's on the rank's
+    groups: expert ids and kept masks, assignment by assignment."""
+    G = cfg.moe_groups
+    layers = len(want) // G
+    per = len(got) // layers
+    first = data * per if per < G else 0
+    mism = 0
+    for li in range(layers):
+        for j in range(per):
+            g, w = got[li * per + j], want[li * G + first + j]
+            mism += int((g["expert_ids"].cpu() != w["expert_ids"]).sum())
+            mism += int((g["keep"].cpu() != w["keep"]).sum())
+            mism += int(g["C"] != w["C"])
+    return {"routing_groups": per * layers, "routing_mismatches": mism,
+            "routing_assignments": sum(int(r["keep"].numel()) for r in got)}
+
+
+def _pshard_restore(a, cfg, saved, dev) -> dict:
+    """4m(c): restore the (2, 2) checkpoint on one device (rank 0, plain
+    tensors) and on a (1, 4) mesh, each against the saved arrays bit for
+    bit, then one more step on each: the (1, 4) step held to the
+    one-device step from the same state as 4m(a)'s step is (its loss,
+    grad norm, and the parameters on the picked elements)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.launch import mesh as M
+    from repro_torch.launch import sharding, steps
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    tmp = a["tmp"]
+    batch = _pshard_batch(cfg, dev)
+    if dist.get_rank() == 0:
+        model = api.init_params(cfg, PSHARD["seed"] + 1, device=dev)
+        params = dict(model.named_parameters())
+        opt = adamw_init(params)
+        CheckpointManager(a["ckpt"]).restore(model, opt)
+        one = {"bitwise": _pshard_bitwise(saved, model, opt)}
+        grads = torch.autograd.grad(api.loss_fn(cfg, model, batch)[0],
+                                    list(params.values()))
+        torch.save({n: g.cpu() for n, g in zip(params, grads)},
+                   f"{tmp}/restored_grads.pt")
+        del grads
+        _, opt, m = steps.make_train_step(cfg, AdamWConfig(**PSHARD_OPT))(
+            model, opt, batch)
+        one.update(loss=float(m["loss"]), grad_norm=float(m["grad_norm"]))
+        torch.save({k: v.detach().cpu() for k, v in
+                    model.state_dict().items()}, f"{tmp}/restored_step.pt")
+        torch.save(one, f"{tmp}/restored.pt")
+        del model, opt, params
+        torch.cuda.empty_cache()
+    dist.barrier()
+    one = torch.load(f"{tmp}/restored.pt")
+    mesh14 = M.make_local_mesh(1, PSHARD["ranks"])
+    model = api.init_params(cfg, PSHARD["seed"] + 1, device=dev)
+    with sharding.use_sharding(mesh14):
+        sharding.distribute_params(model, mesh14)
+        torch.cuda.empty_cache()
+        opt = adamw_init(dict(model.named_parameters()))
+        t0 = time.perf_counter()
+        CheckpointManager(a["ckpt"]).restore(model, opt)
+        restore_s = time.perf_counter() - t0
+        bitwise = _pshard_bitwise(saved, model, opt)
+        r = _pshard_step(cfg, model, opt, batch, census=False)
+        g_tol = PSHARD_GRAD_TOL["dense"]
+        pcheck = _pshard_params(model, f"{tmp}/restored_step.pt",
+                                f"{tmp}/restored_grads.pt", one["grad_norm"],
+                                PSHARD_PICK["later"] * g_tol, dev)
+    dl = abs(r["loss"] - one["loss"])
+    dn = abs(r["grad_norm"] - one["grad_norm"]) / one["grad_norm"]
+    if not (bitwise and one["bitwise"]):
+        raise AssertionError(f"4m(c): restores bit for bit: (1, 4) "
+                             f"{bitwise}, one device {one['bitwise']}")
+    if not (dl < PSHARD_TOL["dense"] and dn < g_tol
+            and pcheck["max"] < PSHARD_PARAM_TOL and pcheck["share"] > 0):
+        raise AssertionError(
+            f"4m(c): the step after the (1, 4) restore against one "
+            f"device's: loss {dl:.3e}, grad norm {dn:.3e}, parameters "
+            f"{pcheck['max']:.3e} (< {PSHARD_PARAM_TOL}) at "
+            f"{pcheck['name']} on {pcheck['share']:.3%} of them")
+    return {"restore_s": restore_s, "bitwise": bitwise,
+            "one_bitwise": one["bitwise"], "loss": r["loss"],
+            "one_loss": one["loss"], "loss_diff": dl, "grad_norm_diff": dn,
+            "params": pcheck}
+
+
+def _pshard_bitwise(saved, model, opt) -> bool:
+    """Whether every tensor of `model` and `opt` (DTensors or plain) holds
+    its slab of the arrays saved under `saved`, bit for bit."""
+    import torch
+
+    from repro_torch.launch import sharding
+
+    trees = {"params": dict(model.named_parameters()),
+             "opt": {**{f"mu.{k}": v for k, v in opt.mu.items()},
+                     **{f"nu.{k}": v for k, v in opt.nu.items()}}}
+    for part, tensors in trees.items():
+        with np.load(f"{saved}/{part}.npz") as z:
+            for k, t in tensors.items():
+                want = torch.from_numpy(z[k])
+                if sharding.is_dtensor(t):
+                    want = sharding.slab(want, t.device_mesh, t.placements)
+                if not torch.equal(sharding.local(t).detach().cpu(), want):
+                    return False
+    return True
+
+
+def pshard_kernel_rows(kernels, rec) -> None:
+    """Add slice 16's per-rank launches (4m, counted from 0 in each rank
+    around each gate) to the kernels line's B2, B5 and B6 rows."""
+    ranks = rec["param_shard_ranks"]
+    at = {"topo_attention_sweep[rank16]": (
+              "topo", "4m(a): the topo Llama-3.2-1B's sharded train step, "
+              "degree 2, per rank of 4 gloo processes sharing the card"),
+          "flash_attention[causal]": (
+              "dense", "4m(a): the dense Llama-3.2-1B's sharded train step,"
+              " per rank of 4 gloo processes sharing the card"),
+          "flash_attention[causal,hd=192,vd=128]": (
+              "moe", "4m(b): DeepSeek-V2-Lite's sharded loss (MLA), per "
+              "rank"),
+          "selective_scan": (
+              "ssm", "4m(b): Falcon-Mamba-7B's sharded loss, per rank")}
+    for k in kernels:
+        if k["name"] in at:
+            name, where = at[k["name"]]
+            k.update(param_shard_launches=[r[name]["launches"]
+                                           for r in ranks],
+                     param_shard_at=where)
+
+
+def phase_param_shard(card, device) -> dict:
+    """Slice 16 (path (u)): the LM's parameter sharding on a (2, 2) mesh of
+    4 gloo processes sharing the card. The single-device results first, in
+    this process, saved to a temporary directory; then 4m(a)-(d) and 5k in
+    the ranks. Returns the record."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch import mesh as M
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_pshard_")
+    try:
+        t0 = time.perf_counter()
+        single = _pshard_single(tmp, device)
+        single_s = time.perf_counter() - t0
+        args = {"tmp": tmp, "ckpt": f"{tmp}/ckpt", "single": single}
+        t0 = time.perf_counter()
+        ranks = M.run_local(_pshard_rank, PSHARD["ranks"], (args,),
+                            backend="gloo", timeout=PSHARD["timeout"])
+        ranks_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _pshard_print(single, ranks, card)
+    print(f"[slice 16] single-device results {single_s:.1f} s, gloo run "
+          f"{ranks_s:.1f} s (process start-up included); no time here is a "
+          "multi-GPU time", flush=True)
+    return {"param_shard_ranks": ranks, "param_shard_single": {
+                k: {kk: vv for kk, vv in v.items()
+                    if kk in ("losses", "loss", "grad_norms")}
+                for k, v in single.items()},
+            "param_shard_seconds": {"single": single_s, "gloo": ranks_s}}
+
+
+def _pshard_print(single, ranks, card) -> None:
+    for g in ranks:
+        k = g["rank"]
+        for name in ("dense", "topo"):
+            r = g[name]
+            pc = r["params"]
+            print(f"[4m(a) {name} rank {k}/4 {g['coords']}] "
+                  f"{PSHARD['steps']} steps, losses {r['losses']} vs one "
+                  f"device {single[name]['losses']}: {r['loss_diff']:.3e} (< "
+                  f"{PSHARD_TOL[name]}); grads {r['grad_rel_err']:.3e} of "
+                  f"their leaf's max at {r['grad_worst']} (< "
+                  f"{PSHARD_GRAD_TOL[name]}; left partial they read "
+                  f"{r['grad_partial']:.3e}); grad norm "
+                  f"{r['grad_norm_diff']:.3e} relative; parameters after "
+                  f"step 1 {pc['max']:.3e} at {pc['name']} (< "
+                  f"{PSHARD_PARAM_TOL}) on the {pc['share']:.3%} picked, "
+                  f"{pc['rest']:.3e} elsewhere (not held) | kernel launches "
+                  f"{r['launches']} ({r['launches_per_step']} a step: one a"
+                  " layer a forward, the remat recompute included)",
+                  flush=True)
+        c = g["ckpt"]
+        pc = c["params"]
+        print(f"[4m(c) rank {k}/4] saved from (2, 2) in "
+              f"{g['dense']['save_s']:.1f} s; restored on (1, 4) in "
+              f"{c['restore_s']:.1f} s, bit for bit {c['bitwise']} (one "
+              f"device {c['one_bitwise']}); one more step on each: loss "
+              f"{c['loss']:.6f} vs {c['one_loss']:.6f} ({c['loss_diff']:.3e})"
+              f", grad norm {c['grad_norm_diff']:.3e} relative, parameters "
+              f"{pc['max']:.3e} (< {PSHARD_PARAM_TOL}) on the "
+              f"{pc['share']:.3%} picked, {pc['rest']:.3e} elsewhere",
+              flush=True)
+        for name in ("moe", "ssm"):
+            r = g[name]
+            extra = (f", routing: {r['routing_groups']} groups, "
+                     f"{r['routing_mismatches']} of "
+                     f"{r['routing_assignments']} assignments differ"
+                     if name == "moe" else "")
+            print(f"[4m(b) {name} rank {k}/4] loss {r['loss']:.6f} vs one "
+                  f"device {single[name]['loss']:.6f}: {r['loss_diff']:.3e}"
+                  f" (< {PSHARD_TOL[name]}); kernel launches "
+                  f"{r['launches']}{extra}; {r['seconds']:.1f} s",
+                  flush=True)
+        v = g["vit"]
+        print(f"[4m(d) rank {k}/4] TopoViT-B/16 float32, "
+              f"{PSHARD['vit_batch']} images, batch over data: logits "
+              f"{v['logit_diff']:.3e} from one device's (< "
+              f"{PSHARD_TOL['vit']}), {v['placements']}; mask coefficient "
+              f"grads ({PSHARD['vit_grad_batch']} images) max "
+              f"{min(v['coeff_grad_max']):.3e}.."
+              f"{max(v['coeff_grad_max']):.3e}; forward {v['seconds']:.1f} s",
+              flush=True)
+        d = g["dense"]
+        b = d["bytes"]
+        for part in ("params", "grads", "adamw"):
+            mine, whole = b[part]
+            print(f"[5k {PSHARD_LABEL}] rank {k}: {part} {mine} B of "
+                  f"{whole} B on one device ({mine / whole:.3f})",
+                  flush=True)
+        for i, s in enumerate(d["steps"]):
+            print(f"[5k {PSHARD_LABEL}] rank {k}: dense step {i + 1} host "
+                  f"{s['host_ms']:.1f} ms, events {s['event_ms']:.1f} ms, "
+                  f"peak {s['peak_bytes'] / 2**30:.2f} GiB allocated | "
+                  f"{card}", flush=True)
+        coll = d["steps"][-1]["collectives"]
+        print(f"[5k {PSHARD_LABEL}] rank {k}: collectives of one dense "
+              "step: " + ", ".join(
+                  f"{kind} x{v['count']} {v['bytes']} B (largest "
+                  f"{v['largest']} B)" for kind, v in sorted(coll.items())),
+              flush=True)
+        ce = d["ce"]
+        print(f"[5k {PSHARD_LABEL}] rank {k}: the vocab-sharded "
+              f"cross-entropy alone: {ce['counts']}, {ce['bytes']} B, "
+              f"largest {ce['largest']} B against "
+              f"{ce['logit_bytes_per_rank']} B of logits a rank",
+              flush=True)
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -5960,6 +6727,7 @@ def run(cfg, device, out_path=None) -> dict:
         })
     del spec, params, dense
 
+    _stamp("slice 2 starts")
     # slice 2: the topo-LM served through the topo sweep kernel
     topo_checks, served = phase_topo_kernel_vs_plain(device)
     gates = []
@@ -5999,6 +6767,7 @@ def run(cfg, device, out_path=None) -> dict:
         })
     del served
 
+    _stamp("slice 3 starts")
     # slice 3: Llama-3.2-1B with full and Performer attention, served
     # through the flash attention and linear attention kernels
     attn_checks, attn_served = phase_attn_kernel_vs_plain(device)
@@ -6062,6 +6831,7 @@ def run(cfg, device, out_path=None) -> dict:
                "them"),
     })
 
+    _stamp("slice 4 starts")
     # slice 4: Falcon-Mamba-7B served through the selective scan kernel
     scan_checks, scan_served = phase_scan_kernel_vs_plain(device)
     scan_times = phase_scan_times(scan_served, info, card)
@@ -6091,11 +6861,15 @@ def run(cfg, device, out_path=None) -> dict:
                f"{t['bound_term']}; library none: no single PyTorch call "
                "computes the scan"),
     })
+    _stamp("slice 8 starts")
     # slice 8: the Toeplitz-FFT topo impl; TopoViT-B/16 (no port kernel)
     topo_fft = phase_topo_fft(card, device)
+    _stamp("4e starts")
     vit_gate = phase_vit_gate(device)
     torch.cuda.empty_cache()
+    _stamp("5e starts")
     vit_serve = phase_vit_serve(card, device)
+    _stamp("slice 9 starts")
     # slice 9: training. 3f the Functions' grads; 4f the float32 training
     # gates (topo at full depth, the earlier paths at 2 layers); 5f the
     # trainer, the slice's main path
@@ -6116,6 +6890,7 @@ def run(cfg, device, out_path=None) -> dict:
                  backward_at=row["case"])
         if k["name"] == "topo_attention_sweep[rank16]":
             k["train_launches"] = trainer["launches"]
+    _stamp("slice 10 starts")
     # slice 10: learnable tree metrics (4g; (j)'s training is the slice's
     # main path, B1's count from 0 around it) and plan maintenance (4h);
     # 5g's times. Only 4h's injected faults may reach the ladder: two
@@ -6143,6 +6918,7 @@ def run(cfg, device, out_path=None) -> dict:
         raise AssertionError(f"ladder: {ladder.stats()} at the end of the "
                              f"run; only 4h's injected demotions ({want}) "
                              f"may reach it")
+    _stamp("slice 11 starts")
     # slice 11: the Integrator facade (4i) and Fig. 4's mesh interpolation
     # (4j), the slice's main path, B1's counts from 0 around them; 5h's
     # times
@@ -6169,12 +6945,14 @@ def run(cfg, device, out_path=None) -> dict:
     if ladder.stats() != want:
         raise AssertionError(f"ladder: {ladder.stats()} after 4i-5h; they "
                              "may not reach it")
+    _stamp("slice 12 starts")
     # slice 12: the DeepSeek family and the dense configs through B5 at
     # head dims (192, 128) and 256; V2-Lite and Gemma-7B served at full
     # depth are its main paths, B5's counts from 0 around each
     torch.cuda.empty_cache()
     deepseek, wide_rows = phase_deepseek(card, device)
     kernels += wide_rows
+    _stamp("slice 13 starts")
     # slice 13: the hybrid, encdec and vlm families through B5's window and
     # cross modes; RecurrentGemma-2B, SeamlessM4T-medium and LLaVA-NeXT-34B
     # served at full depth are its main paths, B5's counts from 0 around
@@ -6182,6 +6960,7 @@ def run(cfg, device, out_path=None) -> dict:
     torch.cuda.empty_cache()
     a10b, a10b_rows = phase_a10b(card, device)
     kernels += a10b_rows
+    _stamp("slice 14 starts")
     # slice 14: the serving engine on cell (d)'s model at degree 1 (4k:
     # B2 counted from 0 around its "cuda" run of (a), its main path; 5i)
     torch.cuda.empty_cache()
@@ -6194,13 +6973,22 @@ def run(cfg, device, out_path=None) -> dict:
                 "float32, topo_attn_impl 'cuda'; one launch per layer per "
                 "plain prefill group (16 x prefill_calls), none in decode "
                 "or in a tree group"))
+    _stamp("slice 15 starts")
     # slice 15: multi-rank FTFI (cell (t)); B1 counted from 0 inside each
     # rank around 4l(a) and 4l(b), the slice's main path, B1/B2 around each
     # kernel face of 4l(c)
     torch.cuda.empty_cache()
     shard = phase_shard(cfg, device, card)
     shard_kernel_rows(kernels, shard, cfg["widths"])
-    record = {**deepseek, **a10b, **engine, **shard, "device": info, "build": build, "main_path": rows_a + rows_b,
+    # slice 16: the LM's parameter sharding (path (u)); B2, B5 and B6
+    # counted from 0 inside each rank around each gate of 4m, its main path
+    torch.cuda.empty_cache()
+    _stamp("slice 16 starts")
+    pshard = phase_param_shard(card, device)
+    pshard_kernel_rows(kernels, pshard)
+    _stamp("slice 16 ends")
+    record = {**deepseek, **a10b, **engine, **shard, **pshard,
+              "device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
               "topo_serve": serves, "topo_times": {

@@ -202,3 +202,113 @@ def replicated(tensors, group) -> tuple:
     if not any(t.requires_grad for t in tensors):
         return tensors
     return _Replicated.apply(group, *tensors)
+
+
+# ----------------------------------------------------------------------------
+# DTensor's collectives on gloo and CUDA tensors
+# ----------------------------------------------------------------------------
+
+
+class C10dRoute(torch.utils._python_dispatch.TorchDispatchMode):
+    """Runs the collectives that DTensor's redistributions issue
+    (`_c10d_functional`'s all_reduce, all_gather_into_tensor and
+    reduce_scatter_tensor, and DTensor's shard_dim_alltoall) on a gloo
+    group through `torch.distributed`'s own synchronous calls, for tensors
+    on `devices`; their `wait_tensor` is then the identity. With torch 2.11
+    on an H100, gloo's functional all_gather_into_tensor on CUDA tensors
+    crashed the process (segmentation fault in wait_tensor) where
+    `torch.distributed`'s all_gather_into_tensor on the same tensors
+    works, so gloo ranks that share a card run DTensor under this mode
+    (`route_dtensor_collectives`). Anything else passes through."""
+
+    def __init__(self, devices=("cuda",)):
+        super().__init__()
+        self.devices = tuple(devices)
+        self.calls = 0  # collectives it ran
+        f = torch.ops._c10d_functional
+        self._ops = {f.all_reduce: self._all_reduce,
+                     f.all_gather_into_tensor: self._all_gather,
+                     f.reduce_scatter_tensor: self._reduce_scatter}
+        dt = getattr(torch.ops, "_dtensor", None)
+        if dt is not None and hasattr(dt, "shard_dim_alltoall"):
+            self._ops[dt.shard_dim_alltoall] = self._shard_dim_alltoall
+        self._wait = f.wait_tensor
+
+    @staticmethod
+    def _group(name):
+        from torch.distributed.distributed_c10d import _resolve_process_group
+
+        return _resolve_process_group(name)
+
+    def _mine(self, x, name) -> bool:
+        return (x.device.type in self.devices
+                and dist.get_backend(self._group(name)) == "gloo")
+
+    @staticmethod
+    def _op(name: str):
+        return {"sum": dist.ReduceOp.SUM, "avg": dist.ReduceOp.SUM,
+                "max": dist.ReduceOp.MAX, "min": dist.ReduceOp.MIN,
+                "product": dist.ReduceOp.PRODUCT}[name.lower()]
+
+    def _all_reduce(self, x, op, name):
+        out = x.contiguous().clone()
+        dist.all_reduce(out, op=self._op(op), group=self._group(name))
+        if op.lower() == "avg":
+            out /= dist.get_world_size(self._group(name))
+        return out
+
+    def _all_gather(self, x, size, name):
+        x = x.contiguous()
+        out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
+        _fn(_AG_NAMES)(out, x, group=self._group(name))
+        return out
+
+    def _reduce_scatter(self, x, op, size, name):
+        x = x.contiguous()
+        out = x.new_empty((x.shape[0] // size,) + tuple(x.shape[1:]))
+        _fn(_RS_NAMES)(out, x, op=self._op(op), group=self._group(name))
+        if op.lower() == "avg":
+            out /= size
+        return out
+
+    def _shard_dim_alltoall(self, x, gather_dim, shard_dim, name):
+        """Every rank's block gathered along gather_dim, then this rank's
+        block along shard_dim (DTensor's own fallback on gloo)."""
+        group = self._group(name)
+        size = dist.get_world_size(group)
+        parts = self._all_gather(x, size, name).chunk(size, dim=0)
+        whole = torch.cat(parts, dim=gather_dim)
+        return whole.chunk(size, dim=shard_dim)[
+            dist.get_rank(group)].contiguous()
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        from torch.distributed.tensor import DTensor
+
+        kwargs = kwargs or {}
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return func(*args, **kwargs)
+        if any(issubclass(t, DTensor) for t in types):
+            return NotImplemented
+        packet = func._overloadpacket
+        run = self._ops.get(packet)
+        if run is not None and self._mine(args[0], args[-1]):
+            out = run(*args, **kwargs)
+            self.calls += 1
+            out._c10d_route_done = True  # complete: its wait is a no-op
+            return out
+        if packet is self._wait and getattr(args[0], "_c10d_route_done",
+                                            False):
+            return args[0]
+        return func(*args, **kwargs)
+
+
+_ROUTE: C10dRoute | None = None
+
+
+def route_dtensor_collectives() -> None:
+    """Enter `C10dRoute` for CUDA tensors in this process, once, for the
+    rest of its life (a gloo rank that holds DTensors on a card)."""
+    global _ROUTE
+    if _ROUTE is None:
+        _ROUTE = C10dRoute()
+        _ROUTE.__enter__()

@@ -3,7 +3,9 @@ local rank processes.
 
 A mesh is a `DeviceMesh` with the reference's axis names over the process
 group that is already initialized: each rank is one process. Building one
-never initializes a group; `run_local` does that for its workers.
+never initializes a group; `run_local` does that for its workers. A mesh
+on the card over a gloo group also routes DTensor's collectives through
+`torch.distributed`'s own calls (`collectives.route_dtensor_collectives`).
 
 `run_local(fn, nprocs, args)` runs the module-level function
 `fn(*args)` in `nprocs` fresh processes (spawn) that form one group on
@@ -33,9 +35,15 @@ def _mesh(device_type: str | None, shape: tuple, axes: tuple):
 
     dev = resolve_device(device_type)
     if dev.type == "cuda":
+        import torch.distributed as dist
+
+        from repro_torch.launch import collectives
+
         # this rank's card, set before the mesh reads LOCAL_RANK as a
         # device index (ranks of one host may share a card)
         torch.cuda.set_device(resolve_device(None))
+        if dist.get_backend() == "gloo":
+            collectives.route_dtensor_collectives()
     return DeviceMesh(dev.type, torch.arange(math.prod(shape)).reshape(shape),
                       mesh_dim_names=axes)
 
@@ -72,7 +80,12 @@ def make_plan_mesh(device_type: str | None = None):
 
 
 def _entry(fn, rank, nprocs, tmp, backend, timeout, args):
+    import faulthandler
+
     import torch.distributed as dist
+
+    # a rank killed by a signal leaves its Python stack on stderr
+    faulthandler.enable()
 
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(nprocs))

@@ -13,9 +13,12 @@ there. `loss_fn` runs with grad enabled; serving runs under
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding
 from repro_torch.models import encdec, lm
 
 EMBEDS = ("patch_embeds", "src_embeds")  # the frontends' float inputs
@@ -34,17 +37,27 @@ def _ints(x, dev):
     return torch.as_tensor(x, device=dev).long()
 
 
-def _batch(cfg, batch, dev) -> dict:
+def _batch(cfg, batch, dev, model=None) -> dict:
     """The batch on `dev`: tokens as int64, the frontends' embeddings as
-    they come (float)."""
+    they come (float). For a sharded model (DTensor parameters) each entry
+    becomes a DTensor with its batch dim over the batch axes."""
     out = {"tokens": _ints(batch["tokens"], dev)}
     for name in EMBEDS:
         if batch.get(name) is not None:
             out[name] = torch.as_tensor(batch[name], device=dev)
+    mesh = sharding.model_mesh(model) if model is not None else None
+    if mesh is not None:
+        out = {k: sharding.distribute_batch(t, mesh) for k, t in out.items()}
     if cfg.is_encdec and "src_embeds" not in out:
         raise ValueError("the encoder-decoder family takes "
                          "batch['src_embeds'] (B, S, 1024) beside the tokens")
     return out
+
+
+def sharded_scope(model):
+    """`sharding.dtensor_scope` for a sharded model, else nothing."""
+    return (sharding.dtensor_scope() if sharding.sharded(model)
+            else contextlib.nullcontext())
 
 
 def _family(cfg):
@@ -68,12 +81,14 @@ def init_params(cfg, seed=0, device=None):
 def loss_fn(cfg, model, batch, device=None):
     """(loss, metrics) of `batch` {'tokens': (B, L)} (+ the family's
     embeddings), with grad enabled: call `loss.backward()` for the
-    parameters' grads. metrics: {"aux": the MoE loss} for the decoder-only
-    families, {} for encdec (the reference's)."""
+    parameters' grads (on a sharded model inside
+    `launch.sharding.dtensor_scope()`, as `launch.steps` does). metrics:
+    {"aux": the MoE loss} for the decoder-only families, {} for encdec
+    (the reference's)."""
     fam = _family(cfg)
     dev = _on(model, device)
-    with torch.enable_grad():
-        return fam.forward_train(cfg, model, _batch(cfg, batch, dev))
+    with torch.enable_grad(), sharded_scope(model):
+        return fam.forward_train(cfg, model, _batch(cfg, batch, dev, model))
 
 
 @torch.no_grad()
@@ -81,7 +96,8 @@ def prefill_fn(cfg, model, batch, device=None):
     """Last-position logits (B, 1, V), no cache."""
     fam = _family(cfg)
     dev = _on(model, device)
-    return fam.forward_prefill(cfg, model, _batch(cfg, batch, dev))
+    with sharded_scope(model):
+        return fam.forward_prefill(cfg, model, _batch(cfg, batch, dev, model))
 
 
 @torch.no_grad()

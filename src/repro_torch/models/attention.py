@@ -35,6 +35,7 @@ kernel), and generated tokens continue through the causal recurrence.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -43,6 +44,9 @@ from torch.profiler import record_function
 
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.kernels.linear_attention import ops as linear_ops
+from repro_torch.launch import sharding
+from repro_torch.launch.sharding import (match_heads, shard, shard_q_heads,
+                                         split_heads)
 from repro_torch.models.layers import (Params, apply_rope, dense_init,
                                        rms_norm, softcap)
 
@@ -152,12 +156,15 @@ def _project_qkv(cfg, p, x, positions, rope: bool = True):
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(B, L, H, hd)
-    k = k.reshape(B, L, KV, hd)
-    v = v.reshape(B, L, KV, hd)
+    q = split_heads(q, (B, L, H, hd))
+    k = split_heads(k, (B, L, KV, hd))
+    v = split_heads(v, (B, L, KV, hd))
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q = shard_q_heads(q)
+    k = shard(k, ("batch", "seq", "kv_heads", "head_dim"))
+    v = shard(v, ("batch", "seq", "kv_heads", "head_dim"))
     return q, k, v
 
 
@@ -222,8 +229,10 @@ def _attend(cfg, q, k, v, causal: bool, window: int):
     every call site): q (B, Lq, H, hd), k/v (B, Lk, KV, hd) -> (B, Lq, H,
     hd); Lk = Lq for self-attention (causal, with a local window or not,
     or bidirectional), any Lk for cross-attention (not causal). Executed
-    as `cfg.attn_impl` says."""
+    as `cfg.attn_impl` says. Under a mesh q's heads are gathered where k's
+    do not shard alike (`sharding.match_heads`)."""
     impl = _attn_impl(cfg)
+    q = match_heads(q, k)
     if impl == "chunked":
         return flash_ops.sdpa_chunked(q, k, v, causal, window,
                                       cfg.attn_logit_softcap)
@@ -233,9 +242,12 @@ def _attend(cfg, q, k, v, causal: bool, window: int):
                 "the flash attention kernel has no logit softcap (nor has "
                 "the reference's kernel, and no config sets one); use "
                 "attn_impl 'chunked'")
-        out = flash_ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                        v.transpose(1, 2), causal,
-                                        window=window)
+        # under a mesh each rank runs the kernel on its (batch, heads) slab
+        out = sharding.slab_face(
+            functools.partial(flash_ops.flash_attention, causal=causal,
+                              window=window),
+            (q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)),
+            ((0, 1),) * 3, (0, 1))
         return out.transpose(1, 2)
     iq = torch.arange(q.shape[1], device=q.device)
     ik = torch.arange(k.shape[1], device=q.device)
@@ -264,12 +276,12 @@ def full_attention_train(cfg, p, x, positions, causal: bool = True,
         q = x @ p.wq
         if cfg.qkv_bias:
             q = q + p.bq
-        q = q.reshape(B, L, H, hd)
+        q = split_heads(q, (B, L, H, hd))
         if rope:
             q = apply_rope(q, positions, cfg.rope_theta)
         Lk = kv_x.shape[1]
-        k = (kv_x @ p.wk).reshape(B, Lk, KV, hd)
-        v = (kv_x @ p.wv).reshape(B, Lk, KV, hd)
+        k = split_heads(kv_x @ p.wk, (B, Lk, KV, hd))
+        v = split_heads(kv_x @ p.wv, (B, Lk, KV, hd))
     out = _attend(cfg, q, k, v, causal, window)
     return out.reshape(B, L, -1) @ p.wo
 
@@ -391,7 +403,7 @@ def _mla_q(cfg, p, x, positions):
                          plus_one=True) @ p.w_uq
         else:
             q = x @ p.wq
-        q = q.reshape(B, L, H, nope + cfg.qk_rope_dim)
+        q = split_heads(q, (B, L, H, nope + cfg.qk_rope_dim))
         return q[..., :nope], apply_rope(q[..., nope:], positions,
                                          cfg.rope_theta)
 
@@ -413,8 +425,9 @@ def _mla_attend(cfg, p, q_nope, q_rope, ckv, k_rope, causal: bool):
     B, L, H, nope = q_nope.shape
     rope, vdim = cfg.qk_rope_dim, cfg.v_head_dim
     with record_function("mla.proj"):
-        kv = (ckv @ p.w_ukv).reshape(B, L, H, nope + vdim)
+        kv = split_heads(ckv @ p.w_ukv, (B, L, H, nope + vdim))
     k_nope, v = kv[..., :nope], kv[..., nope:]
+    k_nope = shard(k_nope, ("batch", "seq", "heads", None))
     if _attn_impl(cfg) != "naive":
         # nope || rope packed into one head: the same logits, and no (L, L)
         # scores held (the reference's "§Perf B3")
@@ -521,8 +534,10 @@ def causal_linear_attention(qf, kf, v, log_gamma=None,
     lg = torch.broadcast_to(torch.as_tensor(
         0.0 if log_gamma is None else log_gamma, dtype=torch.float32,
         device=qf.device), (H,)).contiguous()
-    num, den = linear_ops.linear_attention(
-        qf.transpose(1, 2), kf.transpose(1, 2), v.transpose(1, 2), lg)
+    num, den = sharding.slab_face(
+        linear_ops.linear_attention,
+        (qf.transpose(1, 2), kf.transpose(1, 2), v.transpose(1, 2), lg),
+        ((0, 1),) * 3 + ((None, 0),), ((0, 1), (0, 1)))
     return num.transpose(1, 2), den.transpose(1, 2)
 
 
@@ -710,6 +725,11 @@ def topo_attention_train(cfg, p, p_topo, x, positions, causal: bool = True):
     scale = topo_logit_scale(cfg, p_topo)  # (H,)
     qf = phi_features(q * scale[None, None, :, None], cfg.performer_phi)
     kf = phi_features(k, cfg.performer_phi)
+    # the masked sweep is independent per (batch, head): the phi fields
+    # stay batch over data and heads over model, never gathered
+    qf = shard(qf, ("field_batch", None, "heads", None))
+    kf = shard(kf, ("field_batch", None, "heads", None))
+    v = shard(v, ("field_batch", None, "heads", None))
     coeffs = topo_mask_coeffs(cfg, p_topo)  # (H, t+1)
     if impl == "fft" and separable:
         out = _topo_separable_attention(cfg, qf, kf, v, coeffs, causal)
@@ -727,9 +747,13 @@ def topo_attention_train(cfg, p, p_topo, x, positions, causal: bool = True):
         else:
             from repro_torch.kernels.topo_linear_attention.ops import (
                 topo_linear_attention)
-            out = topo_linear_attention(*args, use_kernel=impl == "cuda",
-                                        **kw)
+            out = sharding.slab_face(
+                functools.partial(topo_linear_attention,
+                                  use_kernel=impl == "cuda", **kw), args,
+                ((0, 1),) * 3 + (((None, 0) if coeffs.ndim == 2
+                                  else (None, None)),), (0, 1))
         out = out.permute(0, 2, 1, 3)
+    out = shard(out, ("field_batch", None, "heads", None))
     H, hd = cfg.num_heads, cfg.head_dim
     return out.to(x.dtype).reshape(B, L, H * hd) @ p.wo
 

@@ -28,11 +28,13 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import sharding
+from repro_torch.launch.sharding import shard
 from repro_torch.models import attention as A
 from repro_torch.models import lm
 from repro_torch.models.layers import (Params, cross_entropy_loss,
                                        dense_init, dtype_of, embed_init,
-                                       gated_mlp, rms_norm)
+                                       embed_lookup, gated_mlp, rms_norm)
 
 FRONTEND_DIM = 1024  # the stub audio frontend's frame embedding width
 
@@ -126,14 +128,17 @@ def _mlp(cfg, p, x):
 def _layers(cfg, blocks, body, x):
     remat = lm._remat(cfg) and torch.is_grad_enabled()
     for blk in blocks:
-        x = (checkpoint(body, blk, x, use_reentrant=False) if remat
+        x = (checkpoint(body, blk, x, use_reentrant=False,
+                        context_fn=sharding.remat_contexts) if remat
              else body(blk, x))
+        x = shard(x, ("batch", "seq", "embed"))
     return x
 
 
 def encode(cfg, model, src_embeds):
     """src_embeds: (B, S, 1024) stub frontend output -> memory (B, S, d)."""
     x = src_embeds.to(dtype_of(cfg)) @ model.frontend_proj.kernel
+    x = shard(x, ("batch", "seq", "embed"))
     positions = lm._positions(x)
 
     def body(p, x):
@@ -159,7 +164,7 @@ def _decode_stack(cfg, model, x, memory):
 
 def _decoder_out(cfg, model, batch):
     memory = encode(cfg, model, batch["src_embeds"])
-    x = model.embed.table[batch["tokens"]]
+    x = embed_lookup(model.embed.table, batch["tokens"])
     return _norm(cfg, _decode_stack(cfg, model, x, memory), model.final_norm)
 
 
@@ -168,6 +173,7 @@ def forward_train(cfg, model, batch):
     (loss, {}): the next-token CE with its z-loss."""
     tokens = batch["tokens"]
     logits = _decoder_out(cfg, model, batch) @ model.lm_head.kernel
+    logits = shard(logits, ("batch", "seq", "vocab"))
     return cross_entropy_loss(logits[:, :-1], tokens[:, 1:],
                               cfg.padded_vocab()), {}
 

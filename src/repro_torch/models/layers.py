@@ -10,6 +10,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.launch import sharding
+from repro_torch.launch.sharding import shard
+
 
 class Params(nn.Module):
     """A leaf of the model: named tensors held as parameters (one of the
@@ -87,7 +90,54 @@ def gated_mlp(p, x, act: str = "silu"):
     actf = {"silu": F.silu,
             "gelu": lambda t: F.gelu(t, approximate="tanh")}[act]
     h = actf(x @ p.w_gate) * (x @ p.w_in)
+    h = shard(h, ("batch", "seq", "ff"))
     return h @ p.w_out
+
+
+def embed_lookup(table, tokens):
+    """table[tokens]. On a DTensor table (vocab-sharded by the rules) it
+    runs on each rank's slab (`_sharded_embed_lookup`)."""
+    if sharding.is_dtensor(table):
+        return _sharded_embed_lookup(table, tokens)
+    return table[tokens]
+
+
+def _sharded_embed_lookup(table, tokens):
+    """table (V, d) DTensor, rows sharded over the mesh dims that shard
+    the vocab, and tokens (B, L), batch-sharded or replicated: each rank
+    looks its tokens up in its rows, zeros elsewhere, so the output is
+    partial over the vocab's ranks (summed by the next `shard`) and
+    batch-sharded as the tokens are. DTensor's own indexing backward
+    (index_put) failed to propagate this sharding with torch 2.11."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = table.device_mesh
+    if not sharding.is_dtensor(tokens):
+        from torch.distributed.tensor import DTensor
+
+        tokens = DTensor.from_local(tokens, mesh, [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    vocab_dims = [j for j, p in enumerate(table.placements) if p == Shard(0)]
+    tok_pl = [Replicate() if j in vocab_dims or not p.is_shard() else p
+              for j, p in enumerate(tokens.placements)]
+    out_pl = [Partial() if j in vocab_dims else p
+              for j, p in enumerate(tok_pl)]
+    tab_gpl = [p if j in vocab_dims else
+               Partial() if tok_pl[j].is_shard() else Replicate()
+               for j, p in enumerate(table.placements)]
+
+    def local(tab, tok):
+        vloc = tab.shape[0]
+        off = 0
+        for j in vocab_dims:  # the vocab shards nest in mesh-dim order
+            off = off * mesh.size(j) + mesh.get_local_rank(j)
+        rows = tok.long() - off * vloc
+        hit = (rows >= 0) & (rows < vloc)
+        return tab[rows.clamp(0, vloc - 1)] * hit[..., None].to(tab.dtype)
+
+    return sharding.local_face(local, (table, tokens),
+                               (list(table.placements), tok_pl), out_pl,
+                               (tab_gpl, None))
 
 
 def embed_init(gen: torch.Generator, vocab: int, d_model: int,
@@ -100,7 +150,11 @@ def cross_entropy_loss(logits, labels, vocab_size: int,
                        z_loss: float = 1e-4):
     """Mean next-token CE in float32, with z-loss; labels outside [0,
     vocab_size) are masked. The reference's formula, term by term (not
-    `F.cross_entropy`, which has no z-loss and another masking)."""
+    `F.cross_entropy`, which has no z-loss and another masking). On
+    DTensor logits it runs on each rank's slab (`_sharded_cross_entropy`).
+    """
+    if sharding.is_dtensor(logits):
+        return _sharded_cross_entropy(logits, labels, vocab_size, z_loss)
     logits = logits.float()
     mask = (labels >= 0) & (labels < vocab_size)
     labels_c = labels.clamp(0, vocab_size - 1).long()
@@ -109,3 +163,57 @@ def cross_entropy_loss(logits, labels, vocab_size: int,
     nll = logz - gold + z_loss * logz.square()
     nll = torch.where(mask, nll, 0.0)
     return nll.sum() / mask.sum().clamp_min(1)
+
+
+def _sharded_cross_entropy(logits, labels, vocab_size: int, z_loss: float):
+    """`cross_entropy_loss` of DTensor logits (B, L, V), each mesh dim
+    sharding the batch, the length or the vocab, or replicating them. No
+    collective moves the logits: per token, the max over the vocab is one
+    all_reduce (max) and the sum of exponentials and the gold logit one
+    all_reduce (sum) each over the vocab's ranks; the loss's numerator
+    comes back partial over the batch's ranks (its count summed there)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = logits.device_mesh
+    pl = [Replicate() if p.is_partial() else p for p in logits.placements]
+    vdim = logits.ndim - 1
+    vocab_dims = [j for j, p in enumerate(pl) if p == Shard(vdim)]
+    row_dims = [j for j, p in enumerate(pl)
+                if p.is_shard() and p != Shard(vdim)]
+    lab_pl = [Replicate() if j in vocab_dims else p for j, p in enumerate(pl)]
+    if not sharding.is_dtensor(labels):
+        from torch.distributed.tensor import distribute_tensor
+
+        labels = distribute_tensor(labels, mesh, [Replicate()] * mesh.ndim)
+
+    def local_ce(lg, lab):
+        lg = lg.float()
+        vloc = lg.shape[-1]
+        off = 0
+        for j in vocab_dims:  # the vocab shards nest in mesh-dim order
+            off = off * mesh.size(j) + mesh.get_local_rank(j)
+        off *= vloc
+        mask = (lab >= 0) & (lab < vocab_size)
+        lab_c = lab.clamp(0, vocab_size - 1).long()
+        mx = lg.detach().amax(dim=-1)
+        for j in vocab_dims:
+            mx = sharding.max_over(mx, mesh.get_group(j))
+        sumexp = torch.exp(lg - mx[..., None]).sum(dim=-1)
+        here = (lab_c >= off) & (lab_c < off + vloc)
+        gold = torch.gather(lg, -1, (lab_c - off).clamp(0, vloc - 1)[
+            ..., None])[..., 0] * here
+        for j in vocab_dims:
+            sumexp = sharding.sum_over(sumexp, mesh.get_group(j))
+            gold = sharding.sum_over(gold, mesh.get_group(j))
+        logz = mx + torch.log(sumexp)
+        nll = logz - gold + z_loss * logz.square()
+        nll = torch.where(mask, nll, 0.0)
+        count = mask.sum().to(torch.float32)
+        for j in row_dims:
+            count = sharding.sum_over(count, mesh.get_group(j))
+        return nll.sum() / count.clamp_min(1)
+
+    out_pl = [Partial() if j in row_dims else Replicate()
+              for j in range(mesh.ndim)]
+    return sharding.local_face(local_ce, (logits, labels), (pl, lab_pl),
+                               out_pl)

@@ -44,13 +44,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch import sharding
+from repro_torch.launch.sharding import shard
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (Params, cross_entropy_loss,
                                        dense_init, dtype_of, embed_init,
-                                       gated_mlp, gated_mlp_init, rms_norm)
+                                       embed_lookup, gated_mlp,
+                                       gated_mlp_init, rms_norm)
 
 
 VARIANTS = ("full", "performer", "topo")
@@ -226,7 +229,16 @@ def _window(cfg, kind) -> int:
 
 def _block_train(cfg, kind, p, x, positions):
     """Returns (x, aux): aux is the MoE router's loss, None for the other
-    kinds."""
+    kinds. Under a mesh the block's output is the residual stream, batch
+    over the data axes and replicated over the model axis (or its length
+    over the model axis where cfg.seq_sharded_residuals)."""
+    x, aux = _block_body(cfg, kind, p, x, positions)
+    seq = ("seq_sp" if getattr(cfg, "seq_sharded_residuals", False)
+           else "seq")
+    return shard(x, ("batch", seq, "embed")), aux
+
+
+def _block_body(cfg, kind, p, x, positions):
     if kind == "mamba":
         return (x + SSM.mamba_block_train(cfg, p.ssm, _mamba_in(cfg, p, x)),
                 None)
@@ -432,7 +444,7 @@ def init_params(cfg, gen: torch.Generator) -> DecoderLM:
 
 
 def embed_tokens(cfg, model, tokens):
-    x = model.embed.table[tokens]
+    x = embed_lookup(model.embed.table, tokens)
     if cfg.emb_scale:
         x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     return x
@@ -440,8 +452,10 @@ def embed_tokens(cfg, model, tokens):
 
 def unembed(cfg, model, x):
     if cfg.tie_embeddings:
-        return x @ model.embed.table.T
-    return x @ model.lm_head.kernel
+        logits = x @ model.embed.table.T
+    else:
+        logits = x @ model.lm_head.kernel
+    return shard(logits, ("batch", "seq", "vocab"))
 
 
 def _final(cfg, model, x):
@@ -463,7 +477,8 @@ def _run_stack(cfg, model, x, positions, remat: bool = False):
     for kind, blk in zip(layer_kinds(cfg), model.blocks):
         if remat:
             x, a = checkpoint(_block_train, cfg, kind, blk, x, positions,
-                              use_reentrant=False)
+                              use_reentrant=False,
+                              context_fn=sharding.remat_contexts)
         else:
             x, a = _block_train(cfg, kind, blk, x, positions)
         if a is not None:
@@ -502,6 +517,7 @@ def forward_train(cfg, model, batch):
     blocks' summed auxiliary loss (0 without MoE blocks)."""
     tokens = batch["tokens"]
     x, P = _inputs(cfg, model, batch)
+    x = shard(x, ("batch", "seq", "embed"))
     positions = _positions(x)
     x, aux = _run_stack(cfg, model, x, positions,
                         _remat(cfg) and torch.is_grad_enabled())
@@ -609,7 +625,7 @@ def forward_prefill_into_cache(cfg, model, cache, tokens, lengths, S,
     layer. Returns (logits (B, V) of each row's last real token,
     new_cache)."""
     B, Lp = tokens.shape
-    x = embed_tokens(cfg, model, tokens)
+    x = shard(embed_tokens(cfg, model, tokens), ("batch", "seq", "embed"))
     positions = _positions(x)
 
     def step(kind, blk, c):

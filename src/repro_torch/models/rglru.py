@@ -22,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.selective_scan.ops import _assoc_scan
+from repro_torch.launch import sharding
+from repro_torch.launch.sharding import shard
 from repro_torch.models.layers import Params, dense_init
 
 _RGLRU_C = 8.0
@@ -61,6 +63,9 @@ class LRU(Params):
 def _conv1d(x, w, b):
     """Causal depthwise conv over x (B, L, w) with taps w (w, K), summed in
     the reference's order (tap 0 first), then the bias."""
+    if sharding.is_dtensor(x):  # channel by channel: each rank its slab
+        return sharding.slab_face(_conv1d, (x, w, b),
+                                  ((0, 2), (None, 0), (None, 0)), (0, 2))
     K, L = w.shape[1], x.shape[1]
     xpad = F.pad(x, (0, 0, K - 1, 0))
     out = xpad[:, 0:L] * w.T[0]
@@ -89,7 +94,8 @@ def _rglru_scan(p, x, r, i):
 
 
 def _split(p, x):
-    return (x @ p.in_proj).chunk(2, dim=-1)
+    xin, z = (x @ p.in_proj).chunk(2, dim=-1)
+    return shard(xin, ("batch", "seq", "inner")), z
 
 
 def lru_block_train(cfg, p, x):

@@ -17,6 +17,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.launch import sharding
+from repro_torch.launch.sharding import shard
 from repro_torch.models.layers import Params, dense_init
 
 SCAN_IMPLS = ("naive", "chunked", "cuda")  # cfg.attn_impl
@@ -72,6 +74,9 @@ def _causal_conv1d(x, w, b):
     """x: (B, L, C); w: (C, K) depthwise causal conv; w[:, K-1] multiplies
     the current token (matches the decode ring buffer). Summed over k in
     order, as the reference does."""
+    if sharding.is_dtensor(x):  # channel by channel: each rank its slab
+        return sharding.slab_face(_causal_conv1d, (x, w, b),
+                                  ((0, 2), (None, 0), (None, 0)), (0, 2))
     K, L = w.shape[1], x.shape[1]
     xpad = F.pad(x, (0, 0, K - 1, 0))
     out = xpad[:, 0:L] * w[:, 0]
@@ -87,8 +92,11 @@ def _scan(cfg, u, dt, A, Bm, Cm, D):
         return selective_scan_ref(u, dt, A, Bm, Cm, D)
     if impl == "chunked":
         return scan_ops.selective_scan(u, dt, A, Bm, Cm, D)
-    if impl == "cuda":
-        return scan_ops.scan(u, dt, A, Bm, Cm, D)
+    if impl == "cuda":  # under a mesh each rank scans its channel slab
+        return sharding.slab_face(
+            scan_ops.scan, (u, dt, A, Bm, Cm, D),
+            ((0, 2), (0, 2), (None, 0), (0, None), (0, None), (None, 0)),
+            ((0, 2), (0, 1)))
     raise ValueError(f"cfg.attn_impl={impl!r}: expected one of {SCAN_IMPLS} "
                      "for the selective scan")
 
@@ -116,6 +124,7 @@ def _mix(cfg, p, xin, z, lengths=None):
 def mamba_block_train(cfg, p, x):
     """x: (B, L, d) -> (B, L, d)."""
     xin, z = (x @ p.in_proj).chunk(2, dim=-1)
+    xin = shard(xin, ("batch", "seq", "inner"))
     return _mix(cfg, p, xin, z)[0]
 
 
@@ -128,6 +137,7 @@ def mamba_block_prefill(cfg, p, x, lengths, cache):
     Returns (y (B, L, d), new_cache)."""
     B, L, _ = x.shape
     xin, z = (x @ p.in_proj).chunk(2, dim=-1)
+    xin = shard(xin, ("batch", "seq", "inner"))
     y, h = _mix(cfg, p, xin, z, lengths)
     K = cfg.ssm_conv
     cidx = (lengths[:, None] - (K - 1)

@@ -35,6 +35,7 @@ from repro_torch.core.masks import (make_tree_fastmult, mask_f,
 from repro_torch.device import resolve_device
 from repro_torch.graphs.graph import grid_graph
 from repro_torch.graphs.mst import minimum_spanning_tree
+from repro_torch.launch import sharding
 from repro_torch.models import api
 from repro_torch.models import attention as A
 from repro_torch.models.layers import (Params, dense_init, dtype_of,
@@ -258,6 +259,9 @@ def topo_vit_attention(cfg, p, x, plan, backend: str):
         D = torch.from_numpy(_grid_tree_distances(_grid_side(L))).to(x.device)
         out = masked_attention_bruteforce(
             qf_, kf_, v_, mask_f(cfg.topo_g, coeffs, cfg.topo_dist_scale)(D))
+    elif sharding.is_dtensor(qf_):
+        out = _masked_attention_sharded(cfg, plan, backend, qf_, kf_, v_,
+                                        coeffs)
     else:
         fastmult = make_tree_fastmult(
             plan, cfg.topo_g, coeffs, cfg.topo_dist_scale, backend=backend,
@@ -265,6 +269,32 @@ def topo_vit_attention(cfg, p, x, plan, backend: str):
         out = masked_linear_attention(qf_, kf_, v_, fastmult)
     out = out.transpose(1, 2).reshape(B, L, -1).to(x.dtype)
     return out @ p.attn.wo
+
+
+def _masked_attention_sharded(cfg, plan, backend, qf, kf, v, coeffs):
+    """Alg. 1 on DTensor fields (B, H, L, .) of a sharded model, on each
+    rank's slab (`sharding.slab_face`): the batch over the data axes, the
+    heads over the model axis. With cfg.topo_shard_plan the heads are
+    first gathered over the model axis and the mask fastmult runs the
+    multi-rank executor over that axis (its ranks then hold one field
+    alike, which the plan executor needs); the batch stays sharded."""
+    mesh = qf.device_mesh
+    plan_mesh = None
+    if cfg.topo_shard_plan:
+        qf, kf, v = (sharding.shard(t, ("field_batch", None, None, None))
+                     for t in (qf, kf, v))
+        rest = [a for a in sharding.mesh_axes(mesh)
+                if a not in (sharding.batch_axes() or ())]
+        plan_mesh = mesh[rest[0]] if rest else None
+
+    def local(q, k, vv, c):
+        fastmult = make_tree_fastmult(
+            plan, cfg.topo_g, c, cfg.topo_dist_scale, backend=backend,
+            device=q.device, sharded=plan_mesh is not None, mesh=plan_mesh)
+        return masked_linear_attention(q, k, vv, fastmult)
+
+    return sharding.slab_face(local, (qf, kf, v, coeffs),
+                              ((0, 1),) * 3 + ((None, None),), (0, 1))
 
 
 def forward(cfg, model, patches, plan=None, *, backend: str | None = None,
@@ -279,7 +309,13 @@ def forward(cfg, model, patches, plan=None, *, backend: str | None = None,
     multi-rank plan executor over the active `launch.sharding` mesh (leaf
     blocks over its plan axis); the model and the patches are replicated,
     so every rank returns the same logits. With no mesh, or one rank on
-    its plan axis, it runs the single-device executor."""
+    its plan axis, it runs the single-device executor.
+
+    A sharded model (`sharding.distribute_params`) takes the patches'
+    batch over the data axes and returns DTensor logits, batch-sharded;
+    its backward runs in `sharding.dtensor_scope()`. With
+    cfg.topo_shard_plan the plan's leaf blocks then go over the model
+    axis (`_masked_attention_sharded`)."""
     if cfg.attention_variant not in VARIANTS:
         raise ValueError(f"attention_variant={cfg.attention_variant!r}: the "
                          f"ViT runs {VARIANTS}")
@@ -293,6 +329,15 @@ def forward(cfg, model, patches, plan=None, *, backend: str | None = None,
         plan = build_grid_integrator(cfg, backend, dev)
         backend = plan.backend
     x = torch.as_tensor(patches, device=dev).to(dtype_of(cfg))
+    mesh = sharding.model_mesh(model)
+    if mesh is not None:
+        with api.sharded_scope(model):
+            return _forward(cfg, model, sharding.distribute_batch(x, mesh),
+                            plan, backend, topo)
+    return _forward(cfg, model, x, plan, backend, topo)
+
+
+def _forward(cfg, model, x, plan, backend, topo):
     x = x @ model.patch_proj.kernel
     x = x + model.patch_proj.bias + model.pos_embed[None]
     for blk in model.blocks:

@@ -16,6 +16,14 @@ Not `torch.optim.AdamW` with `clip_grad_norm_`: their epsilon and their
 order of operations compute another function. The update writes the new
 values into the parameters and the state in place (no second copy of a
 1B-parameter model or of its state), under `torch.no_grad()`.
+
+DTensor parameters (`launch.sharding.distribute_params`): each grad is
+first placed as its parameter is (a partial grad reduced: over the data
+axes for a replicated weight, the model axis for a norm), the global norm
+is each rank's sum of squares of the slabs it owns (one copy of each
+replicated slab counted) reduced once over the whole mesh, `lr`, the bias
+corrections and the clip scale stay plain replicated scalars, and the
+update runs on each rank's slabs, in place.
 """
 from __future__ import annotations
 
@@ -66,12 +74,62 @@ def cosine_schedule(step, cfg: AdamWConfig) -> torch.Tensor:
     return cfg.lr * warm * (cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * cos)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _local(x):
+    return x.to_local() if _is_dtensor(x) else x
+
+
+def place_grads(grads: dict, params: dict) -> dict:
+    """Each DTensor grad redistributed to its parameter's placements (the
+    reduction of a partial grad); plain grads as they are."""
+    out = {}
+    for k, g in grads.items():
+        p = params[k]
+        if _is_dtensor(g) and tuple(g.placements) != tuple(p.placements):
+            g = g.redistribute(p.device_mesh, p.placements)
+        out[k] = g
+    return out
+
+
+def _owned_sumsq(g) -> torch.Tensor:
+    """This rank's share of sum(g^2) in float32: its slab, counted on one
+    rank of each replicated mesh dim only, so the shares sum to the
+    whole."""
+    sq = torch.sum(torch.square(_local(g).float()))
+    if _is_dtensor(g):
+        mesh = g.device_mesh
+        for j, pl in enumerate(g.placements):
+            if pl.is_partial():
+                raise ValueError("place the grads first (place_grads)")
+            if pl.is_replicate() and mesh.get_local_rank(j) != 0:
+                return torch.zeros_like(sq)
+    return sq
+
+
 def global_norm(grads: dict) -> torch.Tensor:
-    """sqrt of the sum of squares of every grad, in float32."""
+    """sqrt of the sum of squares of every grad, in float32. Over DTensor
+    grads (placed as their parameters) every rank sums the squares it owns
+    and one all_reduce over the mesh's ranks adds them: a plain scalar,
+    alike on every rank."""
     total = None
+    mesh = None
     for g in grads.values():
-        sq = torch.sum(torch.square(g.float()))
+        sq = _owned_sumsq(g)
+        mesh = g.device_mesh if _is_dtensor(g) else mesh
         total = sq if total is None else total + sq
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if mesh.size() == dist.get_world_size():
+            dist.all_reduce(total)
+        else:
+            for j in range(mesh.ndim):
+                dist.all_reduce(total, group=mesh.get_group(j))
     return torch.sqrt(total)
 
 
@@ -90,7 +148,9 @@ def adamw_update(grads: dict, state: AdamWState, params: dict,
     the state's mu and nu dicts are updated in place; returns (the new
     state, metrics {"grad_norm", "lr"}). The clip is applied tensor by
     tensor: the same values as clipping every grad first, without a
-    float32 copy of all of them at once."""
+    float32 copy of all of them at once. DTensor grads are placed as their
+    parameters first (`place_grads`)."""
+    grads = place_grads(grads, params)
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     step = state.step + 1
@@ -99,19 +159,29 @@ def adamw_update(grads: dict, state: AdamWState, params: dict,
     bc2 = 1.0 - torch.pow(cfg.b2, step.float())
     mu, nu = state.mu, state.nu
     for k, p in params.items():
-        g = grads[k].float() * scale
+        g = _local(grads[k]).float() * scale
         mu[k] = _ema(mu[k], cfg.b1, g)
         nu[k] = _ema(nu[k], cfg.b2, torch.square(g))
         del g
-        upd = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + cfg.eps)
-        upd = upd + cfg.weight_decay * p
-        p.copy_((p - lr * upd).to(p.dtype))
+        m, v, w = _local(mu[k]), _local(nu[k]), _local(p)
+        upd = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        upd = upd + cfg.weight_decay * w
+        w.copy_((w - lr * upd).to(w.dtype))
     return AdamWState(step, mu, nu), {"grad_norm": gnorm, "lr": lr}
 
 
 def _ema(old, b: float, new):
     """b old + (1 - b) new: in place where old already has new's dtype
-    (the same roundings as out of place)."""
-    if old.dtype == new.dtype:
-        return old.mul_(b).add_((1 - b) * new)
-    return b * old + (1 - b) * new
+    (the same roundings as out of place). `new` is a plain tensor (a
+    DTensor `old`'s slab); a DTensor `old` stays one."""
+    loc = _local(old)
+    if loc.dtype == new.dtype:
+        loc.mul_(b).add_((1 - b) * new)
+        return old
+    out = b * loc + (1 - b) * new
+    if not _is_dtensor(old):
+        return out
+    from torch.distributed.tensor import DTensor
+
+    return DTensor.from_local(out, old.device_mesh, old.placements,
+                              run_check=False)
