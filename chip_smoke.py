@@ -210,6 +210,22 @@ parameters, grads and AdamW state against one device's, peak memory,
 step ms and the collectives of one step by kind, and the vocab-sharded
 cross-entropy's collectives alone (none of the logits' size).
 
+The cost count, the roofline and the dry run (slice 17, ROADMAP A13):
+`roofline.count.CostCount` reads the served bf16 prefill of the 4 requests
+(4 x 4,096, full width and depth) in cells (d) degree 1 and 2 and (e),
+each kernel wrapper recording its work formula (`roofline/kernels.py`,
+the formulas behind every bound this script prints). 4n holds the count
+of the live run on the card (the kernels launched) against the same step
+counted on the plain route under FakeTensorMode on the CPU: the flops and
+the bytes must be equal, and the count must see every launch. 5l prints each prefill's
+roofline terms (compute, memory, the bound) and the MFU (model_flops over
+the median CUDA-event time at 989 TFLOP/s) and fails if the bound exceeds
+1.05 of the time; then one dry-run record (`launch.dryrun.analyze_cell`:
+Llama-3.2-1B x train_4k on a fake group of the 16 x 16 production mesh).
+The plain counts and the dry run need no card: they run in spawned worker
+processes, started once the card's prefills are timed (so no time is
+taken under their load) and ended before the slice ends.
+
 Cut for the script's time when slice 16 came: the served paths' decode
 steps 32 -> 8, 4e's float32 batch 64 -> 32 images (2 column chunks), 5e's
 bf16 batch 64 -> 16 images, 4l(d) 8 -> 2 images.
@@ -238,17 +254,14 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-
-# peak rates of one H100 SXM (NVIDIA data sheet): HBM bytes/s and fp32 flop/s
-# outside the tensor cores; the bound of a call is the larger of its bytes
-# and its operations over these
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12  # dense, in the tensor cores
-TF32_FLOPS_PER_S = 495e12  # dense, in the tensor cores; 3xTF32 takes three
-# exp2 results a clock on one SM's special function units (4 quadrants of
-# 4, sm_90: CUDA C++ Programming Guide, arithmetic instruction throughput)
-SFU_PER_CLOCK_PER_SM = 16
+if (ROOT / "src" / "repro_torch").is_dir():
+    sys.path.insert(0, str(ROOT / "src"))
+    # each kernel's work and bound: one source with the port's cost count
+    from repro_torch.roofline.kernels import (  # noqa: E402
+        BF16_FLOPS_PER_S, FP32_FLOPS_PER_S, HBM_BYTES_PER_S,
+        TF32_FLOPS_PER_S, bound, flash_work, linear_work, scan_bound,
+        scan_work, topo_work)
+    from repro_torch.roofline.kernels import fdist_work as work  # noqa: E402
 
 MODES = [("poly", (0.5, -0.2, 0.1)), ("exp", (-0.7, 1.3)),
          ("expq", (-0.05, -0.2, 0.1)), ("rational", (0.8,))]
@@ -263,29 +276,6 @@ EXACT_TOL = 1e-5  # tests/test_forest.py / tests/test_plan_api.py bound
 FULL = {"n": 10000, "extra": 5000, "leaf": 64, "widths": (4, 64),
         "ico": 5, "per_class": 30, "size_range": (24, 60), "forest_leaf": 16,
         "reps": 20}
-
-
-def _f_ops(mode: str, k: int) -> int:
-    """fp32 operations of one f(x + y): the add, then the family's ops
-    (an exp or a division counted as one)."""
-    return 1 + {"poly": 2 * k, "exp": 3, "expq": 6, "rational": 4}[mode]
-
-
-def work(B, a, b, d, mode, k, v_bytes=4, out_bytes=4):
-    """(bytes, operations) of one batched call: each input read once, the
-    output written once; a*b evaluations of f plus a*b*d multiply-adds per
-    job."""
-    nbytes = 4 * (B * a + B * b + k) + v_bytes * B * b * d + out_bytes * B * a * d
-    return nbytes, B * a * b * (2 * d + _f_ops(mode, k))
-
-
-def bound(nbytes, ops, flops_per_s=FP32_FLOPS_PER_S):
-    """(least time on an H100 in ms, what bounds it) for this much work,
-    its operations at `flops_per_s` (fp32 outside the tensor cores unless
-    given)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / flops_per_s
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def device_ms(fn, reps: int) -> float:
@@ -858,21 +848,6 @@ def _mask_coeffs(rng, H, degree, device):
                      dim=1)
 
 
-def topo_work(B, H, L, m, hd, C, R):
-    """(bytes, operations) of one causal sweep: q, k, v, the mask pieces
-    and the output each moved once; per (b, h, chunk) the causal half of
-    q k^T and P v (C (C+1) / 2 pairs, what the mask needs), the row sums,
-    and the state's read and write (2 C R m (hd + 1) operations each)."""
-    nC = L // C
-    tables = H if R == 0 else 2 * H * L * R
-    nbytes = 4 * (2 * B * H * L * m + 2 * B * H * L * hd + H * C * C + tables)
-    pairs = C * (C + 1) // 2
-    r = max(R, 1)
-    ops_ = B * H * nC * (pairs * (2 * m + 2 * hd + 2)
-                         + 4 * C * r * m * (hd + 1) + 2 * C * hd)
-    return nbytes, ops_
-
-
 def _sweep_pieces(qf, kf, v, cs, dist_scale):
     """The kernel's inputs for one call of the fused forward (ops' own
     padding and mask tables): (qp, kp, vp, dmat_inc, mode kwargs, C)."""
@@ -1390,34 +1365,6 @@ def _kernel_ops(variant: str):
     return flash_ops if variant == "full" else linear_ops
 
 
-def flash_work(B, H, KV, L, hd, causal, nbytes_el, vd=None, Lk=None,
-               window=0):
-    """(bytes, operations) of one call: q, k, v and out each moved once;
-    q k^T and P v over the (query, key) pairs the mask keeps (2 hd + 2 vd
-    operations a pair, v's head dim vd = hd unless given; the softmax's
-    exps not counted). Lk: the keys' length (cross-attention; L unless
-    given); window: a causal window of that many keys (query i keeps
-    min(i + 1, window) pairs)."""
-    vd, Lk = vd or hd, Lk or L
-    if causal and window:
-        pairs = sum(min(i + 1, window) for i in range(L))
-    else:
-        pairs = L * (L + 1) // 2 if causal else L * Lk
-    nbytes = nbytes_el * (B * H * L * (hd + vd) + B * KV * Lk * (hd + vd))
-    return nbytes, B * H * pairs * 2 * (hd + vd)
-
-
-def linear_work(B, H, L, m, hd, v_bytes):
-    """(bytes, operations) of one call: qf, kf (fp32), v, num and den (fp32)
-    each moved once; the function's least operations, which do not depend
-    on the kernel's chunk: those of a chunk of one row, per row the read of
-    the state S, z and its update (4 m (hd + 1)) and the diagonal pair
-    (2 m + 2 hd + 2)."""
-    nbytes = (4 * 2 * B * H * L * m + v_bytes * B * H * L * hd
-              + 4 * B * H * L * (hd + 1) + 4 * H)
-    return nbytes, B * H * L * (4 * m * (hd + 1) + 2 * m + 2 * hd + 2)
-
-
 def phase_attn_kernel_vs_plain(device):
     """3c: the flash attention kernel against its plain version at the
     served shape (causal and not, f32 and bf16) and at a ragged L, and
@@ -1650,31 +1597,6 @@ def _ssm_cfg(impl: str = "cuda", dtype: str | None = None):
 
     cfg = get_config(SSM["arch"], attn_impl=impl)
     return cfg.replace(dtype=dtype) if dtype else cfg
-
-
-def scan_work(Bt, L, din, N, in_bytes):
-    """(bytes, fp32 operations, exps) of one scan from h0 = 0: u, dt, B, C
-    (in_bytes each), A, D read once, y and h_final (fp32) written once; per
-    state update dt A, the state's multiply-add and C h's (5 operations) and
-    one exp; per (b, t, d) dt u, D u and its add (3)."""
-    nbytes = (in_bytes * (2 * Bt * L * din + 2 * Bt * L * N)
-              + 4 * (din * N + din + Bt * L * din + Bt * din * N))
-    updates = Bt * L * din * N
-    return nbytes, 5 * updates + 3 * Bt * L * din, updates
-
-
-def scan_bound(nbytes, ops_, exps, sms, clock_mhz):
-    """(least time in ms, "bytes" or "operations", the binding term): the
-    larger of bytes over HBM, fp32 operations over the fp32 peak, and exps
-    over the special function units (SFU_PER_CLOCK_PER_SM a clock on each
-    of `sms` SMs at the card's maximum SM clock)."""
-    terms = {"bytes": nbytes / HBM_BYTES_PER_S,
-             "fp32 operations": ops_ / FP32_FLOPS_PER_S,
-             "sfu exps": exps / (SFU_PER_CLOCK_PER_SM * sms
-                                 * clock_mhz * 1e6)}
-    term = max(terms, key=terms.get)
-    return (terms[term] * 1e3, "bytes" if term == "bytes" else "operations",
-            term, {k: v * 1e3 for k, v in terms.items()})
 
 
 def _scan_inputs(rng, shape, dtype, device):
@@ -6656,6 +6578,199 @@ def _pshard_print(single, ranks, card) -> None:
               flush=True)
 
 
+
+# ----------------------------------------------------------------------------
+# slice 17: the cost count, the roofline and the dry run (ROADMAP A13)
+# ----------------------------------------------------------------------------
+
+# 4n/5l: the served bf16 prefill of TOPO's 4 requests (4 x Lp tokens, a
+# cache of S) at full width and depth in cells (d) (degree 1, 2) and (e);
+# 5l's prefill times are the median of `reps` CUDA-event spans
+ROOF = {"reps": 3, "bound_share_max": 1.05,
+        "dry_run": ("llama3_2_1b", "train_4k")}
+
+
+def _roof_cells():
+    """(label, config, the ops module whose kernel the prefill runs)."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.topo_linear_attention import ops as topo_ops
+
+    return [("(d) degree 1", _topo_cfg(1), topo_ops),
+            ("(d) degree 2", _topo_cfg(2), topo_ops),
+            ("(e) full", _dense_cfg("full"), flash_ops)]
+
+
+def _count_prefill(cfg, model, toks, lengths, device) -> dict:
+    """The cost count's record of one served prefill (prefill_into_cache
+    of the 4 requests into an empty cache of S positions)."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.roofline.count import CostCount
+
+    S = TOPO["S"]
+    cache = api.init_cache(cfg, len(lengths), S, device=device)
+    with torch.no_grad(), CostCount() as count:
+        count.track_arguments(list(model.parameters()), cache)
+        count.track_outputs(api.prefill_into_cache(
+            cfg, model, cache, toks, lengths, S, device=device))
+    return count.record()
+
+
+def _event_ms(fn, reps: int) -> float:
+    """Median CUDA-event time of one call of fn() over `reps` calls (each
+    call's own span: host gaps between its kernels included)."""
+    import torch
+
+    fn()
+    spans = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        spans.append(a.elapsed_time(b))
+    return float(np.median(spans))
+
+
+def _roof_plain_count(i: int):
+    """4n's plain route (run in a worker process): cell i's served prefill
+    under FakeTensorMode on the CPU, the model made there (nothing
+    allocated). Returns (record, seconds)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.models import api
+
+    _, cfg, _ = _roof_cells()[i]
+    toks, lengths = _prompts(cfg)
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        model = api.init_params(cfg, TOPO["seed"], device="cpu")
+        rec = _count_prefill(cfg, model, toks, lengths, "cpu")
+    return rec, time.perf_counter() - t0
+
+
+def _roof_dry_run():
+    """5l's dry-run record (run in a worker process): ROOF["dry_run"] on
+    the single-pod mesh, a fake group of 256 ranks. Returns (record,
+    seconds)."""
+    from repro_torch.launch import dryrun
+
+    arch, shape = ROOF["dry_run"]
+    t0 = time.perf_counter()
+    with dryrun.fake_group(dryrun.MESHES["16x16"][1]):
+        rec = dryrun.analyze_cell(arch, shape, dryrun.production_mesh(False),
+                                  "16x16", extrapolate=False)
+    return rec, time.perf_counter() - t0
+
+
+def phase_roofline(card, device) -> dict:
+    """4n: each cell's served prefill counted live on the card (the
+    kernels launched) and on the plain route under FakeTensorMode on the
+    CPU: the flops and bytes must be equal. 5l: its roofline terms beside its median
+    CUDA-event time, the MFU and the bound's share of the time (failing
+    past ROOF["bound_share_max"]); one dry-run record. The plain counts
+    and the dry run need no card: they run in worker processes (spawned,
+    ended here), started only once the card's prefills are timed, so no
+    time is taken with the host under their load; the live counts run
+    meanwhile."""
+    import multiprocessing as mp
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+
+    from repro_torch.models import api
+    from repro_torch.roofline.analysis import PEAK_FLOPS, roofline_terms
+
+    cells = _roof_cells()
+    out = {}
+    times = []
+    for label, cfg, kops in cells:
+        toks, lengths = _prompts(cfg)
+        B, S = len(lengths), TOPO["S"]
+        model = api.init_params(cfg, TOPO["seed"], device=device)
+        cache0 = api.init_cache(cfg, B, S, device=device)
+        times.append(_event_ms(lambda: api.prefill_into_cache(
+            cfg, model, cache0, toks, lengths, S, device=device),
+            ROOF["reps"]))
+        del model, cache0
+        torch.cuda.empty_cache()
+    with ProcessPoolExecutor(len(cells) + 1,
+                             mp_context=mp.get_context("spawn")) as pool:
+        dry = pool.submit(_roof_dry_run)
+        plain = [pool.submit(_roof_plain_count, i)
+                 for i in range(len(cells))]
+        # the live counts, on the host while the workers run (no timing)
+        live = []
+        for (label, cfg, kops), t_ms in zip(cells, times):
+            toks, lengths = _prompts(cfg)
+            model = api.init_params(cfg, TOPO["seed"], device=device)
+            kops.LAUNCHES = 0
+            rec = _count_prefill(cfg, model, toks, lengths, device)
+            live.append((rec, kops.LAUNCHES, t_ms))
+            del model
+            torch.cuda.empty_cache()
+        for (label, cfg, _), (rec, launches, t_ms), fut in zip(cells, live,
+                                                               plain):
+            fake, fake_s = fut.result()
+            shape = {"global_batch": len(TOPO["lengths"]),
+                     "seq_len": TOPO["Lp"], "kind": "prefill"}
+            name = next(iter(rec["kernels"]), None)
+            seen = {k: v["calls"] for k, v in rec["kernels"].items()}
+            print(f"[4n {label}] served bf16 prefill, "
+                  f"{len(TOPO['lengths'])} requests x {TOPO['Lp']} (lengths "
+                  f"{TOPO['lengths']}, S={TOPO['S']}), {cfg.num_layers} "
+                  f"layers: counted flops live on the card "
+                  f"{rec['flops']:.6e}, on the plain route under "
+                  f"FakeTensorMode on the CPU {fake['flops']:.6e} (equal: "
+                  f"{rec['flops'] == fake['flops']}); bytes "
+                  f"{rec['bytes_accessed']:.6e} / "
+                  f"{fake['bytes_accessed']:.6e} (equal: "
+                  f"{rec['bytes_accessed'] == fake['bytes_accessed']}); "
+                  "calls the count saw "
+                  f"{seen} live, "
+                  f"{ {k: v['calls'] for k, v in fake['kernels'].items()} } "
+                  f"plain; launched {launches}; the plain count took "
+                  f"{fake_s:.1f} s in a worker", flush=True)
+            if (rec["flops"], rec["bytes_accessed"]) != (
+                    fake["flops"], fake["bytes_accessed"]) or (
+                    launches != cfg.num_layers or seen.get(name) != launches):
+                raise AssertionError(f"4n {label}: the count's flops or "
+                                     "bytes differ by route, or it missed a "
+                                     "launch")
+            terms = roofline_terms(rec, cfg, shape, 1)
+            t_s = t_ms / 1e3
+            mfu = terms["model_flops"] / (t_s * PEAK_FLOPS)
+            share = terms["roofline_bound_s"] / t_s
+            print(f"[5l {label}] prefill {t_ms:.3f} ms (median of "
+                  f"{ROOF['reps']} CUDA-event spans) | {card}; compute_s "
+                  f"{terms['compute_s']:.6f}, memory_s "
+                  f"{terms['memory_s']:.6f}, roofline_bound_s "
+                  f"{terms['roofline_bound_s']:.6f} ({terms['dominant']}), "
+                  f"model_flops {terms['model_flops']:.6e}, mfu {mfu:.4f}, "
+                  f"bound_share {share:.4f} (<= {ROOF['bound_share_max']}); "
+                  f"peak counted {rec['peak_bytes_per_device'] / 2**30:.2f} "
+                  "GiB", flush=True)
+            if share > ROOF["bound_share_max"]:
+                raise AssertionError(
+                    f"5l {label}: the roofline bound "
+                    f"{terms['roofline_bound_s']:.4f} s exceeds the "
+                    f"measured {t_s:.4f} s")
+            out[label] = {"live": rec, "plain": fake, "launches": launches,
+                          "prefill_ms": t_ms, "terms": terms, "mfu": mfu,
+                          "bound_share": share, "plain_count_s": fake_s,
+                          "card": card}
+        rec, wall = dry.result()
+    arch, shape = ROOF["dry_run"]
+    print(f"[5l dry run] {arch} x {shape} x 16x16 (a fake group of 256 "
+          f"ranks in a worker process, FakeTensorMode on the CPU) in "
+          f"{wall:.1f} s wall: " + json.dumps(
+              {k: v for k, v in rec.items() if k != "kernels"}), flush=True)
+    out["dry_run"] = dict(rec, wall_s=wall)
+    return out
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -6987,7 +7102,15 @@ def run(cfg, device, out_path=None) -> dict:
     pshard = phase_param_shard(card, device)
     pshard_kernel_rows(kernels, pshard)
     _stamp("slice 16 ends")
+    # slice 17: the cost count on the card (4n, a gate: the same flops on
+    # the card and on the plain route), the roofline, the MFU and one dry
+    # run (5l)
+    torch.cuda.empty_cache()
+    _stamp("slice 17 starts")
+    roof = phase_roofline(card, device)
+    _stamp("slice 17 ends")
     record = {**deepseek, **a10b, **engine, **shard, **pshard,
+              "roofline": roof,
               "device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
@@ -7028,7 +7151,6 @@ def main(argv=None) -> int:
         print("chip_smoke: src/repro_torch is missing: run from a checkout "
               "of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     run(FULL, torch.device("cuda"), args.out)
     return 0
 

@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.analysis import trace_guard
 from repro_torch.core import plan_api
 from repro_torch.core.engines.base import register_backend
 from repro_torch.core.engines.spec import FamilySpec, spec_of
@@ -77,15 +78,21 @@ def execute_plan(plan: IntegrationPlan, X, fn_eval: Callable,
 class _PlanFastMult:
     """One memoized X -> M_f X closure per (plan, device, f-family): the
     engine chosen once, the plan's params bound. X (numpy or torch) is
-    moved to the device as float32, as `ftfi.apply` moves it."""
+    moved to the device as float32, as `ftfi.apply` moves it. Its first
+    call at each field shape records `engines.plan.fastmult` in
+    `analysis.trace_guard`, where the reference's jitted closure traces."""
 
     def __init__(self, spec, params, fspec: FamilySpec, cross: Callable,
                  device: torch.device):
         self.spec, self.params = spec, params
         self._fe, self._cross, self._device = fspec.fn_eval, cross, device
+        self._seen: set = set()
 
     def __call__(self, X):
         X = torch.as_tensor(X, dtype=torch.float32, device=self._device)
+        if X.shape not in self._seen:
+            self._seen.add(X.shape)
+            trace_guard.record("engines.plan.fastmult")
         return plan_api._execute(self.spec, self.params, self._fe,
                                  self._cross, X)
 

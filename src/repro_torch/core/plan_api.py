@@ -441,8 +441,7 @@ def chebyshev_batched_matvec(fn_eval, tgt_d, tgt_mask, src_d, src_mask, Xp,
     y_hi = torch.where(src_mask, src_d, -big).amax(dim=1)
     r = degree
     k = np.arange(r)
-    t = torch.as_tensor(np.cos((2 * k + 1) * np.pi / (2 * r)),
-                        dtype=tgt_d.dtype, device=tgt_d.device)  # (r,)
+    t = _host_table(np.cos((2 * k + 1) * np.pi / (2 * r)), tgt_d)  # (r,)
     xc = (x_lo[:, None] + x_hi[:, None]) / 2 + (x_hi - x_lo)[:, None] / 2 * t
     yc = (y_lo[:, None] + y_hi[:, None]) / 2 + (y_hi - y_lo)[:, None] / 2 * t
     Bmat = fn_eval(xc[:, :, None] + yc[:, None, :])  # (B, r, r)
@@ -453,11 +452,19 @@ def chebyshev_batched_matvec(fn_eval, tgt_d, tgt_mask, src_d, src_mask, Xp,
     return torch.einsum("bkq,bqd->bkd", Lx, tmp)
 
 
+def _host_table(a: np.ndarray, like: torch.Tensor) -> torch.Tensor:
+    """A numpy table on `like`'s device in its dtype, cast on the host: a
+    graph trace then holds the table in that dtype, not as numpy's
+    float64 (the values are the same either way)."""
+    dt = np.dtype(str(like.dtype).removeprefix("torch."))
+    return torch.from_numpy(np.asarray(a, dtype=dt)).to(like.device)
+
+
 def _lagrange_batched(pts, nodes):
     r = nodes.shape[1]
     k = np.arange(r)
-    w = torch.as_tensor(((-1.0) ** k) * np.sin((2 * k + 1) * np.pi / (2 * r)),
-                        dtype=pts.dtype, device=pts.device)  # (r,)
+    w = _host_table(((-1.0) ** k) * np.sin((2 * k + 1) * np.pi / (2 * r)),
+                    pts)  # (r,)
     diff = pts[:, :, None] - nodes[:, None, :]  # (B, K, r)
     small = diff.abs() < 1e-12
     diff = torch.where(small, 1.0, diff)
@@ -706,14 +713,21 @@ def apply(spec: PlanSpec, params: PlanParams, fn, X, *,
 def fastmult(spec: PlanSpec, fn, *, backend: str = "torch", degree: int = 32,
              device=None) -> Callable:
     """(params, X) -> Y closure with the engine choice and device baked
-    in."""
+    in. Its first call at each field shape records `ftfi.fastmult` in
+    `analysis.trace_guard`, where the reference's jitted closure traces."""
+    from repro_torch.analysis import trace_guard
+
     dev = resolve_device(device)
     fspec = _fspec(fn)
     _, cross = select_cross(spec, fspec, backend=backend, degree=degree)
     fe = fspec.fn_eval
+    seen: set = set()
 
     def fm(params, X):
         X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+        if X.shape not in seen:
+            seen.add(X.shape)
+            trace_guard.record("ftfi.fastmult", detail=spec.digest[:12])
         return _execute(spec, _params_on(params, dev), fe, cross, X)
 
     return fm

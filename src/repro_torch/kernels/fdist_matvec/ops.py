@@ -18,8 +18,10 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import _count
 from repro_torch.kernels.fdist_matvec import kernel
 from repro_torch.kernels._vjp import plain_vjp
+from repro_torch.roofline import kernels as RK
 from repro_torch.kernels.fdist_matvec.ref import fdist_matvec_batched_ref
 
 MODES = ("poly", "exp", "expq", "rational")
@@ -64,9 +66,19 @@ def _check(x, y, v, coeffs, mode: str) -> None:
 
 
 def _forward(x, y, v, coeffs, mode: str):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The kernel on CUDA tensors, the plain version on CPU and fake
+    tensors; an open cost count reads B1's work either way."""
+    B, a = x.shape
+    b, d = v.shape[1:]
+    nb = v.element_size()
+    with _count.kernel_call("fdist_matvec_batched", lambda: RK.fdist_work(
+            B, a, b, d, mode, coeffs.shape[0], nb, nb)):
+        return _route(x, y, v, coeffs, mode)
+
+
+def _route(x, y, v, coeffs, mode: str):
     global LAUNCHES
-    if x.device.type == "cpu":
+    if x.device.type == "cpu" or _count.shapes_only(x):
         return fdist_matvec_batched_ref(x, y, v, coeffs, mode)
     if x.device.type != "cuda":
         raise ValueError(f"no fdist_matvec kernel for device {x.device}")

@@ -65,6 +65,12 @@ def _out_like(q, vd: int) -> torch.Tensor:
     return out.permute([perm.index(i) for i in range(4)])
 
 
+def out_buffer(q, vd: int) -> torch.Tensor:
+    """The kernel's output: an empty (B, H, Lq, vd) tensor in q's dtype,
+    laid out as q is."""
+    return torch.empty_like(q) if vd == q.shape[-1] else _out_like(q, vd)
+
+
 def flash_attention_cuda(q, k, v, causal: bool, window: int = 0):
     """Launch on CUDA tensors the caller has validated (`ops` does): q
     (B, H, Lq, hd), k (B, KV, Lk, hd) and v (B, KV, Lk, vd) with (hd, vd)
@@ -78,7 +84,7 @@ def flash_attention_cuda(q, k, v, causal: bool, window: int = 0):
     B, H, L, hd = q.shape
     Lk = k.shape[2]
     G, vd = H // k.shape[1], v.shape[-1]
-    out = torch.empty_like(q) if vd == hd else _out_like(q, vd)
+    out = out_buffer(q, vd)
     strides = (ctypes.c_longlong * 12)(
         *[s for t in (q, k, v, out) for s in t.stride()[:3]])
     lib = library()

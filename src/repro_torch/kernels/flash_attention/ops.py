@@ -31,9 +31,11 @@ import math
 
 import torch
 
+from repro_torch.kernels import _count
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels._vjp import plain_vjp
 from repro_torch.models.layers import softcap
+from repro_torch.roofline import kernels as RK
 
 LAUNCHES = 0
 LAUNCHES_BY_MODE = {"causal": 0, "full": 0, "window": 0, "cross": 0}
@@ -124,7 +126,8 @@ def _check(q, k, v, kernel_path: bool, causal: bool = True,
                          f"({hd}, {v.shape[-1]})")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v need a unit stride along head_dim")
-    if q.device.type == "cuda" and q.dtype == torch.bfloat16 and any(
+    if (q.device.type == "cuda" and not _count.shapes_only(q)
+            and q.dtype == torch.bfloat16) and any(
             t.data_ptr() % 16 or any(x % 8 for x in t.stride()[:3])
             for t in (q, k, v)):
         raise ValueError(
@@ -141,10 +144,20 @@ def _plain(q, k, v, causal: bool, window: int = 0):
 
 
 def _forward(q, k, v, causal: bool, window: int = 0):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The kernel on CUDA tensors, the plain version on CPU and fake
+    tensors; an open cost count reads B5's work either way."""
+    B, H, L, hd = q.shape
+    KV, Lk, vd = k.shape[1], k.shape[2], v.shape[-1]
+    with _count.kernel_call("flash_attention", lambda: RK.flash_work(
+            B, H, KV, L, hd, causal, q.element_size(), vd, Lk, window)):
+        return _route(q, k, v, causal, window)
+
+
+def _route(q, k, v, causal: bool, window: int):
     global LAUNCHES
-    if q.device.type == "cpu":
-        return _plain(q, k, v, causal, window)
+    if q.device.type == "cpu" or _count.shapes_only(q):
+        return _count.like_kernel(_plain(q, k, v, causal, window),
+                                  kernel.out_buffer(q, v.shape[-1]))
     if q.device.type != "cuda":
         raise ValueError(f"no flash attention kernel for device {q.device}")
     out = kernel.flash_attention_cuda(q, k, v, causal, window)

@@ -64,6 +64,13 @@ def smem_bytes() -> int:
                 + C * (C + 8) + 2 * MAX_M + C + 4)
 
 
+def out_buffers(v):
+    """The kernel's outputs: empty (num (B, H, L, hd), den (B, H, L)) in
+    float32, in v's memory layout."""
+    num = torch.empty_like(v, dtype=torch.float32)
+    return num, torch.empty_like(num[..., 0])
+
+
 def linear_attention_cuda(qf, kf, v, log_gamma):
     """Launch on CUDA tensors the caller has validated (`ops` does): qf, kf
     (B, H, L, m) float32, v (B, H, L, hd) float32 or bfloat16, log_gamma (H,)
@@ -72,8 +79,7 @@ def linear_attention_cuda(qf, kf, v, log_gamma):
     layout. Launches on the current stream and does not synchronize."""
     B, H, L, m = qf.shape
     hd = v.shape[-1]
-    num = torch.empty_like(v, dtype=torch.float32)
-    den = torch.empty_like(num[..., 0])
+    num, den = out_buffers(v)
     strides = (ctypes.c_longlong * 15)(
         *[s for t in (qf, kf, v, num, den) for s in t.stride()[:3]])
     lib = library()

@@ -25,8 +25,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _count
 from repro_torch.kernels.linear_attention import kernel
 from repro_torch.kernels._vjp import plain_vjp
+from repro_torch.roofline import kernels as RK
 
 LAUNCHES = 0
 
@@ -119,10 +121,19 @@ def _plain(qf, kf, v, log_gamma):
 
 
 def _forward(qf, kf, v, log_gamma):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The kernel on CUDA tensors, the plain version on CPU and fake
+    tensors; an open cost count reads B4's work either way."""
+    B, H, L, m = qf.shape
+    with _count.kernel_call("linear_attention", lambda: RK.linear_work(
+            B, H, L, m, v.shape[-1], v.element_size())):
+        return _route(qf, kf, v, log_gamma)
+
+
+def _route(qf, kf, v, log_gamma):
     global LAUNCHES
-    if qf.device.type == "cpu":
-        return _plain(qf, kf, v, log_gamma)
+    if qf.device.type == "cpu" or _count.shapes_only(qf):
+        return _count.like_kernel(_plain(qf, kf, v, log_gamma),
+                                  kernel.out_buffers(v))
     if qf.device.type != "cuda":
         raise ValueError(f"no linear attention kernel for device {qf.device}")
     got = kernel.linear_attention_cuda(qf, kf, v, log_gamma.contiguous())

@@ -49,6 +49,14 @@ def library() -> ctypes.CDLL:
     return _lib
 
 
+def out_buffers(u, N: int):
+    """The kernel's outputs: empty (y (Bt, L, din), h_final (Bt, din,
+    N)), float32 and contiguous."""
+    Bt, L, din = u.shape
+    return (torch.empty((Bt, L, din), dtype=torch.float32, device=u.device),
+            torch.empty((Bt, din, N), dtype=torch.float32, device=u.device))
+
+
 def selective_scan_cuda(u, dt, A, B, C, D, h0):
     """Launch on CUDA tensors the caller has validated (`ops` does): u, dt
     (Bt, L, din) and B, C (Bt, L, N), one dtype (float32 or bfloat16), any
@@ -58,8 +66,7 @@ def selective_scan_cuda(u, dt, A, B, C, D, h0):
     Launches on the current stream and does not synchronize."""
     Bt, L, din = u.shape
     N = A.shape[1]
-    y = torch.empty((Bt, L, din), dtype=torch.float32, device=u.device)
-    h_final = torch.empty((Bt, din, N), dtype=torch.float32, device=u.device)
+    y, h_final = out_buffers(u, N)
     strides = (ctypes.c_longlong * 8)(
         *[s for t in (u, dt, B, C) for s in t.stride()[:2]])
     lib = library()

@@ -31,8 +31,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import _count
 from repro_torch.kernels.selective_scan import kernel
 from repro_torch.kernels._vjp import plain_vjp
+from repro_torch.roofline import kernels as RK
 
 LAUNCHES = 0
 
@@ -115,10 +117,19 @@ def _check(u, dt, A, Bm, Cm, D, h0, kernel_path: bool) -> None:
 
 
 def _forward(u, dt, A, Bm, Cm, D, h0):
-    """The kernel on CUDA tensors, the plain version on CPU tensors."""
+    """The kernel on CUDA tensors, the plain version on CPU and fake
+    tensors; an open cost count reads B6's work either way."""
+    Bt, L, din = u.shape
+    with _count.kernel_call("selective_scan", lambda: RK.scan_work(
+            Bt, L, din, Bm.shape[-1], u.element_size())):
+        return _route(u, dt, A, Bm, Cm, D, h0)
+
+
+def _route(u, dt, A, Bm, Cm, D, h0):
     global LAUNCHES
-    if u.device.type == "cpu":
-        return selective_scan(u, dt, A, Bm, Cm, D, h0=h0)
+    if u.device.type == "cpu" or _count.shapes_only(u):
+        return _count.like_kernel(selective_scan(u, dt, A, Bm, Cm, D, h0=h0),
+                                  kernel.out_buffers(u, A.shape[1]))
     if u.device.type != "cuda":
         raise ValueError(f"no selective scan kernel for device {u.device}")
     got = kernel.selective_scan_cuda(u, dt, A.contiguous(), Bm, Cm,

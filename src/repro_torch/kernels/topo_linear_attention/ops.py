@@ -34,8 +34,10 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import masks as MK
+from repro_torch.kernels import _count
 from repro_torch.kernels.topo_linear_attention import kernel
 from repro_torch.kernels._vjp import plain_vjp
+from repro_torch.roofline import kernels as RK
 
 LAUNCHES = 0
 
@@ -257,18 +259,24 @@ def topo_attention_sweep(qf, kf, v, dmat, *, log_gamma=None, alpha=None,
     (B, H, L, hd) / res_den (B, H, L) added before normalization. All
     float32 and contiguous; L a multiple of C.
 
-    Returns out (B, H, L, hd) if normalize, else (num, den (B, H, L))."""
+    Returns out (B, H, L, hd) if normalize, else (num, den (B, H, L)).
+    On CPU and fake tensors the plain sweep runs; an open cost count
+    reads B2's work either way."""
     global LAUNCHES
     _check(qf, kf, v, dmat, log_gamma, alpha, beta, res_num, res_den)
-    if qf.device.type == "cpu":
-        num, den = _sweep(qf, kf, v, dmat, log_gamma, alpha, beta)
-        return _emit(num, den, res_num, res_den, normalize, eps)
-    if qf.device.type != "cuda":
-        raise ValueError(f"no topo sweep kernel for device {qf.device}")
-    got = kernel.topo_sweep_cuda(qf, kf, v, dmat, log_gamma, alpha, beta,
-                                 res_num, res_den, normalize, eps)
-    LAUNCHES += 1
-    return got
+    B, H, L, m = qf.shape
+    R = 0 if alpha is None else alpha.shape[-1]
+    with _count.kernel_call("topo_attention_sweep", lambda: RK.topo_work(
+            B, H, L, m, v.shape[-1], dmat.shape[-1], R)):
+        if qf.device.type == "cpu" or _count.shapes_only(qf):
+            num, den = _sweep(qf, kf, v, dmat, log_gamma, alpha, beta)
+            return _emit(num, den, res_num, res_den, normalize, eps)
+        if qf.device.type != "cuda":
+            raise ValueError(f"no topo sweep kernel for device {qf.device}")
+        got = kernel.topo_sweep_cuda(qf, kf, v, dmat, log_gamma, alpha,
+                                     beta, res_num, res_den, normalize, eps)
+        LAUNCHES += 1
+        return got
 
 
 def _kernel_forward(spec: TopoSpec, qf, kf, v, coeffs):

@@ -600,6 +600,13 @@ def remat_contexts():
             dtensor_scope() if _SCOPES else contextlib.nullcontext())
 
 
+def remat_kwargs() -> dict:
+    """The context_fn argument of a block's `checkpoint`: `remat_contexts`
+    inside a `dtensor_scope`, else none (checkpoint's own no-op, which a
+    graph trace such as `make_fx` requires)."""
+    return {"context_fn": remat_contexts} if _SCOPES else {}
+
+
 def sharded(model) -> bool:
     """Whether `model`'s parameters are DTensors (`distribute_params`)."""
     return any(is_dtensor(p) for p in model.parameters())

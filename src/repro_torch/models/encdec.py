@@ -129,7 +129,7 @@ def _layers(cfg, blocks, body, x):
     remat = lm._remat(cfg) and torch.is_grad_enabled()
     for blk in blocks:
         x = (checkpoint(body, blk, x, use_reentrant=False,
-                        context_fn=sharding.remat_contexts) if remat
+                        **sharding.remat_kwargs()) if remat
              else body(blk, x))
         x = shard(x, ("batch", "seq", "embed"))
     return x

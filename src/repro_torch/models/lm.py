@@ -477,8 +477,7 @@ def _run_stack(cfg, model, x, positions, remat: bool = False):
     for kind, blk in zip(layer_kinds(cfg), model.blocks):
         if remat:
             x, a = checkpoint(_block_train, cfg, kind, blk, x, positions,
-                              use_reentrant=False,
-                              context_fn=sharding.remat_contexts)
+                              use_reentrant=False, **sharding.remat_kwargs())
         else:
             x, a = _block_train(cfg, kind, blk, x, positions)
         if a is not None:
