@@ -78,7 +78,8 @@ but B1's, none on the plain path, and times each backward; 4f holds
 impls from the same weights and batch (the topo Llama-3.2-1B at full
 depth, degree 1 and 2; full, Performer and Falcon-Mamba-7B at full width
 and 2 layers); 5f trains the paper's topological Llama-3.2-1B (degree 2,
-bf16, batch 4 x 2048) for 6 steps through `train.loop.run_training`:
+bf16, batch 4 x 2048, cut to 4 layers) for 6 steps through
+`train.loop.run_training`:
 losses, step time, tokens/s, peak memory, the checkpoint's save time and
 a bit-exact restore, and a profiled step.
 
@@ -174,15 +175,16 @@ launch per cross bucket; 4l(b) on one gloo group of 4 processes sharing
 the card (D = 4 shards): exp, poly and rational on "cuda" and a raw
 callable through the Chebyshev engine, grads into X and the params, a
 64-edit `update_plan` plan and cell (c)'s forest, each against
-single-device `apply` on the card (<= 1e-5), exactly one all_to_all, one
-reduce_scatter and one all_gather per forward and one B1 launch per live
-cross bucket on each rank; 4l(c) the sharded kernel faces on a (2, 2) mesh
+single-device `apply` on the card (<= 1e-5), exactly one all_to_all and
+one reduce_scatter per forward (the result comes back sharded by rows:
+no all_gather) and one B1 launch per live cross bucket on each rank; 4l(c) the sharded kernel faces on a (2, 2) mesh
 (B1 at (a)'s largest bucket with a ragged B; B2 at cell (d)'s shape in
 decay and rank-16 mode, and at H = 30 and 31: 31 drops the head axis) against the
 single-device calls (<= 1e-6, the largest difference printed); 4l(d)
 TopoViT-B/16 at full width in float32 with `topo_shard_plan` over the 4
 ranks, 2 images (cut from 8), against the single-device forward (<=
-1e-4), 2 x 12 sharded fastmults with their collectives, and each block's
+1e-4), 2 x 12 sharded fastmults with their collectives (the tokens
+sharded by rows between them), and each block's
 mask coefficient grads on one image against the single-device backward's
 (<= 1e-3 of their largest, 4e's bound). 5j prints `shard_stats` at D = 1, 2, 4, 8 and each rank's
 host and CUDA-event ms of `apply_sharded` and of each collective, labelled
@@ -226,9 +228,34 @@ The plain counts and the dry run need no card: they run in spawned worker
 processes, started once the card's prefills are timed (so no time is
 taken under their load) and ended before the slice ends.
 
+The field by rows and sharded serving (slice 18, ROADMAP A12c and A12d;
+paths (t') and (v)). 4o(a), inside slice 15's gloo run: `apply_sharded`
+on cell (a)'s plan with the field a `Shard(0)` DTensor (each rank its
+rows), exp on "cuda", d = 64, B1 counted from 0 around the call: the
+rows gathered against single-device `apply` (<= 1e-6), the result
+sharded by rows, exactly one all_to_all and one reduce_scatter by
+`launch.collectives`' counts and by a census of every collective, one B1
+launch per live cross bucket. 4o(b): one gloo group of 4 processes
+sharing the card on a (2, 2) mesh runs `launch.steps.make_serve_step` on
+the full-width Llama-3.2-1B cut to 2 layers, float32 (dense and
+topological at degree 2, B = 4 over 4,096 positions filled by the
+single-device prefill of 4 x 512 tokens; dense at B = 1 over 32,768
+with the sequence over data), 8 greedy steps each, the cache, token and
+pos placed by `launch.specs.decode_shardings`: each step against the
+single-device step computed first on the rank (tokens equal, logits
+<= 1e-4, the rank's cache slab <= 1e-5), no collective sending a cache
+slab's storage, the largest all_gather under 1/100 of the slab. 5m
+prints 4o(a)'s per-rank host and CUDA-event ms and collective ms, 4o(b)'s
+per-rank step ms, cache slab against one device's cache, peak memory and
+collectives by kind and bytes, all labelled "4 processes sharing one
+H100", and the dry-run records of Llama-3.2-1B x decode_32k and x
+long_500k (slice 17's worker, after its train cell).
+
 Cut for the script's time when slice 16 came: the served paths' decode
 steps 32 -> 8, 4e's float32 batch 64 -> 32 images (2 column chunks), 5e's
-bf16 batch 64 -> 16 images, 4l(d) 8 -> 2 images.
+bf16 batch 64 -> 16 images, 4l(d) 8 -> 2 images. When slice 18 came: 5f's
+depth 16 -> 4 layers (its checkpoint's save, restore and resume on the
+host; slice 9 174.3 -> 66.6 s on one host).
 
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
@@ -2062,7 +2089,11 @@ def phase_vit_serve(card, device):
 # 2 layers for the paths of earlier slices)
 TRAIN = {"arch": "llama3_2_1b", "degree": 2, "batch": 4, "seq": 2048,
          "steps": 6, "seed": 0, "gate_batch": 2, "gate_seq": 512,
-         "gate_degrees": (1, 2), "gate_layers": 2}
+         "gate_degrees": (1, 2), "gate_layers": 2,
+         # 5f's depth, cut from 16 for the script's time: its checkpoint
+         # save, host restore and resume (numpy on the host, ~12 GB of
+         # state at full depth) took ~90 s of the run
+         "layers": 4}
 # 3f's shapes: the card tests' and, last in each list (the one timed), the
 # trainer's layer (batch 4 x 2048): B2, B4 (B, H, L, m, hd), B5 (B, H, KV,
 # L, hd). B6 (Bt, L, din, N) takes the float32 gate's Falcon-Mamba layer:
@@ -2544,7 +2575,7 @@ def phase_train_gates(topo_ops, scan_ops, device):
 
 def phase_train(card, device, bwd_rank16_ms):
     """4f/5f main path: `train.loop.run_training` on the slice's model in
-    bf16 at full width and depth for TRAIN["steps"] steps, the sweep's
+    bf16 at full width, TRAIN["layers"] deep, for TRAIN["steps"] steps, the sweep's
     count from 0 just before and read just after; every loss finite; step
     time (median of steps 2 on), tokens/s, peak memory, the checkpoint's
     save time; the final checkpoint restored and held bit for bit against
@@ -2563,7 +2594,7 @@ def phase_train(card, device, bwd_rank16_ms):
     from repro_torch.train.loop import (TrainLoopConfig,
                                         make_accumulating_step, run_training)
 
-    cfg = _train_cfg(TRAIN["degree"])
+    cfg = _train_cfg(TRAIN["degree"]).replace(num_layers=TRAIN["layers"])
     B, L = TRAIN["batch"], TRAIN["seq"]
     ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     loop = TrainLoopConfig(steps=TRAIN["steps"], batch_size=B, seq_len=L,
@@ -5342,8 +5373,11 @@ def _shard_setup():
 
 
 def _shard_check(label, got, want, tol):
+    """got (a DTensor sharded by rows is gathered first) against want."""
     import torch
 
+    if hasattr(got, "full_tensor"):
+        got = got.full_tensor()
     err = rel_err(got, want)
     if not (got.shape == want.shape and bool(torch.isfinite(got).all())
             and err <= tol):
@@ -5353,10 +5387,10 @@ def _shard_check(label, got, want, tol):
 
 
 def _shard_times(spec, params, mesh, fn, X, reps) -> dict:
-    """Host ms and CUDA-event ms of apply_sharded against single-device
-    apply ("cuda", d of X), and the ms of each collective at this plan's
-    buffer shapes (host clock to synchronize, all ranks started together
-    by a barrier)."""
+    """Host ms and CUDA-event ms of apply_sharded (X whole or a DTensor
+    sharded by rows) against single-device apply ("cuda", d of X), and the
+    ms of each of its collectives at this plan's buffer shapes (host clock
+    to synchronize, all ranks started together by a barrier)."""
     import torch
     import torch.distributed as dist
 
@@ -5374,8 +5408,10 @@ def _shard_times(spec, params, mesh, fn, X, reps) -> dict:
         return ftfi.apply_sharded(spec, params, fn, X, mesh=mesh,
                                   backend="cuda")
 
+    Xw = X.full_tensor() if hasattr(X, "full_tensor") else X
+
     def single():
-        return ftfi.apply(spec, params, fn, X, backend="cuda", device=dev)
+        return ftfi.apply(spec, params, fn, Xw, backend="cuda", device=dev)
 
     out = {}
     for name, f in (("sharded", sharded), ("single", single)):
@@ -5387,9 +5423,7 @@ def _shard_times(spec, params, mesh, fn, X, reps) -> dict:
     bufs = {"all_to_all": (C.all_to_all, torch.randn(
                 (D * max(sp.halo_width, 1), d), device=dev)),
             "reduce_scatter": (C.reduce_scatter, torch.randn(
-                (D * sp.block, d), device=dev)),
-            "all_gather": (C.all_gather, torch.randn((sp.block, d),
-                                                     device=dev))}
+                (D * sp.block, d), device=dev))}
     for name, (f, buf) in bufs.items():
         dist.barrier()
         out[f"{name}_ms"] = host_ms(lambda: f(buf, group), reps)
@@ -5478,6 +5512,8 @@ def _shard_grads(spec, params, fn, X, mesh):
         y = (ftfi.apply_sharded(spec, p, fn, x, mesh=mesh, backend="cuda")
              if sharded else ftfi.apply(spec, p, fn, x, backend="cuda",
                                         device=X.device))
+        if sharded:  # the rows of every rank
+            y = y.full_tensor()
         (y * W).sum().backward()
         grads.append({"X": x.grad,
                       **{name: torch.cat([t.grad.reshape(-1)
@@ -5532,7 +5568,7 @@ def _shard_gloo_rank(a) -> dict:
         main += launched
         want = ftfi.apply(spec, params, fn, X, backend=backend, device=dev)
         err = _shard_check(f"4l(b) {fname}", got, want, EXACT_TOL)
-        if counts != {"all_to_all": 1, "reduce_scatter": 1, "all_gather": 1}:
+        if counts != {"all_to_all": 1, "reduce_scatter": 1}:
             raise AssertionError(f"4l(b) {fname}: collectives {counts}")
         if launched != (live if backend == "cuda" else 0):
             raise AssertionError(f"4l(b) {fname}: {launched} B1 launches on "
@@ -5569,6 +5605,8 @@ def _shard_gloo_rank(a) -> dict:
                    device=dev), EXACT_TOL)
     out["times"] = _shard_times(spec, params, mesh, fams["Exponential"], X,
                                 a["reps"])
+    out["field_rows"] = _shard_rows(spec, params, mesh, fams["Exponential"],
+                                    X, live, a["reps"])
 
     # 4l(c): the kernel faces on a (data 2, model 2) mesh
     mesh2 = M.make_local_mesh(2, 2)
@@ -5645,8 +5683,7 @@ def _shard_gloo_rank(a) -> dict:
                         dev)
     err = _shard_check("4l(d) TopoViT logits", got, want, SHARD_VIT_TOL)
     n_fm = 2 * cfg.num_layers
-    if counts != {"all_to_all": n_fm, "reduce_scatter": n_fm,
-                  "all_gather": n_fm}:
+    if counts != {"all_to_all": n_fm, "reduce_scatter": n_fm}:
         raise AssertionError(f"4l(d): collectives {counts}, {n_fm} sharded "
                              "fastmults expected")
     # the mask coefficients' grads, sharded against single-device on the
@@ -5694,6 +5731,53 @@ def _shard_gloo_rank(a) -> dict:
     return out
 
 
+def _shard_rows(spec, params, mesh, fn, X, live, reps) -> dict:
+    """4o(a), slice 18: apply_sharded on the field sharded by rows (a
+    `Shard(0)` DTensor of X; each rank its block), B1 counted from 0
+    around the call (the slice's main path): the rows gathered against
+    single-device apply (<= SHARD_FACE_TOL), the result sharded by rows,
+    one B1 launch per live cross bucket, and exactly one all_to_all and
+    one reduce_scatter by `launch.collectives`' counts and by a census of
+    every collective the rank issues (no all_gather). 5m: its times."""
+    import torch
+
+    from repro_torch import ftfi
+    from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import sharding
+
+    axis = sharding.plan_axis(mesh)
+    Xs = sharding.from_replica(X, mesh, C.row_placements(mesh, axis))
+    ops.LAUNCHES = 0
+    C.reset_counts()
+    census = sharding.CollectiveCensus()
+    with census:
+        got = ftfi.apply_sharded(spec, params, fn, Xs, mesh=mesh,
+                                 backend="cuda")
+        torch.cuda.synchronize()
+    launched, counts = ops.LAUNCHES, dict(C.COUNTS)
+    k = sharding.axis_rank(mesh, axis)
+    lo, hi = C.row_bounds(spec.n, sharding.axis_size(mesh, axis), k)
+    placed = [repr(p) for p in got.placements]
+    local = tuple(got.to_local().shape)
+    want = ftfi.apply(spec, params, fn, X, backend="cuda", device=X.device)
+    err = _shard_check("4o(a) the field by rows", got, want, SHARD_FACE_TOL)
+    if placed != ["Shard(dim=0)"] or local != (hi - lo, X.shape[1]):
+        raise AssertionError(f"4o(a): result placed {placed}, local rows "
+                             f"{local}, rows [{lo}, {hi}) expected")
+    want_counts = {"all_to_all": 1, "reduce_scatter": 1}
+    if counts != want_counts or census.counts != want_counts:
+        raise AssertionError(f"4o(a): collectives {counts}, census "
+                             f"{census.counts}; {want_counts} expected")
+    if launched != live or launched == 0:
+        raise AssertionError(f"4o(a): {launched} B1 launches, {live} live "
+                             "cross buckets")
+    return {"rel_err": err, "placements": placed, "local_rows": local,
+            "launches": launched, "collectives": census.counts,
+            "collective_bytes": census.bytes,
+            "times": _shard_times(spec, params, mesh, fn, Xs, reps)}
+
+
 def _edited_plan(tree, cfg, device):
     """Cell (a)'s tree built reweightable and edited by `SHARD["edits"]`
     seeded update_plan ops."""
@@ -5733,7 +5817,13 @@ def shard_kernel_rows(kernels, shard, widths) -> None:
                           "launch per cross bucket; 4l(b): per rank of 4 "
                           "gloo processes sharing the card, one launch per "
                           "live cross bucket; 4l(c): the sharded face on a "
-                          "(2, 2) mesh, per rank"))
+                          "(2, 2) mesh, per rank"),
+                rows_launches=[g["field_rows"]["launches"] if on else 0
+                               for g in gloo],
+                rows_at=("4o(a), slice 18: apply_sharded on the field "
+                         "sharded by rows, per rank of 4 gloo processes "
+                         "sharing the card, one launch per live cross "
+                         "bucket"))
         for mode in ("decay", "rank16"):
             if k["name"] == f"topo_attention_sweep[{mode}]":
                 k.update(shard_face_launches=[
@@ -5842,14 +5932,30 @@ def phase_shard(cfg, device, card):
                   f"{t['single_event_ms']:.3f} ms | all_to_all "
                   f"{t['all_to_all_ms']:.3f} ms ({t['all_to_all_bytes']} B), "
                   f"reduce_scatter {t['reduce_scatter_ms']:.3f} ms "
-                  f"({t['reduce_scatter_bytes']} B), all_gather "
-                  f"{t['all_gather_ms']:.3f} ms ({t['all_gather_bytes']} B) "
-                  f"({t['route']}) "
+                  f"({t['reduce_scatter_bytes']} B) ({t['route']}) "
                   f"| plan (a), exp, cuda, d={SHARD['d']} | {card}",
                   flush=True)
+    for g in gloo:
+        r, t = g["field_rows"], g["field_rows"]["times"]
+        print(f"[4o(a) gloo rank {g['rank']}/4] apply_sharded on the field "
+              f"sharded by rows: gathered vs apply {r['rel_err']:.2e} (<= "
+              f"{SHARD_FACE_TOL}), result {r['placements']} with local rows "
+              f"{r['local_rows']}, B1 launches {r['launches']}, collectives "
+              f"{r['collectives']} ({r['collective_bytes']} B sent)",
+              flush=True)
+        print(f"[5m 4o(a) times, {SHARD_LABELS['gloo']}] rank {g['rank']}: "
+              f"apply_sharded (rows in, rows out) host "
+              f"{t['sharded_host_ms']:.3f} ms, events "
+              f"{t['sharded_event_ms']:.3f} ms | single-device apply host "
+              f"{t['single_host_ms']:.3f} ms, events "
+              f"{t['single_event_ms']:.3f} ms | all_to_all "
+              f"{t['all_to_all_ms']:.3f} ms ({t['all_to_all_bytes']} B), "
+              f"reduce_scatter {t['reduce_scatter_ms']:.3f} ms "
+              f"({t['reduce_scatter_bytes']} B) ({t['route']}) | plan (a), "
+              f"exp, cuda, d={SHARD['d']} | {card}", flush=True)
     print(f"[slice 15] nccl run {nccl_s:.1f} s, gloo run {gloo_s:.1f} s "
-          "(process start-up included); no time here is a multi-GPU time",
-          flush=True)
+          "(process start-up included; 4o(a) of slice 18 inside the gloo "
+          "run); no time here is a multi-GPU time", flush=True)
     return {"shard_stats": {k: {str(D): s for D, s in v.items()}
                             for k, v in stats.items()},
             "shard_nccl": nccl, "shard_gloo": gloo,
@@ -6587,7 +6693,9 @@ def _pshard_print(single, ranks, card) -> None:
 # cache of S) at full width and depth in cells (d) (degree 1, 2) and (e);
 # 5l's prefill times are the median of `reps` CUDA-event spans
 ROOF = {"reps": 3, "bound_share_max": 1.05,
-        "dry_run": ("llama3_2_1b", "train_4k")}
+        "dry_run": ("llama3_2_1b", "train_4k"),
+        # slice 18 (5m): the decode cells, after the train cell
+        "dry_run_decode": ("decode_32k", "long_500k")}
 
 
 def _roof_cells():
@@ -6651,18 +6759,23 @@ def _roof_plain_count(i: int):
     return rec, time.perf_counter() - t0
 
 
-def _roof_dry_run():
-    """5l's dry-run record (run in a worker process): ROOF["dry_run"] on
-    the single-pod mesh, a fake group of 256 ranks. Returns (record,
-    seconds)."""
+def _roof_dry_run(shapes):
+    """Dry-run records (run in a worker process) of ROOF["dry_run"]'s arch
+    at each of `shapes` in turn on the single-pod mesh, a fake group of
+    256 ranks: 5l's train cell, then 5m's decode cells (slice 18).
+    Returns [(shape, record, seconds)]."""
     from repro_torch.launch import dryrun
 
-    arch, shape = ROOF["dry_run"]
-    t0 = time.perf_counter()
+    arch, _ = ROOF["dry_run"]
+    out = []
     with dryrun.fake_group(dryrun.MESHES["16x16"][1]):
-        rec = dryrun.analyze_cell(arch, shape, dryrun.production_mesh(False),
-                                  "16x16", extrapolate=False)
-    return rec, time.perf_counter() - t0
+        mesh = dryrun.production_mesh(False)
+        for sh in shapes:
+            t0 = time.perf_counter()
+            rec = dryrun.analyze_cell(arch, sh, mesh, "16x16",
+                                      extrapolate=False)
+            out.append((sh, rec, time.perf_counter() - t0))
+    return out
 
 
 def phase_roofline(card, device) -> dict:
@@ -6698,7 +6811,8 @@ def phase_roofline(card, device) -> dict:
         torch.cuda.empty_cache()
     with ProcessPoolExecutor(len(cells) + 1,
                              mp_context=mp.get_context("spawn")) as pool:
-        dry = pool.submit(_roof_dry_run)
+        dry = pool.submit(_roof_dry_run,
+                          (ROOF["dry_run"][1],) + ROOF["dry_run_decode"])
         plain = [pool.submit(_roof_plain_count, i)
                  for i in range(len(cells))]
         # the live counts, on the host while the workers run (no timing)
@@ -6761,14 +6875,216 @@ def phase_roofline(card, device) -> dict:
                           "prefill_ms": t_ms, "terms": terms, "mfu": mfu,
                           "bound_share": share, "plain_count_s": fake_s,
                           "card": card}
-        rec, wall = dry.result()
-    arch, shape = ROOF["dry_run"]
-    print(f"[5l dry run] {arch} x {shape} x 16x16 (a fake group of 256 "
-          f"ranks in a worker process, FakeTensorMode on the CPU) in "
-          f"{wall:.1f} s wall: " + json.dumps(
-              {k: v for k, v in rec.items() if k != "kernels"}), flush=True)
-    out["dry_run"] = dict(rec, wall_s=wall)
+        dry_runs = dry.result()
+    arch, _ = ROOF["dry_run"]
+    for shape, rec, wall in dry_runs:
+        tag = "5l" if shape == ROOF["dry_run"][1] else "5m"
+        print(f"[{tag} dry run] {arch} x {shape} x 16x16 (a fake group of "
+              f"256 ranks in a worker process, FakeTensorMode on the CPU) "
+              f"in {wall:.1f} s wall: " + json.dumps(
+                  {k: v for k, v in rec.items() if k != "kernels"}),
+              flush=True)
+        out["dry_run" if tag == "5l" else f"dry_run_{shape}"] = dict(
+            rec, wall_s=wall)
     return out
+
+
+# slice 18 (path (v)): the decode step on DTensors. Llama-3.2-1B at full
+# width cut to 2 layers (as 4m), float32: dense and topological (degree 2)
+# at B = 4 over a cache of 4,096 positions filled by the single-device
+# prefill of 4 x 512 tokens, and dense at B = 1 over 32,768 positions (the
+# sequence over data); 8 greedy steps each
+SSHARD = {"ranks": 4, "mesh": (2, 2), "layers": 2, "batch": 4, "S": 4096,
+          "prompt": 512, "steps": 8, "long_S": 32768, "seed": 0,
+          "timeout": 600}
+SSHARD_LOGIT_TOL, SSHARD_CACHE_TOL = 1e-4, 1e-5  # tests/test_torch_steps.py
+SSHARD_CASES = ("dense", "topo", "long")
+
+
+def _sshard_cfg(name):
+    n = SSHARD["layers"]
+    if name == "topo":
+        return _topo_cfg(2, "cuda", "float32").replace(
+            num_layers=n, topo_dist_scale=1.0 / SSHARD["S"])
+    return _dense_cfg("full", "cuda", "float32").replace(num_layers=n)
+
+
+def _cache_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _cache_leaves(tree[k], f"{prefix}/{k}")
+    else:
+        yield prefix, tree
+
+
+def _stepped(step, *args):
+    """One `make_serve_step` call and the logits its `api.decode_fn`
+    returned: the checked logits, token and cache and the timed call are
+    one computation."""
+    from repro_torch.models import api
+
+    seen, real = [], api.decode_fn
+
+    def spy(*a, **k):
+        out = real(*a, **k)
+        seen.append(out[0])
+        return out
+
+    api.decode_fn = spy
+    try:
+        token, cache = step(*args)
+    finally:
+        api.decode_fn = real
+    return token, cache, seen[0]
+
+
+def _sshard_case(name, mesh, dev) -> dict:
+    """4o(b) for one case on this rank: the single-device prefill fills the
+    cache, then each step runs on one device (`make_serve_step`, its
+    logits read inside it) and on the sharded model (the cache, token and
+    pos placed by `launch.specs.decode_shardings`), compared at once:
+    tokens equal, logits and the rank's cache slab within their bounds, no
+    collective sending a cache slab (a census holding every tensor sent)
+    and the largest all_gather under 1/100 of the rank's slab."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.topo_linear_attention import ops as topo_ops
+    from repro_torch.launch import sharding, specs, steps
+    from repro_torch.models import api, lm
+
+    cfg = _sshard_cfg(name)
+    B = 1 if name == "long" else SSHARD["batch"]
+    S = SSHARD["long_S"] if name == "long" else SSHARD["S"]
+    P = SSHARD["prompt"]
+    torch.cuda.reset_peak_memory_stats()
+    model = api.init_params(cfg, SSHARD["seed"], device=dev)
+    rng = np.random.default_rng(SSHARD["seed"])
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, P)), device=dev)
+    cache = api.init_cache(cfg, B, S, device=dev)
+    logits, cache = api.prefill_into_cache(
+        cfg, model, cache, toks, torch.full((B,), P, device=dev), S,
+        device=dev)
+    token = torch.argmax(logits, dim=-1).to(torch.int32)[:, None]
+    sharded = lm.from_state_dict(cfg, {k: v.clone() for k, v in
+                                       model.state_dict().items()})
+    step = steps.make_serve_step(cfg, S, device=dev)
+    c1, t1, rows = cache, token, []
+    with sharding.use_sharding(mesh):
+        sharding.distribute_params(sharded, mesh)
+        pls = specs.decode_shardings(cfg, cache, B, S, mesh)
+        c2 = specs.distribute_cache(cache, pls["cache"], mesh)
+        t2 = sharding.from_replica(token, mesh, pls["token"])
+        slab = sum(sharding.local(t).numel() * sharding.local(t).element_size()
+                   for _, t in _cache_leaves(c2))
+        whole = sum(t.numel() * t.element_size()
+                    for _, t in _cache_leaves(cache))
+        flash_ops.LAUNCHES = topo_ops.LAUNCHES = 0
+        for i in range(SSHARD["steps"]):
+            pos = P + i
+            t1, c1, lg1 = _stepped(step, model, c1, t1, pos)
+            posd = sharding.from_replica(torch.tensor(pos, device=dev), mesh,
+                                         pls["pos"])
+            census = sharding.CollectiveCensus(keep=True)
+            held = {sharding.local(t).untyped_storage().data_ptr()
+                    for _, t in _cache_leaves(c2)}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with census:
+                t2, c2, lg2 = _stepped(step, sharded, c2, t2, posd)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            held |= {sharding.local(t).untyped_storage().data_ptr()
+                     for _, t in _cache_leaves(c2)}
+            moved = sum(t.untyped_storage().data_ptr() in held
+                        for t in census.sent)
+            if not torch.equal(sharding.full(t2), t1):
+                raise AssertionError(f"4o(b) {name} step {i}: tokens differ")
+            lerr = rel_err(sharding.full(lg2), lg1)
+            cerr = max(
+                float((sharding.local(t).double() - sharding.slab(
+                    w, mesh, t.placements).double()).abs().max()
+                    / w.abs().max().clamp_min(1e-30))
+                for (_, t), (_, w) in zip(_cache_leaves(c2),
+                                          _cache_leaves(c1)))
+            gathered = census.largest.get("all_gather", 0)
+            if (lerr > SSHARD_LOGIT_TOL or cerr > SSHARD_CACHE_TOL or moved
+                    or gathered >= slab / 100):
+                raise AssertionError(
+                    f"4o(b) {name} step {i}: logits {lerr:.2e} (<= "
+                    f"{SSHARD_LOGIT_TOL}), cache {cerr:.2e} (<= "
+                    f"{SSHARD_CACHE_TOL}), {moved} cache slabs sent, largest "
+                    f"all_gather {gathered} B of a {slab} B slab")
+            rows.append({"logit_err": lerr, "cache_err": cerr, "ms": ms,
+                         "counts": dict(census.counts),
+                         "bytes": dict(census.bytes),
+                         "largest": dict(census.largest)})
+        launches = (flash_ops.LAUNCHES, topo_ops.LAUNCHES)
+    return {"B": B, "S": S, "layers": cfg.num_layers, "steps": rows,
+            "cache_slab_bytes": slab, "cache_bytes": whole,
+            "placements": {n: [repr(p) for p in pl]
+                           for n, pl in _cache_leaves(pls["cache"])},
+            "token_placements": [repr(p) for p in pls["token"]],
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "kernel_launches": launches}
+
+
+def _sshard_rank(a) -> dict:
+    """4o(b) and 5m on one of 4 gloo ranks sharing the card."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh as M
+
+    dev = _shard_setup()
+    mesh = M.make_local_mesh(*SSHARD["mesh"])
+    out = {"rank": dist.get_rank()}
+    for name in SSHARD_CASES:
+        out[name] = _sshard_case(name, mesh, dev)
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_serve_shard(card, device) -> dict:
+    """Slice 18 (path (v)): `make_serve_step` on DTensors, one gloo group of
+    4 processes sharing the card on a (2, 2) mesh (4o(b), every check in
+    the ranks); 5m prints each rank's step times, the cache slab against
+    one device's cache, peak memory and the collectives by kind and
+    bytes."""
+    from repro_torch.launch import mesh as M
+
+    t0 = time.perf_counter()
+    ranks = M.run_local(_sshard_rank, SSHARD["ranks"], ({},), backend="gloo",
+                        timeout=SSHARD["timeout"])
+    wall = time.perf_counter() - t0
+    for r in ranks:
+        for name in SSHARD_CASES:
+            c = r[name]
+            steps_ = c["steps"]
+            ms = sorted(x["ms"] for x in steps_)
+            print(f"[4o(b) gloo rank {r['rank']}/4] {name}: Llama-3.2-1B "
+                  f"full width, {c['layers']} layers, float32, B={c['B']}, "
+                  f"S={c['S']}, {len(steps_)} steps of make_serve_step on a "
+                  f"(2, 2) mesh: tokens equal, logits worst "
+                  f"{max(x['logit_err'] for x in steps_):.2e} (<= "
+                  f"{SSHARD_LOGIT_TOL}), cache worst "
+                  f"{max(x['cache_err'] for x in steps_):.2e} (<= "
+                  f"{SSHARD_CACHE_TOL}); cache placed "
+                  f"{sorted(set(map(tuple, c['placements'].values())))}, "
+                  f"token {c['token_placements']}; B5/B2 launches in the "
+                  f"sharded steps {c['kernel_launches']}", flush=True)
+            print(f"[5m 4o(b) {PSHARD_LABEL}] rank {r['rank']} {name}: "
+                  f"decode step {ms[len(ms) // 2]:.3f} ms median (min "
+                  f"{ms[0]:.3f}, max {ms[-1]:.3f}; host clock to "
+                  f"synchronize), cache slab {c['cache_slab_bytes']} B of "
+                  f"{c['cache_bytes']} B on one device, peak "
+                  f"{c['peak_bytes'] / 2**30:.2f} GiB (this process, both "
+                  f"models); collectives of one step "
+                  f"{steps_[-1]['counts']}, bytes {steps_[-1]['bytes']}, "
+                  f"largest {steps_[-1]['largest']} | {card}", flush=True)
+    print(f"[slice 18] 4o(b) gloo run {wall:.1f} s (process start-up "
+          "included); no time here is a multi-GPU time", flush=True)
+    return {"serve_shard": ranks, "serve_shard_s": wall}
 
 
 def run(cfg, device, out_path=None) -> dict:
@@ -6994,6 +7310,7 @@ def run(cfg, device, out_path=None) -> dict:
     train_gates = phase_train_gates(topo_ops, scan_ops, device)
     timed = {r["case"]: r for r in grad_rows if "backward_ms" in r}
     rank16 = next(r for c, r in timed.items() if "rank16" in c)
+    _stamp("5f starts")
     trainer = phase_train(card, device, rank16["backward_device_ms"])
     for k in kernels:
         name = k["name"].split("[")[0].replace("_batched", "")
@@ -7109,7 +7426,14 @@ def run(cfg, device, out_path=None) -> dict:
     _stamp("slice 17 starts")
     roof = phase_roofline(card, device)
     _stamp("slice 17 ends")
-    record = {**deepseek, **a10b, **engine, **shard, **pshard,
+    # slice 18: the decode step on DTensors (4o(b), no kernel launches:
+    # decode attends with the plain softmax over the cache); 4o(a) ran
+    # inside slice 15's gloo run, its B1 counted from 0 around its call
+    torch.cuda.empty_cache()
+    _stamp("slice 18 starts")
+    serve_shard = phase_serve_shard(card, device)
+    _stamp("slice 18 ends")
+    record = {**deepseek, **a10b, **engine, **shard, **pshard, **serve_shard,
               "roofline": roof,
               "device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,

@@ -343,7 +343,9 @@ def _sharded_fastmult_entry(tree_or_forest, fn, d):
     spec, params = ftfi.build(tree_or_forest, device=CPU)
     X = _t(_rng().standard_normal((spec.n, d), dtype=np.float32))
     fm = ftfi.sharded_fastmult(spec, fn, mesh=mesh, device=CPU)
-    return (lambda leaves, X: fm(params, X)), (_plan_leaves(params), X)
+    # each rank's rows of the result (a DTensor sharded by rows)
+    return ((lambda leaves, X: fm(params, X).to_local()),
+            (_plan_leaves(params), X))
 
 
 @entry("sharded.ftfi.fastmult.tree", "sharded",

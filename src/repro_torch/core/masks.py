@@ -222,23 +222,9 @@ def _resolve_plan_handle(plan):
         f"pair from ftfi.build / ftfi.load_plan, got {type(plan).__name__}")
 
 
-def _shard_mesh(sharded: bool, mesh):
-    """The mesh a `sharded=True` fastmult runs over: `mesh`, else the
-    active `use_sharding` one, when it has more than one rank on its plan
-    axis; else None (the single-device executor)."""
-    if not sharded:
-        return None
-    from repro_torch.launch import sharding
-
-    mesh = mesh if mesh is not None else sharding.current_mesh()
-    if mesh is None or sharding.axis_size(mesh, sharding.plan_axis(mesh)) < 2:
-        return None
-    return mesh
-
-
 def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
                        backend: str | None = None, device=None,
-                       sharded: bool = False, mesh=None) -> Callable:
+                       mesh=None) -> Callable:
     """FastMult_M for M = [f(dist_T(i,j))] through the plan executor.
 
     `plan` is an `Integrator` of backend "torch" or "cuda" or a
@@ -253,13 +239,12 @@ def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
     The folded field runs through the executor `field_chunk(spec)` columns
     at a time, which bounds its temporaries on the card.
 
-    `sharded=True` runs the multi-rank executor
-    (`plan_shard.sharded_fastmult`) over `mesh` (default: the active
-    `launch.sharding` mesh): leaf blocks over the plan axis, one halo
-    all_to_all and one reduce_scatter per execution, every rank the same
-    result. With no mesh, or one rank on its plan axis, it runs the
-    single-device executor, so model code can pass
-    `sharded=cfg.topo_shard_plan` unconditionally.
+    With a `mesh` the closure runs the multi-rank executor
+    (`plan_shard.sharded_row_fastmult`) over its plan axis: leaf blocks
+    over the axis, one halo all_to_all and one reduce_scatter per
+    execution. It then takes and returns this rank's rows of the fields,
+    (..., hi - lo, c) (`launch.collectives.row_bounds(L, D, k)`), and
+    folds and chunks their columns only.
 
     The closure is built on every call (no memo: building it touches no
     device data) and captures the coeffs, so their gradients flow through
@@ -268,7 +253,6 @@ def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
     backend = backend or own or "torch"
     dev = resolve_device(device)
     c = _coeffs(coeffs, dev)
-    mesh = _shard_mesh(sharded, mesh)
     if mesh is not None:
         from repro_torch.core import plan_shard
         from repro_torch.launch import collectives, sharding
@@ -277,24 +261,24 @@ def make_tree_fastmult(plan, g: str, coeffs, dist_scale: float = 1.0, *,
         # the plan: their grads are summed over the plan axis
         (c,) = collectives.replicated((c,), sharding.axis_group(
             mesh, sharding.plan_axis(mesh)))
-        base = plan_shard.sharded_fastmult(spec, mask_f(g, c, dist_scale),
-                                           mesh=mesh, backend=backend,
-                                           device=dev)
+        base = plan_shard.sharded_row_fastmult(
+            spec, mask_f(g, c, dist_scale), mesh=mesh, backend=backend,
+            device=dev)
     else:
         base = plan_api.fastmult(spec, mask_f(g, c, dist_scale),
                                  backend=backend, device=dev)
 
     chunk = field_chunk(spec)
 
-    def fastmult(X):  # X: (..., L, c)
+    def fastmult(X):  # X: (..., rows, c)
         shape = X.shape
-        L = shape[-2]
-        Xf = X.reshape(-1, L, shape[-1]).movedim(0, -1)  # (L, c, B*)
-        Xf = Xf.reshape(L, -1).float()
+        rows = shape[-2]
+        Xf = X.reshape(-1, rows, shape[-1]).movedim(0, -1)  # (rows, c, B*)
+        Xf = Xf.reshape(rows, -1).float()
         out = [base(params, Xf[:, c0:c0 + chunk])
                for c0 in range(0, Xf.shape[1], chunk)]
         out = (out[0] if len(out) == 1 else torch.cat(out, dim=1)).reshape(
-            L, shape[-1], -1)
+            rows, shape[-1], -1)
         return out.movedim(-1, 0).reshape(shape)
 
     return fastmult

@@ -700,7 +700,10 @@ def apply(spec: PlanSpec, params: PlanParams, fn, X, *,
     `device` as float32.
 
     `mesh` (a `DeviceMesh`, optionally with `axis`) routes through the
-    multi-rank executor — see `plan_shard.apply_sharded`."""
+    multi-rank executor — see `plan_shard.apply_sharded`: X is then a
+    DTensor field sharded by rows or the whole field, and Y each rank's
+    rows, a DTensor sharded by rows over the plan axis (`full_tensor()`
+    gathers it)."""
     if mesh is not None:
         from repro_torch.core.plan_shard import apply_sharded
 

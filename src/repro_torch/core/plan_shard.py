@@ -21,17 +21,18 @@ collectives:
     into the received pool are baked into the per-shard index arrays (no
     full-field gather, ever);
   - per-rank partial outputs meet in one `reduce_scatter` over the plan
-    axis — an exact reduction — and one `all_gather` of the output blocks
-    hands every rank the whole (n, d) result, as the reference's caller
-    sees its global array. So `apply_sharded` matches the single-device
-    `plan_api.apply` to float round-off.
+    axis — an exact reduction — that leaves each rank its own row block of
+    the (n, d) result, a DTensor sharded by rows (the reference's
+    out_specs=P(axis)); nothing gathers the field. So `apply_sharded`
+    matches the single-device `plan_api.apply` to float round-off.
 
 The partitioner (`partition_plan`, `ShardPlan`) is host numpy copied from
 the reference: its tables equal the reference's array for array. Each rank
 uploads only its own slice of them (`_rank_tables`, once per rank and
 device). The forward is differentiable in X and the params
-(`launch.collectives` gives each collective its VJP); every rank gets the
-whole gradient.
+(`launch.collectives` gives each collective its VJP): the params' grads
+are summed over the plan axis, a row-sharded field's grad is sharded by
+rows.
 """
 from __future__ import annotations
 
@@ -484,48 +485,40 @@ def check_mesh(spec, mesh) -> None:
 
 
 def _execute_sharded(spec, sp: ShardPlan, params, fn_eval, cross_multiply,
-                     use_hankel: bool, X: torch.Tensor, group, k: int):
-    """Rank k's share of `plan_api._execute`, then the two collectives and
-    the output gather. X (n, d) or (n,) is the whole field, the same on
-    every rank; so is the result.
-
-    The entry takes and returns the whole field, as the reference's
-    `apply_sharded` takes and returns global arrays; inside, the rank works
-    on its own row block as the reference's shard_map body does, so its
-    program is the one a row-sharded field needs: the halo all_to_all, the
-    reduce_scatter of the partials and the output all_gather. On the
-    replicated field these move rows every rank already holds (one
-    all_reduce of the partials would do); a field sharded by rows (ROADMAP
-    A12b) drops the `scatter_block` and keeps the rest as it is."""
+                     use_hankel: bool, x, group, k: int):
+    """Rank k's share of `plan_api._execute`, the shard_map body of the
+    reference: the halo all_to_all and the reduce_scatter of the partial
+    outputs. x (hi - lo, d) is rank k's rows [lo, hi) of the field
+    (`launch.collectives.row_bounds`); returns the same rows of M_f X (the
+    reference's in_specs = out_specs = P(axis))."""
     from repro_torch.core.plan_api import hankel_grid_matvec
     from repro_torch.launch import collectives as C
 
-    squeeze = X.ndim == 1
-    if squeeze:
-        X = X[:, None]
-    d = X.shape[1]
     D, block, Emax = sp.num_shards, sp.block, sp.halo_width
     dump = D * block
-    t = _rank_tables(sp, k, X.device)
+    lo, hi = C.row_bounds(spec.n, D, k)
+    x = torch.cat([x, x.new_zeros(block - x.shape[0], x.shape[1])])
+    d = x.shape[1]
+    t = _rank_tables(sp, k, x.device)
     nb, nlb = len(sp.job_sel), len(sp.leaf_sel)
     Us = [m.shape[2] for m in sp.job_smask]
     Ut = [m.shape[2] for m in sp.job_tmask]
-    # every rank reads its own rows of the distances: their grads are
-    # summed over the plan axis in the backward
+    # every rank reads its own rows of the distances and the tree weights:
+    # their grads are summed over the plan axis in the backward
     nt, ns = len(params.cross_tgt_d), len(params.cross_src_d)
+    tw = () if params.tree_w is None else (params.tree_w,)
     dists = C.replicated(params.cross_tgt_d + params.cross_src_d
-                         + params.leaf_dists, group)
-    ctd, csd, ld = dists[:nt], dists[nt:nt + ns], dists[nt + ns:]
+                         + params.leaf_dists + tw, group)
+    ctd, csd = dists[:nt], dists[nt:nt + ns]
+    ld = dists[nt + ns:nt + ns + len(params.leaf_dists)]
 
-    Xg = torch.cat([X, X.new_zeros(dump - spec.n, d)], dim=0)
-    x = C.scatter_block(Xg, group)  # (block, d): this rank's rows
     xl = torch.cat([x, x.new_zeros(1, d)], dim=0)
     if Emax:
         recv = C.all_to_all(xl[t["send"]], group)  # (D * Emax, d)
         xfull = torch.cat([xl, recv], dim=0)
     else:
         xfull = xl
-    outp = X.new_zeros(dump + 1, d)
+    outp = x.new_zeros(dump + 1, d)
 
     for i in range(nlb):
         m = t["leaf_m"][i]
@@ -536,13 +529,13 @@ def _execute_sharded(spec, sp: ShardPlan, params, fn_eval, cross_multiply,
         outp.index_add_(0, t["leaf_s"][i], contrib.reshape(-1, d))
 
     if sp.n_src_loc:
-        Xp_loc = X.new_zeros(sp.n_src_loc + 1, d).index_add_(
+        Xp_loc = x.new_zeros(sp.n_src_loc + 1, d).index_add_(
             0, t["ssl"], xfull[t["sgl"]])[:-1]
         parts = []
         for i in range(nb):
             J = sp.job_sel[i].shape[1]
             if not t["live"][i]:  # no target of this rank reads the bucket
-                parts.append(X.new_zeros(J * Ut[i], d))
+                parts.append(x.new_zeros(J * Ut[i], d))
                 continue
             off = sp.loff_src[i]
             Xp = Xp_loc[off:off + J * Us[i]].reshape(J, Us[i], d)
@@ -559,18 +552,17 @@ def _execute_sharded(spec, sp: ShardPlan, params, fn_eval, cross_multiply,
         cflat = torch.cat(parts, dim=0) if len(parts) > 1 else parts[0]
         outp.index_add_(0, t["tsl"], cflat[t["tgl"]])
 
-    f0 = fn_eval(X.new_zeros(1))[0]
+    f0 = fn_eval(x.new_zeros(1))[0]
     outp.index_add_(0, t["pvs"], -f0 * xfull[t["pvg"]])
-    # the exact meeting point of all cross-shard contributions, then the
-    # output blocks to every rank
-    res = C.all_gather(C.reduce_scatter(outp[:-1], group), group)[:spec.n]
-    if params.tree_w is not None:
+    # the exact meeting point of all cross-shard contributions: this rank's
+    # rows of the result
+    res = C.reduce_scatter(outp[:-1], group)[:hi - lo]
+    if tw:
         w = torch.repeat_interleave(
-            params.tree_w, torch.as_tensor(spec.tree_sizes,
-                                           device=X.device),
-            output_size=spec.n)
+            dists[-1], torch.as_tensor(spec.tree_sizes, device=x.device),
+            output_size=spec.n)[lo:hi]
         res = res * w[:, None].to(res.dtype)
-    return res[:, 0] if squeeze else res
+    return res
 
 
 def _mesh_of(mesh):
@@ -585,13 +577,18 @@ def _mesh_of(mesh):
     return mesh
 
 
-def sharded_fastmult(spec, fn, *, mesh=None, axis: str | None = None,
-                     backend: str = "torch", degree: int = 32, device=None):
-    """(params, X) -> Y closure over the sharded executor with the mesh,
-    the plan axis (default: the one bound to `plan_leaves`, `data` on the
-    standard meshes), the engine choice and the device baked in (the
-    sharded face of `plan_api.fastmult`). Every rank of the mesh calls it
-    with the same (params, X) and gets the same Y.
+def sharded_row_fastmult(spec, fn, *, mesh=None, axis: str | None = None,
+                         backend: str = "torch", degree: int = 32,
+                         device=None):
+    """(params, x) -> y on this rank's rows of the field: x (hi - lo, d)
+    holds rows [lo, hi) (`launch.collectives.row_bounds(spec.n, D, k)`
+    for rank k of the D on the plan axis), and y holds the same rows of
+    M_f X. The reference's shard_map body (in_specs = out_specs =
+    P(axis)) with the mesh, the plan axis (default: the one bound to
+    `plan_leaves`, `data` on the standard meshes), the engine choice and
+    the device baked in. Every rank of the mesh calls it with the same
+    params and its own rows. Differentiable in params and x: x's grad is
+    its rows of the field's grad.
 
     The engine is `plan_api.select_cross`'s, as single-device `apply`
     takes it: on "cuda" each rank launches the fdist_matvec kernel on its
@@ -600,19 +597,15 @@ def sharded_fastmult(spec, fn, *, mesh=None, axis: str | None = None,
     rank's card."""
     from repro_torch.analysis import trace_guard
     from repro_torch.core.plan_api import _fspec, _params_on, select_cross
-    from repro_torch.device import resolve_device
     from repro_torch.launch import sharding
 
     mesh = _mesh_of(mesh)
     check_mesh(spec, mesh)
     axis = axis or sharding.plan_axis(mesh)
-    D = sharding.axis_size(mesh, axis)
-    group, k = sharding.axis_group(mesh, axis), sharding.axis_rank(mesh, axis)
-    # default: the mesh's device type (a "cpu" mesh was asked for), on a
-    # card mesh this rank's card
-    dev = resolve_device(device if device is not None or
-                         mesh.device_type == "cuda" else mesh.device_type)
-    sp = partition_plan(spec, D)
+    group = sharding.axis_group(mesh, axis)
+    k = sharding.axis_rank(mesh, axis)
+    dev = _rank_device(mesh, device)
+    sp = partition_plan(spec, sharding.axis_size(mesh, axis))
     fspec = _fspec(fn)
     name, cross = select_cross(spec, fspec, backend=backend, degree=degree)
     use_hankel = name == "hankel_fft"
@@ -625,10 +618,60 @@ def sharded_fastmult(spec, fn, *, mesh=None, axis: str | None = None,
         trace_guard.record("ftfi.sharded_fastmult", detail=spec.digest[:12])
     fe = fspec.fn_eval
 
-    def fm(params, X):
-        X = torch.as_tensor(X, dtype=torch.float32, device=dev)
+    def rows(params, x):
         return _execute_sharded(spec, sp, _params_on(params, dev), fe, cross,
-                                use_hankel, X, group, k)
+                                use_hankel, x.to(torch.float32), group, k)
+
+    return rows
+
+
+def _rank_device(mesh, device):
+    """`device`, else the mesh's device type: a "cpu" mesh runs on the
+    CPU, a card mesh on this rank's card."""
+    from repro_torch.device import resolve_device
+
+    return resolve_device(device if device is not None or
+                          mesh.device_type == "cuda" else mesh.device_type)
+
+
+def sharded_fastmult(spec, fn, *, mesh=None, axis: str | None = None,
+                     backend: str = "torch", degree: int = 32, device=None):
+    """(params, X) -> Y closure over the sharded executor (the sharded
+    face of `plan_api.fastmult`; `sharded_row_fastmult` on whole fields).
+    Every rank of the mesh calls it with the same params and X, a DTensor
+    field sharded by rows over the plan axis or a plain tensor (the whole
+    field on every rank), and gets its rows of Y: a DTensor sharded by
+    rows over the plan axis, as the reference's `out_specs=P(axis)` hands
+    each device its block."""
+    from repro_torch.launch import collectives as C
+    from repro_torch.launch import sharding
+
+    mesh = _mesh_of(mesh)
+    axis = axis or sharding.plan_axis(mesh)
+    rows = sharded_row_fastmult(spec, fn, mesh=mesh, axis=axis,
+                                backend=backend, degree=degree, device=device)
+    dev = _rank_device(mesh, device)
+    group = sharding.axis_group(mesh, axis)
+    D = sharding.axis_size(mesh, axis)
+    lo, hi = C.row_bounds(spec.n, D, sharding.axis_rank(mesh, axis))
+
+    def fm(params, X):
+        if sharding.is_dtensor(X):
+            out_mesh, x = X.device_mesh, C.local_rows(X.to(torch.float32),
+                                                      axis)
+        else:  # the whole field alike on every rank: the rank's rows are
+            # cut from it with no collective (its grad gathered back)
+            out_mesh = mesh
+            x = torch.as_tensor(X, dtype=torch.float32, device=dev)
+        squeeze = x.ndim == 1
+        if squeeze:
+            x = x[:, None]
+        if not sharding.is_dtensor(X):
+            pad = x.new_zeros(D * -(-spec.n // D) - spec.n, x.shape[1])
+            x = C.scatter_block(torch.cat([x, pad]), group)[:hi - lo]
+        y = rows(params, x)
+        return C.rows_dtensor(y[:, 0] if squeeze else y, out_mesh, axis,
+                              spec.n)
 
     return fm
 
@@ -639,12 +682,17 @@ def apply_sharded(spec, params, fn, X, *, mesh=None, axis: str | None = None,
     partitioned into per-rank leaf blocks over the mesh's plan axis.
 
     `mesh` defaults to the active `launch.sharding.use_sharding` mesh;
-    `axis` to the mesh axis bound to the `plan_leaves` logical axis. Every
-    rank passes the same X and params and gets the whole Y. Exact: halo
-    rows move through one all_to_all, partial outputs through one
-    reduce_scatter, and one all_gather hands out the result, so parity with
-    the single-device executor is float round-off only. Differentiable in
-    `params` and `X` like `apply`, every rank getting the whole gradient.
+    `axis` to the mesh axis bound to the `plan_leaves` logical axis. X is
+    a DTensor field sharded by rows over `axis` (each rank reads its own
+    block) or a plain tensor, the same on every rank. Y is a DTensor
+    sharded by rows over `axis` (`launch.collectives.row_placements`):
+    each rank holds its rows, `Y.full_tensor()` gathers the whole. Exact:
+    halo rows move through one all_to_all and partial outputs through one
+    reduce_scatter, with no gather of the field (the reference's
+    discipline), so parity with the single-device executor is float
+    round-off only. Differentiable in `params` and `X` like `apply`: the
+    params' grads are summed over the plan axis, a row-sharded X's grad is
+    sharded by rows and a plain X's is whole on every rank.
     Tensors that a raw callable `fn` captures (mask coefficients) are read
     by each rank for its own share only: pass them through
     `launch.collectives.replicated` first, as `masks.make_tree_fastmult`

@@ -49,7 +49,8 @@ Requires `build(..., reweightable=True)` (per-vertex slots + LCA tables)
 compiled by this codebase version (update tables present). A spec laid out
 for a device mesh keeps its provenance (`mesh_devices`, `mesh_axes`,
 `shard_layout`) through an edit, and the sharded executor
-(`plan_shard.apply_sharded`) consumes the edited plan.
+(`plan_shard.apply_sharded`) consumes the edited plan as it is, with the
+field sharded by rows or whole.
 """
 from __future__ import annotations
 

@@ -19,6 +19,14 @@ and is differentiable:
                              reads only in part; VJP: one all_reduce (sum)
                              of the flattened cotangents
 
+A field sharded by rows is a DTensor with `Shard(0)` on the plan axis and
+`Replicate()` on every other mesh axis (`row_placements`): rank k holds
+rows [k * block, (k + 1) * block) of n, block = ceil(n / D), which is
+`torch.chunk`'s split and so DTensor's own (`row_bounds`). `rows_dtensor`
+wraps a rank's (rows, ...) block as such a field with no collective;
+`local_rows` reads a rank's block of one (its local tensor, where it is
+placed so).
+
 `COUNTS` counts forward calls by collective (backward calls apart, under
 "backward_<name>"); a caller zeroes it around the work it reads.
 
@@ -193,6 +201,53 @@ def all_gather(x: torch.Tensor, group) -> torch.Tensor:
 def scatter_block(x: torch.Tensor, group) -> torch.Tensor:
     """This rank's block of rows of a replicated x."""
     return _ScatterBlock.apply(x, group)
+
+
+def row_bounds(n: int, D: int, k: int) -> tuple:
+    """[lo, hi): rank k's rows of n split into D blocks of ceil(n / D)
+    (the last ones short or empty), as `torch.chunk` and DTensor's
+    `Shard` split them."""
+    block = max(-(-n // D), 1)
+    lo = min(k * block, n)
+    return lo, min(lo + block, n)
+
+
+def row_placements(mesh, axis: str, dim: int = 0) -> list:
+    """`Shard(dim)` on the mesh dim named `axis`, `Replicate()` on the
+    others."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    return [Shard(dim) if name == axis else Replicate()
+            for name in (mesh.mesh_dim_names or ())]
+
+
+def rows_dtensor(local: torch.Tensor, mesh, axis: str, n: int,
+                 dim: int = 0):
+    """This rank's row block `local` (its rows along `dim`) of a field of
+    n rows as a DTensor sharded by rows over `axis` (no collective; every
+    rank passes its own block). Differentiable: the grad of `local` is the
+    rank's block of the field's grad."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.launch.sharding import contiguous_strides
+
+    shape = list(local.shape)
+    shape[dim] = n
+    return DTensor.from_local(local, mesh, row_placements(mesh, axis, dim),
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_strides(shape))
+
+
+def local_rows(X, axis: str, dim: int = 0) -> torch.Tensor:
+    """The local row block (along `dim`) of the DTensor field X over the
+    mesh dim named `axis`, X first redistributed to `row_placements` where
+    it is placed otherwise (a replicated X gives its block with no
+    collective). Differentiable: the block's grad is the field's, sharded
+    by rows."""
+    want = row_placements(X.device_mesh, axis, dim)
+    if list(X.placements) != want:
+        X = X.redistribute(X.device_mesh, want)
+    return X.to_local()
 
 
 def replicated(tensors, group) -> tuple:

@@ -16,13 +16,11 @@ compiler to ask, so in one process it:
     check), the batch (and a decode cell's cache) likewise by
     `launch.specs.batch_shardings`;
   * runs one step under `FakeTensorMode` inside a `roofline.count.CostCount`:
-    the train step with its backward and AdamW, or the prefill.
-
-A decode cell (decode_32k, long_500k) is refused before anything is
-built: the port has no sharded serving yet (no prefill into a cache and
-no decode step on DTensors, ROADMAP A12d), where the reference counts a
-decode step. `launch.specs.batch_shardings` already places a decode
-cell's cache.
+    the train step with its backward and AdamW, the prefill, or (a decode
+    cell: decode_32k, long_500k) one `launch.steps.make_serve_step` call
+    on the cache, token and pos that `launch.specs.batch_shardings` places
+    (the batch over data, KV heads or channels over model where they
+    divide, a batch-1 long context's sequence over data).
 
 The count's record holds the reference's keys (flops, bytes accessed,
 collective bytes, argument / output / temp bytes, the peak), per device.
@@ -197,20 +195,15 @@ def lower_cell_cfg(cfg, shape: str, mesh):
     be initialized) under FakeTensorMode, counted: returns the
     `roofline.count.CostCount`, whose `record()` holds what the
     reference's compiled.cost_analysis() and memory_analysis() hold, per
-    device. Raises NotImplementedError on a decode cell (module
-    docstring)."""
+    device: the train step, the prefill, or one decode step."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.launch.steps import make_prefill_step, make_train_step
+    from repro_torch.launch.steps import (make_prefill_step, make_serve_step,
+                                          make_train_step)
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.roofline.count import CostCount
 
     kind, cpu = SHAPES[shape]["kind"], "cpu"
-    if kind not in ("train", "prefill"):
-        raise NotImplementedError(
-            f"{shape} is a {kind} cell: the port has no sharded serving "
-            "(a decode step on DTensors, ROADMAP A12d), so the dry run "
-            "counts train and prefill cells only")
     with SH.use_sharding(mesh), FakeTensorMode(allow_non_fake_inputs=True):
         model = fake_sharded_model(cfg, mesh)
         specs, pls = batch_specs(cfg, shape), batch_shardings(cfg, shape, mesh)
@@ -222,11 +215,17 @@ def lower_cell_cfg(cfg, shape: str, mesh):
                 out = make_train_step(cfg, AdamWConfig(), cpu)(
                     model, opt, batch)
                 count.track_outputs(out[1:])
-        else:
+        elif kind == "prefill":
             with CostCount() as count:
                 count.track_arguments(list(model.parameters()), batch)
                 count.track_outputs(make_prefill_step(cfg, cpu)(
                     model, batch))
+        else:  # decode: one token a row over the cell's cache
+            step = make_serve_step(cfg, SHAPES[shape]["seq_len"], cpu)
+            with CostCount() as count:
+                count.track_arguments(list(model.parameters()), batch)
+                count.track_outputs(step(model, batch["cache"],
+                                         batch["token"], batch["pos"]))
     return count
 
 

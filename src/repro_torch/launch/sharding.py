@@ -507,6 +507,217 @@ def max_over(x, group):
     return out
 
 
+# ----------------------------------------------------------------------------
+# the cache side: a decode step on each rank's slab of its cache
+# ----------------------------------------------------------------------------
+
+
+class SeqShard:
+    """What a rank of a sequence-sharded cache needs: `offset`, the first
+    position of its block (`torch.chunk`'s split), and `group`, the ranks
+    that hold the other blocks (its partial softmax statistics meet there:
+    `max_over`, `sum_over`)."""
+
+    def __init__(self, offset: int, group):
+        self.offset, self.group = int(offset), group
+
+
+def _placed(roles: list, dims: dict | None) -> list:
+    """One placement per mesh dim for a tensor whose dims have the `roles`
+    names in `dims` ({"batch": 0, "heads": 2, ...}): Shard where the mesh
+    dim's role is one of its dims, else Replicate (a sequence-sharded mesh
+    dim replicates everything but the cache)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dims = dims or {}
+    return [Shard(dims[r]) if r in dims and r != "seq" else Replicate()
+            for r in roles]
+
+
+def contiguous_strides(shape) -> tuple:
+    """The strides of a contiguous tensor of `shape` (computed, so that no
+    tensor is made: a count open around the caller would read one)."""
+    out, acc = [], 1
+    for n in reversed(tuple(shape)):
+        out.append(acc)
+        acc *= max(int(n), 1)
+    return tuple(reversed(out))
+
+
+def _wrap(x, mesh, pls, shape=None, stride=None):
+    from torch.distributed.tensor import DTensor
+
+    if shape is None:
+        shape = list(x.shape)
+        for j, p in enumerate(pls):
+            if p.is_shard():
+                shape[p.dim] *= mesh.size(j)
+        shape = torch.Size(shape)
+        stride = contiguous_strides(shape)
+    return DTensor.from_local(x, mesh, pls, run_check=False, shape=shape,
+                              stride=stride)
+
+
+def cache_face(fn, cache: dict, cache_roles: dict, args: tuple,
+               arg_roles: tuple, out_roles: tuple):
+    """A decode step's DTensor face, led by its cache: fn(seq, cache, *args)
+    -> (outs, new_cache) runs on each rank's slab of the cache as it is
+    placed, and everything else is brought to the cache. No collective
+    moves the cache.
+
+    `cache` maps names to tensors (one layer's), `cache_roles` each name
+    to its dims' roles ({"batch": 0, "seq": 1, "heads": 2}); `arg_roles`
+    gives each of `args` likewise (None: passed as it is), `out_roles`
+    each of fn's outputs. Each mesh dim takes its role from the cache
+    leaves sharded over it ("batch", "seq" or "heads"; a leaf sharded on a
+    dim without a role raises). Where no leaf is sharded and no leaf has
+    a heads dim (a latent cache), the heads of args[0] keep their
+    sharding where every arg's heads divide (the "heads" role). Each arg
+    is then redistributed to its slab: sharded on its dim of that role,
+    replicated elsewhere (a token-sized collective at most; plain tensors
+    are taken as replicated), and so are the outputs. On a "seq" mesh dim
+    everything but the cache is replicated and fn gets `SeqShard` (else
+    None): it writes only the positions its block holds and meets its
+    partial softmax statistics over `seq.group`. The new cache keeps the
+    old one's placements and shapes. With a plain cache this is
+    fn(None, cache, *args)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    lead = next(iter(cache.values()))
+    if not is_dtensor(lead):
+        return fn(None, cache, *args)
+    mesh = lead.device_mesh
+    roles, seq = [], None
+    any_heads = any("heads" in cache_roles[n] for n in cache)
+    for j in range(mesh.ndim):
+        got = set()
+        for n, t in cache.items():
+            pl = t.placements[j]
+            if pl.is_shard():
+                role = next((r for r, d in cache_roles[n].items()
+                             if d == pl.dim), None)
+                if role is None:
+                    raise ValueError(
+                        f"cache leaf {n!r} is sharded on its dim {pl.dim} "
+                        f"over mesh dim {j}: its decode step cannot take "
+                        "that dim apart")
+                got.add((role, n))
+            elif not pl.is_replicate():
+                raise ValueError(f"cache leaf {n!r} is {pl} over mesh dim "
+                                 f"{j}")
+        kinds = {r for r, _ in got}
+        if len(kinds) > 1:
+            raise ValueError(f"the cache leaves are sharded by {kinds} over "
+                             f"mesh dim {j}")
+        role = kinds.pop() if kinds else None
+        if role is None and not any_heads and arg_roles[0] and \
+                "heads" in arg_roles[0]:
+            h = arg_roles[0]["heads"]
+            if (is_dtensor(args[0]) and args[0].placements[j] == Shard(h)
+                    and all(a.shape[rl["heads"]] % mesh.size(j) == 0
+                            for a, rl in zip(args, arg_roles)
+                            if rl and "heads" in rl)):
+                role = "heads"
+        if role == "seq":
+            n = next(n for r, n in got if r == "seq")
+            S = cache[n].shape[cache_roles[n]["seq"]]
+            seq = SeqShard(mesh.get_local_rank(j) * -(-S // mesh.size(j)),
+                           mesh.get_group(j))
+        roles.append(role)
+    locs = []
+    for a, rl in zip(args, arg_roles):
+        if rl is None or not torch.is_tensor(a):
+            locs.append(a)
+            continue
+        if not is_dtensor(a):
+            a = DTensor.from_local(a, mesh, [Replicate()] * mesh.ndim,
+                                   run_check=False)
+        want = _placed(roles, rl)
+        if list(a.placements) != want:
+            a = a.redistribute(mesh, want)
+        locs.append(a.to_local())
+    outs, new = fn(seq, {n: t.to_local() for n, t in cache.items()}, *locs)
+    outs = tuple(_wrap(o.contiguous(), mesh, _placed(roles, rl))
+                 for o, rl in zip(outs, out_roles))
+    new = {n: _wrap(t, mesh, list(cache[n].placements), cache[n].shape,
+                    cache[n].stride()) for n, t in new.items()}
+    return outs, new
+
+
+def _shifted(pls, by: int) -> list:
+    from torch.distributed.tensor import Shard
+
+    return [Shard(p.dim + by) if p.is_shard() else p for p in pls]
+
+
+def unstack(x, j: int):
+    """x[j] of a stack whose dim 0 (the layers) no mesh dim shards; a
+    DTensor's from its slab, with no collective."""
+    if not is_dtensor(x):
+        return x[j]
+    if any(p.is_shard() and p.dim == 0 for p in x.placements):
+        raise ValueError("the stack is sharded over its layer dim")
+    return _wrap(x.to_local()[j], x.device_mesh, _shifted(x.placements, -1),
+                 x.shape[1:], x.stride()[1:])
+
+
+def empty_stack(like, count: int):
+    """An uninitialized stack of `count` tensors like `like` (a DTensor's
+    slabs stacked, placed as `like` one dim down)."""
+    loc = local(like)
+    out = torch.empty((count,) + tuple(loc.shape), dtype=loc.dtype,
+                      device=loc.device)
+    if not is_dtensor(like):
+        return out
+    shape = torch.Size((count,) + tuple(like.shape))
+    return _wrap(out, like.device_mesh, _shifted(like.placements, 1), shape,
+                 contiguous_strides(shape))
+
+
+def stack(tensors: list):
+    """torch.stack of same-placed tensors along a new dim 0; DTensors by
+    their slabs, with no collective."""
+    if not is_dtensor(tensors[0]):
+        return torch.stack(tensors)
+    out = empty_stack(tensors[0], len(tensors))
+    for j, t in enumerate(tensors):
+        local(out)[j].copy_(local(t))
+    return out
+
+
+def argmax_last(x):
+    """argmax over the last dim of x (.., V); on a DTensor whose last dim
+    is sharded (the vocab over the model axis) each rank takes its slab's
+    max and first index, and two all_reduces of (..) over those mesh dims
+    pick the first index of the global max (torch.argmax's choice), with
+    no gather of x. The result is placed as x's leading dims."""
+    if not is_dtensor(x):
+        return torch.argmax(x, dim=-1)
+    from torch.distributed.tensor import Replicate
+
+    last = x.ndim - 1
+    mesh = x.device_mesh
+    pls = [Replicate() if p.is_partial() else p for p in x.placements]
+    if pls != list(x.placements):
+        x = x.redistribute(mesh, pls)
+    vdims = [j for j, p in enumerate(pls) if p.is_shard() and p.dim == last]
+    loc = x.to_local()
+    best, idx = loc.max(dim=-1)
+    if vdims:
+        (j,) = vdims  # one mesh dim shards the vocab
+        V = x.shape[-1]
+        idx = idx + mesh.get_local_rank(j) * -(-V // mesh.size(j))
+        group = mesh.get_group(j)
+        top = max_over(best, group)
+        idx = torch.where(best == top, idx, torch.full_like(idx, V))
+        out = idx.contiguous().clone()
+        torch.distributed.all_reduce(out, op=torch.distributed.ReduceOp.MIN,
+                                     group=group)
+        idx = out
+    out_pls = [Replicate() if j in vdims else p for j, p in enumerate(pls)]
+    return _wrap(idx, mesh, out_pls)
+
+
 def matmul(x, w):
     """x (..., K) @ w (K, N), w a 2-D DTensor (a weight): each rank's slab
     product with the placements fixed per mesh dim, Megatron's column and
@@ -678,11 +889,15 @@ class CollectiveCensus(torch.utils._python_dispatch.TorchDispatchMode):
     """Counts the collectives this rank issues inside the block, by kind,
     with the bytes of the tensor it sends to each (`counts`, `bytes`,
     `largest`): DTensor's redistributions (the mode lets DTensor desugar
-    first) and direct `torch.distributed` calls, forward and backward."""
+    first) and direct `torch.distributed` calls, forward and backward.
+    `keep=True`
+    also holds every tensor sent (`sent`), so that a caller can ask
+    whether one of them was a given tensor's storage."""
 
-    def __init__(self):
+    def __init__(self, keep: bool = False):
         super().__init__()
         self.counts, self.bytes, self.largest = {}, {}, {}
+        self.sent: list | None = [] if keep else None
         self._kinds = _collective_kinds()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -703,4 +918,6 @@ class CollectiveCensus(torch.utils._python_dispatch.TorchDispatchMode):
             self.counts[kind] = self.counts.get(kind, 0) + 1
             self.bytes[kind] = self.bytes.get(kind, 0) + n
             self.largest[kind] = max(self.largest.get(kind, 0), n)
+            if self.sent is not None:
+                self.sent.extend(t for t in ts if torch.is_tensor(t))
         return func(*args, **kwargs)

@@ -64,14 +64,11 @@ def _tree_map(fn, tree):
 
 def batch_shardings(cfg, shape_name: str, mesh) -> dict:
     """DTensor placements for the batch (batch dim over (pod, data)); in a
-    decode cell the cache's too: its batch dim over the batch axes where
-    they divide it, else (a batch-1 long context) its sequence over
-    `seq_shard`, and a heads-like dim over `model` where it divides. Call
-    under `sharding.use_sharding(mesh)`."""
+    decode cell the token's, pos's (replicated) and the cache's too
+    (`cache_shardings`). Call under `sharding.use_sharding(mesh)`."""
     sh = SHAPES[shape_name]
     kind = sh["kind"]
     dp = logical_to_spec(("batch",))[0]
-    seq = logical_to_spec(("seq_shard",))[0]
 
     def ns(spec):
         return sharding.placements(spec, mesh)
@@ -83,12 +80,42 @@ def batch_shardings(cfg, shape_name: str, mesh) -> dict:
         if cfg.is_encdec:
             out["src_embeds"] = ns((dp, None, None))
         return out
-    B = sh["global_batch"]
+    return decode_shardings(cfg, batch_specs(cfg, shape_name)["cache"],
+                            sh["global_batch"], sh["seq_len"], mesh)
+
+
+def decode_shardings(cfg, cache: dict, B: int, S: int, mesh) -> dict:
+    """{"token", "cache", "pos"}: the placements of one decode step's
+    inputs at batch B over a cache of S positions (the tree of
+    `api.init_cache`): the token's batch over the batch axes where they
+    divide B, else replicated; the cache by `cache_shardings`; pos
+    replicated. Call under `sharding.use_sharding(mesh)`."""
+    dp = logical_to_spec(("batch",))[0]
+    token = (dp, None) if _batch_shardable(B, mesh) else (None, None)
+    return {"token": sharding.placements(token, mesh),
+            "cache": cache_shardings(cfg, cache, B, S, mesh),
+            "pos": sharding.placements((), mesh)}
+
+
+def _batch_shardable(B: int, mesh) -> bool:
+    dp = logical_to_spec(("batch",))[0]
     ndev_dp = 1
     if dp is not None:
         for n in (dp if isinstance(dp, tuple) else (dp,)):
             ndev_dp *= sharding.axis_size(mesh, n)
-    batch_shardable = B % max(ndev_dp, 1) == 0 and B >= ndev_dp
+    return B % max(ndev_dp, 1) == 0 and B >= ndev_dp
+
+
+def cache_shardings(cfg, cache: dict, B: int, S: int, mesh) -> dict:
+    """DTensor placements of a decode cache of batch B and length S (the
+    tree of `api.init_cache`, real or meta tensors), by the reference's
+    rule: each leaf's batch dim over the batch axes where they divide B,
+    else (a batch-1 long context) its sequence over `seq_shard`, and a
+    heads-like dim over `model` where it divides. Call under
+    `sharding.use_sharding(mesh)`."""
+    dp = logical_to_spec(("batch",))[0]
+    seq = logical_to_spec(("seq_shard",))[0]
+    batch_shardable = _batch_shardable(B, mesh)
     model_sz = sharding.axis_size(mesh, "model")
 
     def cache_spec(leaf):
@@ -101,7 +128,7 @@ def batch_shardings(cfg, shape_name: str, mesh) -> dict:
             if s == B:
                 if batch_shardable:
                     spec[i] = dp
-                elif i + 1 < nd and shp[i + 1] == sh["seq_len"]:
+                elif i + 1 < nd and shp[i + 1] == S:
                     spec[i + 1] = seq  # batch=1 long-context: shard sequence
                 break
         # shard a heads-like dim over model where divisible
@@ -111,11 +138,16 @@ def batch_shardings(cfg, shape_name: str, mesh) -> dict:
                 if shp[i] % model_sz == 0:
                     spec[i] = "model"
                     break
-        return ns(tuple(spec))
+        return sharding.placements(tuple(spec), mesh)
 
-    cache = _tree_map(cache_spec, batch_specs(cfg, shape_name)["cache"])
-    return {
-        "token": ns((dp, None)) if batch_shardable else ns((None, None)),
-        "cache": cache,
-        "pos": ns(()),
-    }
+    return _tree_map(cache_spec, cache)
+
+
+def distribute_cache(cache: dict, pls: dict, mesh) -> dict:
+    """The cache tree as DTensors placed by `pls` (`cache_shardings`);
+    every rank holds the whole cache alike and keeps its slabs (no
+    collective)."""
+    if isinstance(cache, dict):
+        return {k: distribute_cache(v, pls[k], mesh)
+                for k, v in cache.items()}
+    return sharding.from_replica(cache, mesh, pls)

@@ -46,12 +46,17 @@ def make_prefill_step(cfg, device=None):
 
 def make_serve_step(cfg, seq_len: int, device=None):
     """serve_step(model, cache, token, pos) -> (the greedy next token
-    (B, 1) int32, new_cache)."""
+    (B, 1) int32, new_cache). On a sharded model the cache, token and pos
+    are DTensors placed by `launch.specs.cache_shardings` /
+    `batch_shardings` (or plain: the token is put on the batch axes, pos
+    replicated); the token and the cache come back in the same placements.
+    No collective moves the cache (`sharding.cache_face`), and the greedy
+    pick meets each rank's vocab slab's best over the model axis
+    (`sharding.argmax_last`) without gathering the logits."""
     def serve_step(model, cache, token, pos):
-        with api.sharded_scope(model):
-            logits, cache = api.decode_fn(cfg, model, cache, token, pos,
-                                          seq_len, device)
-        new_token = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        logits, cache = api.decode_fn(cfg, model, cache, token, pos,
+                                      seq_len, device)
+        new_token = sharding.argmax_last(logits[:, -1]).to(torch.int32)
         return new_token[:, None], cache
 
     return serve_step

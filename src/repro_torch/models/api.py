@@ -124,11 +124,26 @@ def init_cache(cfg, B, S, device=None) -> dict:
 
 @torch.no_grad()
 def decode_fn(cfg, model, cache, token, pos, S, device=None):
-    """One decode step: (logits (B, 1, V), new_cache). pos: () or (B,)."""
+    """One decode step: (logits (B, 1, V), new_cache). pos: () or (B,).
+    A sharded model (`sharding.distribute_params`) decodes a DTensor
+    cache (`launch.specs.cache_shardings`) in `sharding.dtensor_scope`:
+    each layer reads and writes its cache's slabs where they lie, the new
+    cache keeps their placements, and a plain token is put on the batch
+    axes."""
     fam = _family(cfg)
     dev = _on(model, device)
-    return fam.forward_decode(cfg, model, cache, _ints(token, dev),
-                              _ints(pos, dev), S)
+    token, pos = _ints(token, dev), _ints(pos, dev)
+    mesh = sharding.model_mesh(model)
+    if mesh is None:
+        return fam.forward_decode(cfg, model, cache, token, pos, S)
+    if not all(map(sharding.is_dtensor,
+                   torch.utils._pytree.tree_leaves(cache))):
+        raise ValueError("a sharded model decodes a DTensor cache: place "
+                         "it by launch.specs.decode_shardings")
+    with sharding.dtensor_scope():
+        return fam.forward_decode(cfg, model, cache,
+                                  sharding.distribute_batch(token, mesh),
+                                  pos, S)
 
 
 def param_count(model) -> int:

@@ -224,6 +224,55 @@ def _sdpa(cfg, q, k, v, mask):
     return out.reshape(B, Lq, H, hd)
 
 
+def _sdpa_seq(cfg, q, k, v, mask, seq):
+    """`_sdpa` over a cache whose sequence is sharded (`seq`, a
+    `sharding.SeqShard`; None: `_sdpa` itself): each rank's partial max,
+    sum and output over its block of the keys, met over `seq.group` (the
+    flash-decoding combine). mask covers the rank's keys."""
+    if seq is None:
+        return _sdpa(cfg, q, k, v, mask)
+    B, Lq, H, hd = q.shape
+    KV = k.shape[2]
+    qg = q.reshape(B, Lq, KV, H // KV, hd)
+    logits = torch.einsum("bqkgh,bskh->bkgqs", qg.float(),
+                          k.float()) / math.sqrt(hd)
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    logits = torch.where(mask[:, :, None], logits, flash_ops.NEG_INF)
+    top = sharding.max_over(logits.amax(dim=-1, keepdim=True), seq.group)
+    w = torch.exp(logits - top)
+    den = sharding.sum_over(w.sum(dim=-1, keepdim=True), seq.group)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w.to(v.dtype), v)
+    out = sharding.sum_over(out.float(), seq.group) / den.permute(
+        0, 3, 1, 2, 4)
+    return out.to(v.dtype).reshape(B, Lq, H, hd)
+
+
+def _write_row(c, at, new, seq):
+    """A clone of the cache slab c (B, S, ...) with row `at` (B,) of each
+    batch row set to new (B, ...). On a sequence-sharded slab (`seq`) only
+    the rank whose block holds a row's position writes it, at its offset
+    in the block (the clamped row is rewritten with itself elsewhere)."""
+    c = c.clone()
+    rows = torch.arange(c.shape[0], device=c.device)
+    if seq is None:
+        c[rows, at] = new.to(c.dtype)
+        return c
+    at = at - seq.offset
+    mine = (at >= 0) & (at < c.shape[1])
+    at = at.clamp(0, c.shape[1] - 1)
+    keep = mine.reshape((-1,) + (1,) * (new.ndim - 1))
+    c[rows, at] = torch.where(keep, new.to(c.dtype), c[rows, at])
+    return c
+
+
+# roles of the dims of the decode caches and of their step's tensors
+# (`sharding.cache_face`)
+_KV = {"batch": 0, "seq": 1, "heads": 2}  # (B, S, KV, hd)
+_BH = {"batch": 0, "heads": 2}  # (B, 1, H, hd)
+_B = {"batch": 0}
+_STATE = {"batch": 0, "heads": 1}  # (B, H, ...)
+
+
 def _attend(cfg, q, k, v, causal: bool, window: int):
     """Attention over whole sequences whose positions are aranges (as at
     every call site): q (B, Lq, H, hd), k/v (B, Lk, KV, hd) -> (B, Lq, H,
@@ -286,25 +335,40 @@ def full_attention_train(cfg, p, x, positions, causal: bool = True,
     return out.reshape(B, L, -1) @ p.wo
 
 
+def _full_decode_slab(cfg, window, seq, c, q, k_new, v_new, pos_v):
+    """`full_attention_decode` on one rank's slab of the cache (all of it
+    on one device): write the new row, attend over the slab."""
+    S = c["k"].shape[1]
+    at = pos_v.long()
+    k = _write_row(c["k"], at, k_new[:, 0], seq)
+    v = _write_row(c["v"], at, v_new[:, 0], seq)
+    idx = torch.arange(S, device=q.device)
+    if seq is not None:
+        idx = idx + seq.offset
+    mask = idx[None, None, :] <= pos_v[:, None, None]  # (B, 1, S)
+    if window and window > 0:
+        mask = mask & (idx[None, None, :] > pos_v[:, None, None] - window)
+    return (_sdpa_seq(cfg, q, k, v, mask[:, None], seq),), {"k": k, "v": v}
+
+
 def full_attention_decode(cfg, p, x, pos, cache, window: int = 0,
                           rope: bool = True):
     """One-token decode. cache: {"k", "v"} (B, S, KV, hd); pos: () or (B,)
-    (per-slot positions: each row writes and masks its own cache row)."""
+    (per-slot positions: each row writes and masks its own cache row).
+    A DTensor cache is read and written where it lies
+    (`sharding.cache_face`): its batch over data, its KV heads over model
+    where they divide, or (a batch-1 long context) its sequence over data,
+    each rank then writing only the position its block holds and the
+    softmax met over the blocks."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.head_dim
     pos_v = _positions_vec(pos, B, x.device)
     q, k_new, v_new = _project_qkv(cfg, p, x, pos_v[:, None], rope=rope)
-    S = cache["k"].shape[1]
-    rows, at = torch.arange(B, device=x.device), pos_v.long()
-    k, v = cache["k"].clone(), cache["v"].clone()
-    k[rows, at] = k_new[:, 0].to(k.dtype)
-    v[rows, at] = v_new[:, 0].to(v.dtype)
-    idx = torch.arange(S, device=x.device)
-    mask = idx[None, None, :] <= pos_v[:, None, None]  # (B, 1, S)
-    if window and window > 0:
-        mask = mask & (idx[None, None, :] > pos_v[:, None, None] - window)
-    out = _sdpa(cfg, q, k, v, mask[:, None])
-    return out.reshape(B, 1, H * hd) @ p.wo, {"k": k, "v": v}
+    (out,), new = sharding.cache_face(
+        functools.partial(_full_decode_slab, cfg, window), cache,
+        {"k": _KV, "v": _KV}, (q, k_new, v_new, pos_v), (_BH, _BH, _BH, _B),
+        (_BH,))
+    return out.reshape(B, 1, H * hd) @ p.wo, new
 
 
 def full_attention_prefill(cfg, p, x, positions, lengths, cache,
@@ -339,21 +403,31 @@ def local_attention_decode_init(cfg, B: int, dtype=torch.float32,
                                device=device)}
 
 
+def _local_decode_slab(cfg, seq, c, q, k_new, v_new, pos_v):
+    W = c["k"].shape[1]
+    slot = (pos_v % W).long()
+    k = _write_row(c["k"], slot, k_new[:, 0], None)
+    v = _write_row(c["v"], slot, v_new[:, 0], None)
+    kpos = _write_row(c["kpos"], slot, pos_v, None)
+    mask = (kpos >= 0) & (kpos <= pos_v[:, None])  # the ring is the window
+    return ((_sdpa(cfg, q, k, v, mask[:, None, None, :]),),
+            {"k": k, "v": v, "kpos": kpos})
+
+
 def local_attention_decode(cfg, p, x, pos, cache):
     """Sliding-window decode over the ring (keys roped at their true
-    position when written). pos: () or (B,)."""
+    position when written). pos: () or (B,). A DTensor ring is read and
+    written on each rank's slab (`sharding.cache_face`)."""
     B = x.shape[0]
-    H, hd, W = cfg.num_heads, cfg.head_dim, cfg.local_window
+    H, hd = cfg.num_heads, cfg.head_dim
     pos_v = _positions_vec(pos, B, x.device)
     q, k_new, v_new = _project_qkv(cfg, p, x, pos_v[:, None])
-    rows, slot = torch.arange(B, device=x.device), (pos_v % W).long()
-    k, v, kpos = (cache[n].clone() for n in ("k", "v", "kpos"))
-    k[rows, slot] = k_new[:, 0].to(k.dtype)
-    v[rows, slot] = v_new[:, 0].to(v.dtype)
-    kpos[rows, slot] = pos_v
-    mask = (kpos >= 0) & (kpos <= pos_v[:, None])  # the ring is the window
-    out = _sdpa(cfg, q, k, v, mask[:, None, None, :])
-    return out.reshape(B, 1, H * hd) @ p.wo, {"k": k, "v": v, "kpos": kpos}
+    ring = {"batch": 0, "heads": 2}
+    (out,), new = sharding.cache_face(
+        functools.partial(_local_decode_slab, cfg), cache,
+        {"k": ring, "v": ring, "kpos": _B}, (q, k_new, v_new, pos_v),
+        (_BH, _BH, _BH, _B), (_BH,))
+    return out.reshape(B, 1, H * hd) @ p.wo, new
 
 
 def local_attention_prefill(cfg, p, x, positions, lengths, cache):
@@ -460,23 +534,18 @@ def mla_decode_init(cfg, B: int, S: int, dtype=torch.float32, device=None):
                                  device=device)}
 
 
-def mla_attention_decode(cfg, p, x, pos, cache):
-    """Absorbed decode: the cache holds only (c_kv, k_rope). q_nope is taken
-    through W_uk into the latent space, so scores and values are computed
-    there, in float32: O(S (kv_lora_rank + rope) H) a step."""
-    B = x.shape[0]
-    H, nope, vdim = cfg.num_heads, cfg.qk_nope_dim, cfg.v_head_dim
-    r_kv = cfg.kv_lora_rank
-    pos_v = _positions_vec(pos, B, x.device)
-    positions = pos_v[:, None]
-    q_nope, q_rope = _mla_q(cfg, p, x, positions)  # (B, 1, H, *)
-    ckv_new, krope_new = _mla_latent(cfg, p, x, positions)
-    rows, at = torch.arange(B, device=x.device), pos_v.long()
-    ckv, krope = cache["ckv"].clone(), cache["krope"].clone()
-    ckv[rows, at] = ckv_new[:, 0].to(ckv.dtype)
-    krope[rows, at] = krope_new[:, 0, 0].to(krope.dtype)
+def _mla_decode_slab(cfg, seq, c, q_nope, q_rope, ckv_new, krope_new, pos_v,
+                     w_ukv):
+    """`mla_attention_decode` on one rank's slab: its batch rows, its
+    query heads (w_ukv's columns alike) and, sequence-sharded, its block
+    of the latent cache, the softmax met over the blocks."""
+    nope, vdim = cfg.qk_nope_dim, cfg.v_head_dim
+    H = q_nope.shape[2]
+    at = pos_v.long()
+    ckv = _write_row(c["ckv"], at, ckv_new[:, 0], seq)
+    krope = _write_row(c["krope"], at, krope_new[:, 0, 0], seq)
     with record_function("mla.absorbed"):
-        w_ukv = p.w_ukv.reshape(r_kv, H, nope + vdim).float()
+        w_ukv = w_ukv.reshape(w_ukv.shape[0], H, nope + vdim).float()
         w_uk, w_uv = w_ukv[..., :nope], w_ukv[..., nope:]
         q_lat = torch.einsum("blhn,rhn->blhr", q_nope.float(), w_uk)
         ckv_f = ckv.float()
@@ -484,15 +553,48 @@ def mla_attention_decode(cfg, p, x, pos, cache):
                   + torch.einsum("blhr,bsr->bhls", q_rope.float(),
                                  krope.float())
                   ) / math.sqrt(nope + cfg.qk_rope_dim)
-        S = ckv.shape[1]
-        mask = (torch.arange(S, device=x.device)[None, None, None, :]
-                <= pos_v[:, None, None, None])
-        w = torch.softmax(torch.where(mask, logits, flash_ops.NEG_INF),
-                          dim=-1)
-        out_lat = torch.einsum("bhls,bsr->blhr", w, ckv_f)
+        idx = torch.arange(ckv.shape[1], device=q_nope.device)
+        if seq is not None:
+            idx = idx + seq.offset
+        mask = idx[None, None, None, :] <= pos_v[:, None, None, None]
+        logits = torch.where(mask, logits, flash_ops.NEG_INF)
+        if seq is None:
+            w = torch.softmax(logits, dim=-1)
+            out_lat = torch.einsum("bhls,bsr->blhr", w, ckv_f)
+        else:
+            top = sharding.max_over(logits.amax(dim=-1, keepdim=True),
+                                    seq.group)
+            w = torch.exp(logits - top)
+            den = sharding.sum_over(w.sum(dim=-1, keepdim=True), seq.group)
+            out_lat = sharding.sum_over(torch.einsum(
+                "bhls,bsr->blhr", w, ckv_f), seq.group) / den.permute(
+                0, 2, 1, 3)
         out = torch.einsum("blhr,rhv->blhv", out_lat, w_uv)
+    return (out,), {"ckv": ckv, "krope": krope}
+
+
+def mla_attention_decode(cfg, p, x, pos, cache):
+    """Absorbed decode: the cache holds only (c_kv, k_rope). q_nope is taken
+    through W_uk into the latent space, so scores and values are computed
+    there, in float32: O(S (kv_lora_rank + rope) H) a step. A DTensor
+    latent cache is read and written where it lies
+    (`sharding.cache_face`): its batch over data, or its sequence; the
+    query heads stay over model, where the cache (no heads dim) is
+    replicated."""
+    B = x.shape[0]
+    H, vdim = cfg.num_heads, cfg.v_head_dim
+    pos_v = _positions_vec(pos, B, x.device)
+    positions = pos_v[:, None]
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)  # (B, 1, H, *)
+    ckv_new, krope_new = _mla_latent(cfg, p, x, positions)
+    lat = {"batch": 0, "seq": 1}
+    (out,), new = sharding.cache_face(
+        functools.partial(_mla_decode_slab, cfg), cache,
+        {"ckv": lat, "krope": lat},
+        (q_nope, q_rope, ckv_new, krope_new, pos_v, p.w_ukv),
+        (_BH, _BH, _B, _B, _B, {"heads": 1}), (_BH,))
     out = out.to(x.dtype).reshape(B, 1, H * vdim) @ p.wo
-    return out, {"ckv": ckv, "krope": krope}
+    return out, new
 
 
 def mla_attention_prefill(cfg, p, x, positions, lengths, cache):
@@ -574,19 +676,25 @@ def performer_attention_train(cfg, p, x, positions, causal: bool = True):
     return _performer_attend(cfg, p, x, qf, kf, v, causal)
 
 
+def _performer_decode_slab(seq, c, qf, kf, v):
+    S = c["S"] + kf[..., None] * v.float()[..., None, :]
+    z = c["z"] + kf
+    num = torch.einsum("bhm,bhmv->bhv", qf, S)
+    den = torch.einsum("bhm,bhm->bh", qf, z)
+    return (linear_attention_output(num, den),), {"S": S, "z": z}
+
+
 def performer_attention_decode(cfg, p, x, pos, cache):
+    """The O(1) linear-attention state step; a DTensor state on each
+    rank's (batch, heads) slab (`sharding.cache_face`)."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.head_dim
     pos_v = _positions_vec(pos, B, x.device)
     qf, kf, v = _performer_fields(cfg, p, x, pos_v[:, None])
-    qf, kf = qf[:, 0], kf[:, 0]
-    S = cache["S"] + kf[..., None] * v[:, 0].float()[..., None, :]
-    z = cache["z"] + kf
-    num = torch.einsum("bhm,bhmv->bhv", qf, S)
-    den = torch.einsum("bhm,bhm->bh", qf, z)
-    out = linear_attention_output(num, den).to(x.dtype).reshape(
-        B, 1, H * hd) @ p.wo
-    return out, {"S": S, "z": z}
+    (out,), new = sharding.cache_face(
+        _performer_decode_slab, cache, {"S": _STATE, "z": _STATE},
+        (qf[:, 0], kf[:, 0], v[:, 0]), (_STATE,) * 3, (_STATE,))
+    return out.to(x.dtype).reshape(B, 1, H * hd) @ p.wo, new
 
 
 def performer_attention_prefill(cfg, p, x, positions, lengths, cache):
@@ -814,7 +922,9 @@ def topo_attention_decode(cfg, p, p_topo, x, pos, cache, L: int,
                           rank: int = 24):
     """O(1)-state masked linear attention decode step. x: (B, 1, d);
     pos: () or (B,): alpha/beta are evaluated per slot position, so slots
-    at different sequence depths share one batched step."""
+    at different sequence depths share one batched step. The state
+    (B, H, R, m, hd) has no sequence dim: a DTensor state steps on each
+    rank's (batch, heads) slab (`sharding.cache_face`)."""
     B = x.shape[0]
     H, hd = cfg.num_heads, cfg.head_dim
     pos_v = _positions_vec(pos, B, x.device)
@@ -826,16 +936,22 @@ def topo_attention_decode(cfg, p, p_topo, x, pos, cache, L: int,
     coeffs = topo_mask_coeffs(cfg, p_topo)
     alpha, beta, R = topo_decomposition(cfg, coeffs, L, rank)
     pos_f = pos_v.float()
-    b = beta(pos_f)  # (B, H, R)
-    S = cache["S"] + b[:, :, :, None, None] * (
-        kf[:, :, None, :, None] * v[:, 0].float()[:, :, None, None, :])
-    z = cache["z"] + b[:, :, :, None] * kf[:, :, None, :]
-    a = alpha(pos_f)  # (B, H, R)
+    (out,), new = sharding.cache_face(
+        _topo_decode_slab, cache, {"S": _STATE, "z": _STATE},
+        (qf, kf, v[:, 0], beta(pos_f), alpha(pos_f)), (_STATE,) * 5,
+        (_STATE,))
+    return out.to(x.dtype).reshape(B, 1, H * hd) @ p.wo, new
+
+
+def _topo_decode_slab(seq, c, qf, kf, v, b, a):
+    """The cordial state step on one rank's (batch, heads) slab; b, a:
+    beta and alpha at the slots' positions (B, H, R)."""
+    S = c["S"] + b[:, :, :, None, None] * (
+        kf[:, :, None, :, None] * v.float()[:, :, None, None, :])
+    z = c["z"] + b[:, :, :, None] * kf[:, :, None, :]
     num = torch.einsum("bhm,bhrmv,bhr->bhv", qf, S, a)
     den = torch.einsum("bhm,bhrm,bhr->bh", qf, z, a)
-    out = linear_attention_output(num, den).to(x.dtype).reshape(
-        B, 1, H * hd) @ p.wo
-    return out, {"S": S, "z": z}
+    return (linear_attention_output(num, den),), {"S": S, "z": z}
 
 
 def topo_attention_prefill(cfg, p, p_topo, x, positions, lengths, cache,

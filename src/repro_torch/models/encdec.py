@@ -29,7 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.launch import sharding
-from repro_torch.launch.sharding import shard
+from repro_torch.launch.sharding import shard, split_heads
 from repro_torch.models import attention as A
 from repro_torch.models import lm
 from repro_torch.models.layers import (Params, cross_entropy_loss,
@@ -200,14 +200,15 @@ def forward_decode(cfg, model, cache, token, pos, S):
     """token: (B, 1); pos: () or (B,). Returns (logits (B, 1, V),
     new_cache): self-attention through each layer's cache, cross-attention
     (q without bias or rope, as the reference's) over the cache's cross
-    memory."""
-    x = model.embed.table[token]
+    memory. A DTensor cache is read and written on each rank's slabs
+    (`sharding.cache_face`), keeping its placements."""
+    x = embed_lookup(model.embed.table, token)
     B, H, hd = token.shape[0], cfg.num_heads, cfg.head_dim
     Sm = cache["cross_k"].shape[2]
     mem_mask = torch.ones((1, 1, 1, Sm), dtype=torch.bool, device=x.device)
     new_self = []
     for layer, p in enumerate(model.blocks_dec):
-        c = {k: t[layer] for k, t in cache["self"].items()}
+        c = {k: sharding.unstack(t, layer) for k, t in cache["self"].items()}
         h = _norm(cfg, x, p.attn_norm)
         if cfg.attention_variant == "topo":
             y, c = A.topo_attention_decode(cfg, p.attn, p.topo, h, pos, c,
@@ -219,12 +220,16 @@ def forward_decode(cfg, model, cache, token, pos, S):
         new_self.append(c)
         x = x + y
         h = _norm(cfg, x, p.cross_norm)
-        q = (h @ p.cross_attn.wq).reshape(B, 1, H, hd)
-        y = A._sdpa(cfg, q, cache["cross_k"][layer], cache["cross_v"][layer],
-                    mem_mask)
+        q = split_heads(h @ p.cross_attn.wq, (B, 1, H, hd))
+        mem = {"k": sharding.unstack(cache["cross_k"], layer),
+               "v": sharding.unstack(cache["cross_v"], layer)}
+        (y,), _ = sharding.cache_face(
+            lambda seq, c, q: ((A._sdpa_seq(cfg, q, c["k"], c["v"],
+                                            mem_mask, seq),), c),
+            mem, {"k": A._KV, "v": A._KV}, (q,), (A._BH,), (A._BH,))
         x = _mlp(cfg, p, x + y.reshape(B, 1, -1) @ p.cross_attn.wo)
     logits = _norm(cfg, x, model.final_norm) @ model.lm_head.kernel
     new = dict(cache)
-    new["self"] = {k: torch.stack([c[k] for c in new_self])
+    new["self"] = {k: sharding.stack([c[k] for c in new_self])
                    for k in new_self[0]}
     return logits, new

@@ -217,3 +217,20 @@ def _sharded_cross_entropy(logits, labels, vocab_size: int, z_loss: float):
               for j in range(mesh.ndim)]
     return sharding.local_face(local_ce, (logits, labels), (pl, lab_pl),
                                out_pl)
+
+
+def causal_conv_step(conv, xin, w, b):
+    """One decode step of a causal depthwise conv: conv (B, K-1, C) the
+    last inputs, xin (B, 1, C) the new one, w (C, K), b (C,). Returns
+    (out (B, C), the new conv buffer). A DTensor buffer steps on each
+    rank's (batch, channels) slab (`sharding.cache_face`)."""
+    def slab(seq, c, xin, w, b):
+        buf = torch.cat([c["conv"], xin.to(c["conv"].dtype)], dim=1)
+        xc = torch.einsum("bkc,ck->bc", buf[:, -w.shape[1]:], w) + b
+        return (xc,), {"conv": buf[:, 1:]}
+
+    (xc,), new = sharding.cache_face(
+        slab, {"conv": conv}, {"conv": {"batch": 0, "heads": 2}},
+        (xin, w, b), ({"batch": 0, "heads": 2}, {"heads": 0}, {"heads": 0}),
+        ({"batch": 0, "heads": 1},))
+    return xc, new["conv"]

@@ -585,23 +585,25 @@ def _over_layers(cfg, model, cache, step):
         path, kind, j, stacked, count = where[layer]
         c = _node(cache, path)
         out = step(kind, model.blocks[layer],
-                   {k: t[j] for k, t in c.items()} if stacked else c)
+                   {k: sharding.unstack(t, j) for k, t in c.items()}
+                   if stacked else c)
         if not stacked:
             _put(new, path, out)
             continue
-        if j == 0:
-            _put(new, path, {k: torch.empty((count,) + tuple(t.shape),
-                                            dtype=t.dtype, device=t.device)
+        if j == 0:  # a DTensor stack takes the old slab's placements
+            _put(new, path, {k: sharding.empty_stack(t, count)
                              for k, t in out.items()})
         for k, t in out.items():
-            _node(new, path)[k][j].copy_(t)
+            sharding.local(_node(new, path)[k])[j].copy_(sharding.local(t))
         del out
     return new
 
 
 def forward_decode(cfg, model, cache, token, pos, S):
     """token: (B, 1) int; pos: () or (B,) int. Returns (logits (B, 1, V),
-    new_cache)."""
+    new_cache). On a sharded model the cache is a tree of DTensors
+    (`launch.specs.cache_shardings`); each layer reads and writes its
+    slabs where they lie, and the new cache keeps their placements."""
     x = embed_tokens(cfg, model, token)
 
     def step(kind, blk, c):

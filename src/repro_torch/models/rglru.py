@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.selective_scan.ops import _assoc_scan
 from repro_torch.launch import sharding
 from repro_torch.launch.sharding import shard
-from repro_torch.models.layers import Params, dense_init
+from repro_torch.models.layers import Params, causal_conv_step, dense_init
 
 _RGLRU_C = 8.0
 CONV_K = 4  # the causal conv's width
@@ -140,14 +140,22 @@ def lru_decode_init(cfg, B: int, dtype=torch.float32, device=None) -> dict:
             "h": torch.zeros((B, w), dtype=torch.float32, device=device)}
 
 
+def _state_slab(seq, c, a, u, gz):
+    """h <- a h + u and the gated output h gz on one rank's slab."""
+    h = a * c["h"] + u
+    return (h.to(gz.dtype) * gz,), {"h": h}
+
+
 def lru_block_decode(cfg, p, x, cache):
-    """x: (B, 1, d). Returns (y (B, 1, d), new cache)."""
+    """x: (B, 1, d). Returns (y (B, 1, d), new cache). A DTensor cache
+    steps on each rank's (batch, channels) slab (`sharding.cache_face`)."""
     xin, z = _split(p, x)
-    conv_buf = torch.cat([cache["conv"], xin.to(cache["conv"].dtype)], dim=1)
-    K = p.conv_w.shape[1]
-    xc = torch.einsum("bkc,ck->bc", conv_buf[:, -K:], p.conv_w) + p.conv_b
+    xc, conv = causal_conv_step(cache["conv"], xin, p.conv_w, p.conv_b)
     r, i = _gates(p, xc)
     a, s = _decay(p, r)
-    h = a * cache["h"] + s * (i * xc.float())
-    y = (h.to(x.dtype) * F.gelu(z[:, 0], approximate="tanh"))[:, None, :]
-    return y @ p.out_proj, {"conv": conv_buf[:, 1:], "h": h}
+    ch = {"batch": 0, "heads": 1}
+    (y,), new = sharding.cache_face(
+        _state_slab, {"h": cache["h"]}, {"h": ch},
+        (a, s * (i * xc.float()), F.gelu(z[:, 0], approximate="tanh")),
+        (ch, ch, ch), (ch,))
+    return y[:, None, :] @ p.out_proj, {"conv": conv, "h": new["h"]}

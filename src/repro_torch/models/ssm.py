@@ -19,7 +19,7 @@ from repro_torch.kernels.selective_scan import ops as scan_ops
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 from repro_torch.launch import sharding
 from repro_torch.launch.sharding import shard
-from repro_torch.models.layers import Params, dense_init
+from repro_torch.models.layers import Params, causal_conv_step, dense_init
 
 SCAN_IMPLS = ("naive", "chunked", "cuda")  # cfg.attn_impl
 
@@ -157,23 +157,36 @@ def mamba_decode_init(cfg, B: int, dtype=torch.float32, device=None):
             "h": torch.zeros((B, din, N), dtype=torch.float32, device=device)}
 
 
+def _state_slab(seq, c, dA, dBu, Cm, xc, D, gate):
+    """The selective state step h <- dA h + dBu, y = (h C + D xc) gate on
+    one rank's (batch, channels) slab."""
+    h = dA.float() * c["h"] + dBu.float()
+    y = torch.einsum("bdn,bn->bd", h, Cm.float())
+    return ((y + xc.float() * D).to(gate.dtype) * gate,), {"h": h}
+
+
 def mamba_block_decode(cfg, p, x, cache):
     """x: (B, 1, d); the O(1) state update, in the reference's dtypes (dt
-    and (dt u) B in the model dtype, the state in float32)."""
-    N, K = cfg.ssm_state, cfg.ssm_conv
+    and (dt u) B in the model dtype, the state in float32). A DTensor
+    cache steps on each rank's (batch, channels) slab
+    (`sharding.cache_face`)."""
+    N = cfg.ssm_state
     xin, z = (x @ p.in_proj).chunk(2, dim=-1)  # (B, 1, din)
-    conv_buf = torch.cat([cache["conv"], xin.to(cache["conv"].dtype)], dim=1)
-    xc = torch.einsum("bkc,ck->bc", conv_buf[:, -K:], p.conv_w) + p.conv_b
+    xc, conv = causal_conv_step(cache["conv"], xin, p.conv_w, p.conv_b)
     xc = F.silu(xc)[:, None, :]  # (B, 1, din)
     r = p.dt_proj.shape[0]
-    proj = xc @ p.x_proj
+    # (B, 1, r + 2N) whole on every channel rank (one token-sized
+    # reduction), so that dBu below is formed on each rank's channels
+    # instead of summed as a (B, din, N) partial
+    proj = shard(xc @ p.x_proj, ("batch", None, None))
     dt_low, Bm, Cm = proj[..., :r], proj[..., r:r + N], proj[..., r + N:]
     dt = _softplus(dt_low @ p.dt_proj + p.dt_bias)  # (B, 1, din)
     A = -torch.exp(p.A_log.float())
     dA = torch.exp(dt[..., None] * A)[:, 0]  # (B, din, N)
     dBu = ((dt * xc)[..., None] * Bm[:, :, None, :])[:, 0]
-    h = dA.float() * cache["h"] + dBu.float()
-    y = torch.einsum("bdn,bn->bd", h, Cm[:, 0].float())
-    y = (y + xc[:, 0].float() * p.D).to(x.dtype)
-    y = (y * F.silu(z[:, 0]))[:, None, :]
-    return y @ p.out_proj, {"conv": conv_buf[:, 1:], "h": h}
+    ch = {"batch": 0, "heads": 1}
+    (y,), new = sharding.cache_face(
+        _state_slab, {"h": cache["h"]}, {"h": ch},
+        (dA, dBu, Cm[:, 0], xc[:, 0], p.D, F.silu(z[:, 0])),
+        (ch, ch, {"batch": 0}, ch, {"heads": 0}, ch), (ch,))
+    return y[:, None, :] @ p.out_proj, {"conv": conv, "h": new["h"]}

@@ -242,10 +242,12 @@ def init_params(cfg, seed=0, num_classes: int = 1000, patch_dim: int = 768,
 # ----------------------------------------------------------------------------
 
 
-def topo_vit_attention(cfg, p, x, plan, backend: str):
+def topo_vit_attention(cfg, p, x, plan, backend: str, rows=None):
     """Grid-MST masked linear attention of one block `p` over x (B, L, d).
     cfg.topo_attn_impl "ref" materializes the dense tree mask (the oracle);
-    every other impl runs Algorithm 1 with the plan FastMult on `backend`."""
+    every other impl runs Algorithm 1 with the plan FastMult on `backend`.
+    `rows` (`_Rows`): x is this rank's row block of the tokens, and the
+    mask fastmults run the multi-rank executor on row blocks."""
     B, L, _ = x.shape
     q, k, v = A._project_qkv(cfg, p.attn, x, None, rope=False)
     scale = A.topo_logit_scale(cfg, p.topo)  # (H,)
@@ -265,19 +267,48 @@ def topo_vit_attention(cfg, p, x, plan, backend: str):
     else:
         fastmult = make_tree_fastmult(
             plan, cfg.topo_g, coeffs, cfg.topo_dist_scale, backend=backend,
-            device=x.device, sharded=cfg.topo_shard_plan)
+            device=x.device, mesh=None if rows is None else rows.mesh)
         out = masked_linear_attention(qf_, kf_, v_, fastmult)
     out = out.transpose(1, 2).reshape(B, L, -1).to(x.dtype)
     return out @ p.attn.wo
+
+
+class _Rows:
+    """The tokens sharded by rows over the plan axis of `mesh`: rank k
+    holds rows [lo, hi) of L (`collectives.row_bounds`, the plan
+    executor's blocks). Every op of a block but the mask fastmults is
+    row-wise, so the tokens stay sharded by rows from the patch projection
+    to the pooling, and each integrate takes and returns row blocks."""
+
+    def __init__(self, mesh, L: int):
+        from repro_torch.launch import collectives
+
+        self.mesh, self.L = mesh, L
+        self.axis = sharding.plan_axis(mesh)
+        self.group = sharding.axis_group(mesh, self.axis)
+        self.lo, self.hi = collectives.row_bounds(
+            L, sharding.axis_size(mesh, self.axis),
+            sharding.axis_rank(mesh, self.axis))
+
+
+def _row_mesh(mesh):
+    """`mesh` where its plan axis has more than one rank (the mask
+    fastmults then run the multi-rank executor over it), else None."""
+    if mesh is None or sharding.axis_size(mesh, sharding.plan_axis(mesh)) < 2:
+        return None
+    return mesh
 
 
 def _masked_attention_sharded(cfg, plan, backend, qf, kf, v, coeffs):
     """Alg. 1 on DTensor fields (B, H, L, .) of a sharded model, on each
     rank's slab (`sharding.slab_face`): the batch over the data axes, the
     heads over the model axis. With cfg.topo_shard_plan the heads are
-    first gathered over the model axis and the mask fastmult runs the
-    multi-rank executor over that axis (its ranks then hold one field
-    alike, which the plan executor needs); the batch stays sharded."""
+    first gathered over the model axis and the mask fastmults run the
+    multi-rank executor over that axis on row blocks: each rank of it
+    computes Alg. 1 for its rows (cut from the replicated fields with no
+    collective; their grads gathered back), and the attention output is
+    gathered over the rows once, since the output projection's weights
+    are sharded over the same axis by heads. The batch stays sharded."""
     mesh = qf.device_mesh
     plan_mesh = None
     if cfg.topo_shard_plan:
@@ -285,13 +316,27 @@ def _masked_attention_sharded(cfg, plan, backend, qf, kf, v, coeffs):
                      for t in (qf, kf, v))
         rest = [a for a in sharding.mesh_axes(mesh)
                 if a not in (sharding.batch_axes() or ())]
-        plan_mesh = mesh[rest[0]] if rest else None
+        plan_mesh = _row_mesh(mesh[rest[0]]) if rest else None
 
     def local(q, k, vv, c):
-        fastmult = make_tree_fastmult(
-            plan, cfg.topo_g, c, cfg.topo_dist_scale, backend=backend,
-            device=q.device, sharded=plan_mesh is not None, mesh=plan_mesh)
-        return masked_linear_attention(q, k, vv, fastmult)
+        fm = make_tree_fastmult(plan, cfg.topo_g, c, cfg.topo_dist_scale,
+                                backend=backend, device=q.device,
+                                mesh=plan_mesh)
+        if plan_mesh is None:
+            return masked_linear_attention(q, k, vv, fm)
+        from torch.distributed.tensor import DTensor, Replicate, Shard
+
+        from repro_torch.launch import collectives
+
+        def cut(t):  # the rank's rows of a field alike on the plan axis
+            return DTensor.from_local(t, plan_mesh, [Replicate()],
+                                      run_check=False).redistribute(
+                plan_mesh, [Shard(2)]).to_local()
+
+        out = masked_linear_attention(cut(q), cut(k), cut(vv), fm)
+        return collectives.rows_dtensor(out, plan_mesh,
+                                        sharding.plan_axis(plan_mesh),
+                                        q.shape[2], 2).full_tensor()
 
     return sharding.slab_face(local, (qf, kf, v, coeffs),
                               ((0, 1),) * 3 + ((None, None),), (0, 1))
@@ -308,7 +353,8 @@ def forward(cfg, model, patches, plan=None, *, backend: str | None = None,
     `torch.no_grad()`. `cfg.topo_shard_plan` runs each mask fastmult on the
     multi-rank plan executor over the active `launch.sharding` mesh (leaf
     blocks over its plan axis); the model and the patches are replicated,
-    so every rank returns the same logits. With no mesh, or one rank on
+    the tokens run sharded by rows over the plan axis (`_forward_rows`),
+    and every rank returns the same logits. With no mesh, or one rank on
     its plan axis, it runs the single-device executor.
 
     A sharded model (`sharding.distribute_params`) takes the patches'
@@ -334,20 +380,57 @@ def forward(cfg, model, patches, plan=None, *, backend: str | None = None,
         with api.sharded_scope(model):
             return _forward(cfg, model, sharding.distribute_batch(x, mesh),
                             plan, backend, topo)
+    row_mesh = (_row_mesh(sharding.current_mesh())
+                if topo and cfg.topo_shard_plan
+                and cfg.topo_attn_impl != "ref" else None)
+    if row_mesh is not None:
+        return _forward_rows(cfg, model, x, plan, backend,
+                             _Rows(row_mesh, x.shape[1]))
     return _forward(cfg, model, x, plan, backend, topo)
 
 
-def _forward(cfg, model, x, plan, backend, topo):
+def _forward(cfg, model, x, plan, backend, topo, rows=None):
+    """The blocks, the final norm and the pooled head. With `rows` x holds
+    this rank's rows of the tokens; the pooling sums the rows over the
+    plan axis (one all_reduce of (B, d))."""
     x = x @ model.patch_proj.kernel
-    x = x + model.patch_proj.bias + model.pos_embed[None]
+    pos = model.pos_embed if rows is None else model.pos_embed[
+        rows.lo:rows.hi]
+    x = x + model.patch_proj.bias + pos[None]
     for blk in model.blocks:
         h = rms_norm(x, blk.attn_norm.scale, cfg.norm_eps, plus_one=True)
         if topo:
-            x = x + topo_vit_attention(cfg, blk, h, plan, backend)
+            x = x + topo_vit_attention(cfg, blk, h, plan, backend, rows)
         else:
             x = x + A.performer_attention_train(cfg, blk.attn, h, None,
                                                 causal=False)
         h = rms_norm(x, blk.mlp_norm.scale, cfg.norm_eps, plus_one=True)
         x = x + gated_mlp(blk.mlp, h, cfg.mlp_act)
     x = rms_norm(x, model.final_norm.scale, cfg.norm_eps, plus_one=True)
-    return x.mean(dim=1) @ model.head.kernel + model.head.bias
+    if rows is None:
+        pooled = x.mean(dim=1)
+    else:
+        pooled = sharding.sum_over(x.sum(dim=1), rows.group) / rows.L
+    return pooled @ model.head.kernel + model.head.bias
+
+
+def _forward_rows(cfg, model, x, plan, backend, rows):
+    """`_forward` of a replicated model with the tokens sharded by rows
+    over the plan axis (cfg.topo_shard_plan under a mesh): each rank
+    takes its rows of the patches and every rank returns the same logits.
+    A rank reads the weights before the pooling on its own rows only, so
+    they pass through `collectives.replicated` (their grads summed over the
+    plan axis in the backward); the mask coefficients are summed inside
+    the fastmult (`make_tree_fastmult`) and the head's grads are whole on
+    every rank."""
+    from torch.nn.utils.stateless import _reparametrize_module
+
+    from repro_torch.launch import collectives
+
+    names = [n for n, _ in model.named_parameters()
+             if not n.startswith("head.") and not n.endswith("topo.coeffs")]
+    params = dict(model.named_parameters())
+    summed = collectives.replicated([params[n] for n in names], rows.group)
+    with _reparametrize_module(model, dict(zip(names, summed))):
+        return _forward(cfg, model, x[:, rows.lo:rows.hi], plan, backend,
+                        True, rows)

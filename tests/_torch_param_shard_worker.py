@@ -125,10 +125,13 @@ def _vit_case(c: dict, mesh) -> dict:
     with sharding.use_sharding(mesh):
         sharding.distribute_params(model, mesh)
         with sharding.dtensor_scope():
-            logits = vit.forward(cfg_s, model, c["patches"], plan,
-                                 device=CPU)
+            census = sharding.CollectiveCensus(keep=True)
+            with census:
+                logits = vit.forward(cfg_s, model, c["patches"], plan,
+                                     device=CPU)
             (logits * torch.as_tensor(c["W"])).sum().backward()
     return {"single_logits": ref.detach().numpy(), "logits": _np(logits),
+            "forward_sent": [tuple(t.shape) for t in census.sent],
             "single_coeff_grads": np.stack([b.topo.coeffs.grad.numpy()
                                             for b in single.blocks]),
             "placements": str(logits.placements),

@@ -58,6 +58,9 @@ class _Census:
 
 
 def _np(t):
+    """numpy of a tensor; a DTensor (the sharded executor's rows) whole."""
+    if sharding.is_dtensor(t):
+        t = t.full_tensor()
     return t.detach().cpu().numpy()
 
 
@@ -77,7 +80,7 @@ def _grads(spec, params, fn, X, mesh):
         leaf_dists=tuple(t.clone().requires_grad_(True)
                          for t in params.leaf_dists))
     Y = T.apply_sharded(spec, p, fn, X, mesh=mesh, device=CPU)
-    (Y * Y).sum().backward()
+    (Y.full_tensor() ** 2).sum().backward()
     return {"X": _np(X.grad),
             "cross_tgt_d": [_np(t.grad) for t in p.cross_tgt_d],
             "cross_src_d": [_np(t.grad) for t in p.cross_src_d],
@@ -92,6 +95,29 @@ def _face_grads(face, args, W):
     return [_np(g) for g in grads]
 
 
+def _rows_case(spec, params, X, mesh) -> dict:
+    """The field sharded by rows: a `Shard(0)` DTensor X and the plain X
+    give the same rows; the result's placements and local block; the
+    grads of sum(Y^2) in the row-sharded X (each rank its rows)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    fn = _fn("exp")
+    Xt = torch.as_tensor(X)
+    Xs = DTensor.from_local(Xt, mesh, [Replicate()], run_check=False
+                            ).redistribute(mesh, [Shard(0)])
+    with _Census() as c, torch.no_grad():
+        Y = T.apply_sharded(spec, params, fn, Xs, mesh=mesh, device=CPU)
+    plain = T.apply_sharded(spec, params, fn, Xt, mesh=mesh, device=CPU)
+    Xg = Xs.detach().requires_grad_(True)
+    Yg = T.apply_sharded(spec, params, fn, Xg, mesh=mesh, device=CPU)
+    (Yg.to_local() ** 2).sum().backward()
+    return {"placements": [repr(p) for p in Y.placements],
+            "local": _np(Y.to_local()), "plain_local": _np(plain.to_local()),
+            "whole": _np(Y), "census": c.summary(),
+            "grad_placements": [repr(p) for p in Xg.grad.placements],
+            "grad_local": _np(Xg.grad.to_local()), "grad_X": _np(Xg.grad)}
+
+
 def rank_main(case: dict) -> dict:
     """Every sharded case of the test on this rank."""
     torch.manual_seed(0)
@@ -104,10 +130,12 @@ def rank_main(case: dict) -> dict:
     for name in ("exp", "cheb"):
         with _Census() as c:
             with torch.no_grad():
-                out[f"tree_{name}"] = _np(T.apply_sharded(
-                    spec, params, _fn(name), X, mesh=mesh, device=CPU))
+                Y = T.apply_sharded(spec, params, _fn(name), X, mesh=mesh,
+                                    device=CPU)
         out[f"census_{name}"] = c.summary()
+        out[f"tree_{name}"] = _np(Y)
     out["grads"] = _grads(spec, params, _fn("exp"), X, mesh)
+    out["rows"] = _rows_case(spec, params, X, mesh)
     with sharding.use_sharding(mesh), torch.no_grad():
         pr = T.reweight(spec, torch.as_tensor(case["edge_w"]))
         out["reweighted"] = _np(T.apply_sharded(spec, pr, _fn("exp"), X))
@@ -131,7 +159,7 @@ def rank_main(case: dict) -> dict:
         got = T.apply_sharded(spec, params, _fn("exp"), X, mesh=mesh1,
                               device=CPU)
         want = T.apply(spec, params, _fn("exp"), X, device=CPU)
-    out["world1_equal"] = bool(torch.equal(got, want))
+    out["world1_equal"] = bool(torch.equal(got.full_tensor(), want))
 
     # the kernel faces, on the ("data",) mesh of 4 and a (2, 2) mesh
     from repro_torch.kernels.fdist_matvec import ops as fdist_ops

@@ -11,8 +11,11 @@ independence of the route a kernel takes: each kernel wrapper's forward
 records the same work on real and on fake CPU tensors; a fake CUDA tensor
 takes the plain version by the wrapper's explicit test and never the CUDA
 launch (a CPU-only torch runs few ops on fake CUDA tensors, so the plain
-versions are stubbed there); and the dry run's count of a train step
-equals the count of the same step run live on CPU tensors.
+versions are stubbed there); and the dry run's count of a train step and
+of a decode step equals the count of the same step run live on CPU
+tensors. A decode cell (`tiny_decode`, B = 8, and `tiny_long`, B = 1 with
+the cache's sequence over data) is counted: one `make_serve_step` call,
+its argument bytes the parameters' and the cache's slabs.
 """
 from __future__ import annotations
 
@@ -67,6 +70,13 @@ def _argument_bytes(mesh):
     """Parameters + mu + nu (AdamW's state, in the parameters' dtype) by
     their slabs, AdamW's int32 step, and the tokens' slab (int32 over the
     data axis), from the reference's parameter shapes."""
+    tokens = TINY["tiny_train"]["global_batch"] // 2 * 64 * 4
+    return 3 * _param_bytes(mesh) + 4 + tokens
+
+
+def _param_bytes(mesh):
+    """The parameters' slabs by the reference's parameter shapes and the
+    port's `PARAM_RULES`."""
     rcfg = RB.get_smoke_config("llama3_2_1b")
     shapes = jax.eval_shape(lambda: RA.init_params(rcfg,
                                                    jax.random.PRNGKey(0)))
@@ -91,8 +101,7 @@ def _argument_bytes(mesh):
                 if a is not None:
                     shards *= sharding.axis_size(mesh, a)
         total += math.prod(shape) * itemsize // shards
-    tokens = TINY["tiny_train"]["global_batch"] // 2 * 64 * 4
-    return 3 * total + 4 + tokens
+    return total
 
 
 def test_dry_run_counts_flops_and_collectives(train):
@@ -208,16 +217,45 @@ def test_analyze_cell_extrapolates_on_request(shapes, monkeypatch):
                                                     rel=1e-12)
 
 
-def test_decode_cells_are_refused_before_anything_is_built(shapes):
-    """No sharded serving in the port: a decode cell is refused up front,
-    by its kind, for any arch."""
+def _slab_bytes(shape, itemsize, pls, mesh) -> int:
+    shards = 1
+    for j, pl in enumerate(pls):
+        if pl.is_shard():
+            shards *= mesh.size(j)
+    return math.prod(shape) * itemsize // shards
+
+
+@pytest.mark.parametrize("shape", ["tiny_decode", "tiny_long"])
+def test_dry_run_counts_a_decode_cell(shapes, shape):
+    """One `make_serve_step` call on a (2, 4) fake group: flops and
+    collectives counted, the argument bytes the parameters' slabs (as the
+    train cell's, without AdamW) plus the cache's slabs by the
+    reference's cache shapes (jax.eval_shape of its init_cache) under
+    `batch_shardings`' placements, plus the token's and pos's."""
+    from repro_torch.launch.specs import batch_shardings
+
+    sh = TINY[shape]
+    B, S = sh["global_batch"], sh["seq_len"]
+    rcfg = RB.get_smoke_config("llama3_2_1b")
+    rcache = jax.eval_shape(lambda: RA.init_cache(rcfg, B, S))
     with dryrun.fake_group(8):
         mesh = make_local_mesh(2, 4, device_type="cpu")
-        for shape in ("tiny_decode", "tiny_long"):
-            with pytest.raises(NotImplementedError, match="sharded serving"):
-                dryrun.lower_cell_cfg(_cfg(), shape, mesh)
-            with pytest.raises(NotImplementedError, match="sharded serving"):
-                dryrun.analyze_cell("llama3_2_1b", shape, mesh, "2x4")
+        rec = dryrun.lower_cell_cfg(_cfg(), shape, mesh).record()
+        params = _param_bytes(mesh)
+        with sharding.use_sharding(mesh):
+            pls = batch_shardings(_cfg(), shape, mesh)
+    cache = 0
+    for path, leaf in jax.tree_util.tree_leaves_with_path(rcache):
+        node = pls["cache"]
+        for key in path:
+            node = node[key.key]
+        cache += _slab_bytes(leaf.shape, leaf.dtype.itemsize, node, mesh)
+    token = _slab_bytes((B, 1), 4, pls["token"], mesh)
+    assert rec["flops"] > 0 and rec["bytes_accessed"] > 0
+    assert rec["collectives"]["counts"] and rec["collective_bytes"] > 0
+    assert rec["argument_size_bytes"] == params + cache + token + 4
+    # the cache comes back whole in its slabs: an output as large
+    assert rec["output_size_bytes"] >= cache
 
 
 def test_decode_batch_shardings(shapes):
@@ -451,11 +489,12 @@ def test_fake_cuda_tensors_take_the_plain_version(monkeypatch):
                                   "topo_attention_sweep"]
 
 
-def test_dry_run_count_equals_the_live_count(shapes):
-    """One train step of the smoke Llama (B5 on its CPU route) counted
-    live on CPU tensors and under FakeTensorMode: the same flops and
-    bytes."""
-    from repro_torch.launch.steps import make_train_step
+@pytest.mark.parametrize("kind", ["train", "decode"])
+def test_dry_run_count_equals_the_live_count(shapes, kind):
+    """One train step of the smoke Llama (B5 on its CPU route), or one
+    serve step over a cache of 32 positions, counted live on CPU tensors
+    and under FakeTensorMode: the same flops and bytes."""
+    from repro_torch.launch.steps import make_serve_step, make_train_step
     from repro_torch.models import api
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
@@ -466,12 +505,21 @@ def test_dry_run_count_equals_the_live_count(shapes):
         with (FakeTensorMode(allow_non_fake_inputs=True) if fake
               else torch.no_grad()):
             model = api.init_params(cfg, 0, device="cpu")
-            opt = adamw_init(dict(model.named_parameters()))
-            batch = {"tokens": torch.as_tensor(tokens)}
-            step = make_train_step(cfg, AdamWConfig(), device="cpu")
-            with torch.enable_grad(), CostCount() as c:
-                step(model, opt, batch)
+            if kind == "train":
+                opt = adamw_init(dict(model.named_parameters()))
+                batch = {"tokens": torch.as_tensor(tokens)}
+                step = make_train_step(cfg, AdamWConfig(), device="cpu")
+                with torch.enable_grad(), CostCount() as c:
+                    step(model, opt, batch)
+            else:
+                cache = api.init_cache(cfg, 2, 32, device="cpu")
+                step = make_serve_step(cfg, 32, device="cpu")
+                with CostCount() as c:
+                    step(model, cache, torch.as_tensor(tokens[:, :1]),
+                         torch.tensor(5))
         rec = c.record()
         got.append((rec["flops"], rec["bytes_accessed"], rec["kernels"]))
     assert got[0] == got[1]
-    assert got[0][2]["flash_attention"]["calls"] == 2 * 2
+    assert got[0][0] > 0
+    if kind == "train":
+        assert got[0][2]["flash_attention"]["calls"] == 2 * 2

@@ -400,6 +400,25 @@ def test_sharded_topovit(ranks):
     assert dg < VIT_TOL
 
 
+def test_sharded_topovit_gathers_its_fields_a_layer(ranks):
+    """ROADMAP C12, pinned: the sharded model's TopoViT with
+    `topo_shard_plan` gathers qf, kf and v (heads over the model axis, a
+    rank's slab (B/D, H/M, L, hd)) and the attention output (its rows,
+    (B/D, H, L/M, hd)) over the model axis: 4 field-sized collectives a
+    layer in the forward, where the reference's executor moves the field
+    by rows only."""
+    _, _, results = ranks
+    cfg = get_smoke_config("topovit_b16")
+    B = results[0]["vit"]["logits"].shape[0]
+    L, H, hd = cfg.num_prefix_embeddings, cfg.num_heads, cfg.head_dim
+    D = M = 2  # the (2, 2) mesh: data, model
+    heads, rows = (B // D, H // M, L, hd), (B // D, H, L // M, hd)
+    for r in results:
+        sent = r["vit"]["forward_sent"]
+        assert sent.count(heads) == 3 * cfg.num_layers
+        assert sent.count(rows) == cfg.num_layers
+
+
 def test_checkpoint_restores_across_meshes(ranks):
     """Saved on (2, 2), restored on (1, 4) and on one process, bitwise;
     one more step on each agrees within the step's bound."""

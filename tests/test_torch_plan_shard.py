@@ -15,9 +15,11 @@ once for the module; the per-rank work is `_torch_shard_worker.rank_main`)
 computes every sharded case, and the tests read its results:
 `apply_sharded` on a tree and a forest (exp and a raw callable through the
 Chebyshev engine, reweighted params, an `update_plan`-edited plan, tree
-weights) within 1e-6 of the reference's single-device `apply`
-(tests/test_sharded_ftfi.py:43's bound), its grads within 1e-5, the
-collectives of one forward counted by wrapping `torch.distributed`, both
+weights), its rows gathered, within 1e-6 of the reference's single-device
+`apply` (tests/test_sharded_ftfi.py:43's bound), its grads within 1e-5,
+the result sharded by rows from a row-sharded and a whole field alike and
+a row-sharded field's grads, the collectives of one forward counted by
+wrapping `torch.distributed` (the reference's census: no gather), both
 kernel faces within 1e-6 of the reference's single-device wrappers (Pallas
 in interpret mode, the XLA twin) and their grads in every input within
 1e-5, the smoke TopoViT with `topo_shard_plan=True` within 1e-4 of the
@@ -285,7 +287,7 @@ def ranks():
 def test_apply_sharded_matches_reference(ranks, key):
     _, ref, results = ranks
     assert [r["rank"] for r in results] == list(range(RANKS))
-    for r in results:  # every rank holds the whole result, the same bits
+    for r in results:  # every rank's rows gathered: the same bits
         assert np.array_equal(r[key], results[0][key])
     assert results[0][key].shape == ref[key].shape
     assert _rel(results[0][key], ref[key]) <= SHARD_TOL, key
@@ -293,7 +295,8 @@ def test_apply_sharded_matches_reference(ranks, key):
 
 def test_apply_sharded_grads_match_reference(ranks):
     """Grads of sum(Y^2) in X and every distance tensor: each rank holds
-    the whole gradient (the halo's, the reduce_scatter's and the output
+    the whole gradient (the halo's, the reduce_scatter's and the rows'
+    gather's
     gather's VJPs, the distances summed over ranks)."""
     _, ref, results = ranks
     for r in results:
@@ -305,17 +308,55 @@ def test_apply_sharded_grads_match_reference(ranks):
 
 
 def test_one_forward_collectives(ranks):
-    """One forward: exactly one halo all_to_all, one reduce_scatter and one
-    output all_gather, nothing else; the smoke TopoViT (2 layers, 2 mask
-    fastmults each) four of each."""
+    """One forward: exactly one halo all_to_all and one reduce_scatter,
+    no gather of the field, nothing else (the reference's census,
+    ANALYSIS_BUDGETS.json); a field sharded by rows alike. The smoke
+    TopoViT (2 layers, 2 mask fastmults each) four of each, its tokens
+    sharded by rows between them, and the pooled head's one all_reduce of
+    (B, d)."""
     _, _, results = ranks
+    want = {"all_to_all": 1, "reduce_scatter": 1, "all_gather": 0,
+            "all_reduce": 0}
     for r in results:
         for name in ("exp", "cheb"):
-            assert r[f"census_{name}"] == {"all_to_all": 1,
-                                           "reduce_scatter": 1,
-                                           "all_gather": 1, "all_reduce": 0}
+            assert r[f"census_{name}"] == want
+        assert r["rows"]["census"] == want
         assert r["census_vit"] == {"all_to_all": 4, "reduce_scatter": 4,
-                                   "all_gather": 4, "all_reduce": 0}
+                                   "all_gather": 0, "all_reduce": 1}
+
+
+def test_apply_sharded_returns_rows(ranks):
+    """The result is a DTensor sharded by rows over the plan axis: each
+    rank holds rows [k * ceil(n / D), ...) of the reference's `apply`
+    (within 1e-5), the same from a `Shard(0)` field and from the whole
+    field; `full_tensor()` is the reference's result."""
+    _, ref, results = ranks
+    want = ref["tree_exp"]
+    block = -(-want.shape[0] // RANKS)
+    for r in results:
+        rows = r["rows"]
+        assert rows["placements"] == ["Shard(dim=0)"]
+        k = r["rank"]
+        assert rows["local"].shape == want[k * block:(k + 1) * block].shape
+        assert np.array_equal(rows["local"], rows["plain_local"])
+        assert _rel(rows["local"], want[k * block:(k + 1) * block]) <= 1e-5
+        assert _rel(rows["whole"], want) <= 1e-5
+
+
+def test_row_sharded_field_grads_match_reference(ranks):
+    """The grads of sum(Y^2) in a field sharded by rows (each rank's loss
+    on its own rows): sharded by rows like X, each rank's block the
+    reference's rows of jax.grad, the whole within GRAD_TOL."""
+    _, ref, results = ranks
+    want = ref["grads"]["X"]
+    block = -(-want.shape[0] // RANKS)
+    for r in results:
+        rows = r["rows"]
+        k = r["rank"]
+        assert rows["grad_placements"] == ["Shard(dim=0)"]
+        assert _rel(rows["grad_local"],
+                    want[k * block:(k + 1) * block]) <= GRAD_TOL
+        assert _rel(rows["grad_X"], want) <= GRAD_TOL
 
 
 @pytest.mark.parametrize("face", ["fdist_d4", "fdist_d2m2", "topo_causal",

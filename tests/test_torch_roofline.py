@@ -3,7 +3,7 @@
 dry-run arch at train_4k and decode_32k (the port reads its parameters on
 the meta device, the reference its `jax.eval_shape` leaves; computed once
 per (arch, shape) pair), `roofline_terms`' arithmetic with the H100
-constants, `collective_breakdown` of hand-built and counted censuses, and
+constants and a decode cell's terms against the reference's, `collective_breakdown` of hand-built and counted censuses, and
 the kernels' work formulas (`roofline/kernels.py`, which `chip_smoke.py`
 imports) at the shapes of PERF.md's bound column."""
 from __future__ import annotations
@@ -79,6 +79,30 @@ def test_roofline_terms_arithmetic():
     assert got["compute_s"] / ref["compute_s"] == pytest.approx(
         197e12 / 989e12, rel=1e-12)
     assert got["dominant"] == ref["dominant"] == "compute"
+
+
+@pytest.mark.parametrize("shape", ["decode_32k", "long_500k"])
+def test_decode_roofline_terms_match_reference(shape):
+    """A decode cell's terms, one token a row: Llama-3.2-1B's model flops
+    are 2 x (body + tied head) x B, and `roofline_terms` of one record
+    equal the reference's term for term (its TPU constants scaled to the
+    H100's)."""
+    cfg = TB.get_config("llama3_2_1b")
+    B = TB.SHAPES[shape]["global_batch"]
+    assert TA.model_flops(cfg, TB.SHAPES[shape]) == (
+        2.0 * 973_146_112 * B + 2.0 * 262_668_288 * B)
+    rec = {"flops": 3.6e10, "bytes_accessed": 1.2e11,
+           "collective_bytes": 4.9e6}
+    got = TA.roofline_terms(rec, cfg, TB.SHAPES[shape], 256)
+    ref = RA.roofline_terms(rec, RB.get_config("llama3_2_1b"),
+                            RB.SHAPES[shape], 256)
+    assert got["model_flops"] == ref["model_flops"]
+    assert got["useful_flops_ratio"] == ref["useful_flops_ratio"]
+    for term, const in (("compute_s", "PEAK_FLOPS"), ("memory_s", "HBM_BW"),
+                        ("collective_s", "ICI_BW")):
+        assert got[term] * getattr(TA, const) == pytest.approx(
+            ref[term] * getattr(RA, const), rel=1e-12), term
+    assert got["dominant"] == "memory"
 
 
 def test_collective_breakdown_of_a_hand_built_census():
