@@ -50,7 +50,8 @@ ragged L = 1000, din = 200 at N = 4 and 16 with an h0) and against the
 sequential oracle at small shapes; serves the 4 requests of the
 full-width Falcon-Mamba-7B (64 Mamba-1 blocks, d_model 4096, d_inner
 8192, N = 16), with `attn_impl="cuda"` held against `"chunked"` in
-float32 (64 launches per prefill, none in decode); then, in bf16, serves
+float32 at 16 layers (16 launches per prefill, none in decode); then, in
+bf16 at full depth, serves
 them again, times prefill, decode and the kernel (its bound with a third
 term, the exps on the special function units at the card's SM clock)
 and traces one prefill and one decode step.
@@ -164,7 +165,7 @@ against single-slot ones, an incremental eviction, no B2 launch. 5i
 times the same traffic in bf16 (time to first token and total per
 request, prefill and decode host ms, tokens/s, peak memory), one tree
 group, and profiles one plain prefill group, one tree group (the
-fastmult's share) and one decode tick.
+fastmult's share; on the model cut to 4 layers) and one decode tick.
 
 Multi-rank FTFI (slice 15, cell (t)): `core.plan_shard` over
 `torch.distributed`, each rank one process (`launch.mesh.run_local`, a
@@ -206,7 +207,16 @@ B5) and Falcon-Mamba-7B (2 layers, B6 on each rank's 4,096 channels)
 losses within 1e-3, V2-Lite's routing equal per group. 4m(c): the dense
 state saved from (2, 2), restored on one device and on (1, 4) bit for
 bit, one more step on each, the two steps held to each other as 4m(a)'s. 4m(d): TopoViT-B/16, 8 images over data,
-logits within 1e-4, the mask coefficients' grads finite and non-zero.
+logits within 1e-4, the mask coefficients' grads finite and non-zero;
+then (slice 19, ROADMAP C12) the same model with `topo_shard_plan`, the
+plan's row blocks over the model axis: its logits (8 images) within 1e-4
+of one device's and its mask coefficient grads (2 images) within 4l(d)'s
+1e-3 of one device's, relative to the largest grad of all blocks (per
+block, one block's grads 1/300 of the largest read ~3e-3 of its own max
+between two single-device impls; printed beside), its fields traded between heads and
+rows by 2 all_to_alls a layer (their 2 VJPs in the backward), no field
+all_gathered either way, and a rank receiving at most half a layer's
+bytes of gathering the fields whole (printed by kind and bytes a layer).
 5k prints, per rank of "4 processes sharing one H100", the bytes of the
 parameters, grads and AdamW state against one device's, peak memory,
 step ms and the collectives of one step by kind, and the vocab-sharded
@@ -251,11 +261,28 @@ collectives by kind and bytes, all labelled "4 processes sharing one
 H100", and the dry-run records of Llama-3.2-1B x decode_32k and x
 long_500k (slice 17's worker, after its train cell).
 
+The reference's example entry points (slice 19): `phase_examples` runs
+the `main` of each module of `repro_torch.examples` on the card, as a
+user starts them (`python -m repro_torch.examples.<name>`): the quickstart
+at its default n = 6,000 (B1 counted from 0 around it: one launch per
+cross bucket of its "cuda" Integrator; every relative error against BTFI
+<= 1e-5, the edge-weight gradient finite and non-zero), the mesh
+interpolation (icosphere 3 and 4, the "host" walk; each best cosine in
+(0, 1]), the served smoke Qwen2 (every request answered in full) and the
+topological LM's training with `--topo-impl cuda`, cut to
+`EXAMPLES["train_steps"]` steps for the script's time (B2 counted from 0
+around it: one launch a layer a forward and one a layer in the remat's
+recompute; every loss finite).
+
 Cut for the script's time when slice 16 came: the served paths' decode
 steps 32 -> 8, 4e's float32 batch 64 -> 32 images (2 column chunks), 5e's
 bf16 batch 64 -> 16 images, 4l(d) 8 -> 2 images. When slice 18 came: 5f's
 depth 16 -> 4 layers (its checkpoint's save, restore and resume on the
-host; slice 9 174.3 -> 66.6 s on one host).
+host; slice 9 174.3 -> 66.6 s on one host). When slice 19 came (one host
+read 1,058.2 s): 4c's float32 Falcon-Mamba gate 64 -> 16 layers (46.7 s
+at 64), the traced decode steps 4 -> 1 a profile (91.1 s for the 11 at
+4 calls: the profiler's events, not the steps), the training example
+60 -> 30 steps, 5i's traced tree group 16 -> 4 layers (59.7 s at 16).
 
 Any failed check raises and the script exits non-zero. It imports neither
 jax nor the reference package `repro`.
@@ -340,6 +367,29 @@ def _stamp(label: str) -> None:
     run's time limit reads)."""
     print(f"[elapsed] {time.perf_counter() - _T0:.1f} s: {label}",
           flush=True)
+
+
+def _time_phases() -> None:
+    """Print each phase's host seconds as it ends, its label if it takes
+    one first: where the run's time limit goes. For the script's own
+    process only (the ranks' workers import the module unwrapped)."""
+    g = globals()
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                tag = f" {args[0]}" if args and isinstance(args[0], str) \
+                    else ""
+                _stamp(f"{name}{tag} took {time.perf_counter() - t0:.1f} s")
+        return wrapper
+
+    for name, fn in list(g.items()):
+        if name.startswith("phase_") and callable(fn):
+            g[name] = timed(name, fn)
 
 
 def host_ms(fn, reps: int) -> float:
@@ -1231,18 +1281,17 @@ def phase_serve(label, cfg, ops, device, card, scopes=(), expect=None):
             lengths, S, device=device), scopes=scopes)
     out["profile_decode"] = phase_calls_profile(
         f"{label} decode step", lambda: api.decode_fn(
-            cfg, model, cache, tok, pos, S, device=device), calls=4,
-        scopes=scopes)
+            cfg, model, cache, tok, pos, S, device=device), scopes=scopes)
     return out
 
 
-def phase_calls_profile(label, fn, calls=1, kinds=None, scopes=()):
-    """torch.profiler over `calls` calls of fn(): device busy share of the
-    window and the top device ops with their share of device time (per
-    call); with `kinds` ({kind: substrings of op names}), also the device
-    ms of every op by kind (the first kind that matches; "other" for
-    none); with `scopes` (names of `record_function` ranges or aten ops),
-    the device ms each one's kernels took, per call."""
+def phase_calls_profile(label, fn, kinds=None, scopes=()):
+    """torch.profiler over one call of fn(): device busy share of the
+    window and the top device ops with their share of device time; with
+    `kinds` ({kind: substrings of op names}), also the device ms of every
+    op by kind (the first kind that matches; "other" for none); with
+    `scopes` (names of `record_function` ranges or aten ops), the device
+    ms each one's kernels took."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1250,20 +1299,20 @@ def phase_calls_profile(label, fn, calls=1, kinds=None, scopes=()):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(calls):
-            fn()
+        fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / calls
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
     ops_ = []
-    for ev in prof.key_averages():
+    for ev in events:
         us = getattr(ev, "self_device_time_total", 0)
         # a record_function range shows on the device too, as the span of
         # its kernels: not an op of its own
         if (ev.device_type == torch.autograd.DeviceType.CUDA and us > 0
                 and not getattr(ev, "is_user_annotation", False)
                 and ev.key not in scopes):
-            ops_.append({"name": ev.key[:90], "ms": us / 1e3 / calls,
-                         "calls": ev.count / calls})
+            ops_.append({"name": ev.key[:90], "ms": us / 1e3,
+                         "calls": ev.count})
     ops_.sort(key=lambda k: -k["ms"])
     dev_ms = sum(k["ms"] for k in ops_)
     for k in ops_:
@@ -1279,11 +1328,11 @@ def phase_calls_profile(label, fn, calls=1, kinds=None, scopes=()):
             out["kinds"][kind] += o["ms"]
     if scopes:
         out["scopes"] = {name: 0.0 for name in scopes}
-        for ev in prof.key_averages():
+        for ev in events:
             if ev.key in out["scopes"] and ev.device_type != \
                     torch.autograd.DeviceType.CUDA:
                 out["scopes"][ev.key] += (getattr(ev, "device_time_total", 0)
-                                          / 1e3 / calls)
+                                          / 1e3)
     print(f"[profile {label}] wall {wall_ms:.2f} ms per call under the "
           f"profiler, device {dev_ms:.2f} ms, busy share {out['busy']:.2f}, "
           f"{out['launches']:.0f} device ops; top: " + "; ".join(
@@ -1611,6 +1660,8 @@ def phase_attn_times(served, card):
 SSM = {"arch": "falcon_mamba_7b",
        # (Bt, L, din, N): the served prefill's scan
        "served_shape": (4, 4096, 8192, 16),
+       # 4c's float32 gate, cut from 64 for the script's time
+       "gate_layers": 16,
        # a ragged L and din, with an h0
        "ragged_shapes": [(2, 1000, 200, 4), (2, 1000, 200, 16)],
        # tests/test_kernels.py::test_selective_scan's (Bt, L, din, N)
@@ -4597,7 +4648,7 @@ def phase_serve_encdec(cfg, device, card):
                                                    device=device))
     out["profile_decode"] = phase_calls_profile(
         "seamless decode step", lambda: api.decode_fn(
-            cfg, model, cache, tok, req["steps"], S, device=device), calls=4)
+            cfg, model, cache, tok, req["steps"], S, device=device))
     return out
 
 
@@ -4684,7 +4735,7 @@ def phase_serve_vlm(cfg, device, card):
                                                    device=device))
     out["profile_decode"] = phase_calls_profile(
         "llava decode step", lambda: api.decode_fn(
-            cfg, model, cache, tok, pos, S, device=device), calls=4)
+            cfg, model, cache, tok, pos, S, device=device))
     return out
 
 
@@ -4826,6 +4877,9 @@ ENGINE = {"slots": 4, "max_len": 4160, "seed": 0, "leaf": 8,
           "replay": (4, 64, 8),  # requests, prompt length, new tokens
           "tree_lengths": (1024, 750, 384, 1024),
           "tree_max_new": (16, 4, 16, 16),
+          # 5i's traced tree group: the model cut to these layers (at 16
+          # the profiler took ~60 s over its 57,325 device ops)
+          "tree_profile_layers": 4,
           "fault": (2, 64, 4)}  # requests, prompt length, new tokens
 ENGINE_PACKED_TOL = 1e-5  # tests/test_serve_prefill.py:271
 ENGINE_FAILURES = ("prefill_failures", "step_failures", "slot_faults",
@@ -5213,7 +5267,8 @@ def phase_engine_times(card, device):
     each request's time to first token and total, prefill calls and ms,
     decode ms per tick, generated tokens/s, peak memory; one tree group
     (the 4 tree requests); the profiles of one plain prefill group (the
-    first 4 prompts at 4,096), one tree group and one decode tick."""
+    first 4 prompts at 4,096), one tree group (on the model cut to
+    ENGINE["tree_profile_layers"]) and one decode tick."""
     import torch
     from repro_torch.models import api
     from repro_torch.serve.engine import _next_pow2
@@ -5287,10 +5342,13 @@ def phase_engine_times(card, device):
     lens = np.array([len(p) for p in prompts[:B]], np.int32)
     out["profile_prefill"] = phase_calls_profile(
         "engine plain prefill group", lambda: eng._prefill(toks, lens))
+    cfg_t = cfg.replace(num_layers=ENGINE["tree_profile_layers"])
     _, geng, (ttoks, tlens, pack, unpack), _ = _tree_group(
-        cfg, model, tprompts, trees, device)
+        cfg_t, api.init_params(cfg_t, ENGINE["seed"], device=device),
+        tprompts, trees, device)
     prof = phase_calls_profile(
-        "engine tree prefill group", lambda: geng._prefill_tree(
+        f"engine tree prefill group, {cfg_t.num_layers} layers",
+        lambda: geng._prefill_tree(
             ttoks, tlens, geng.masks.spec, geng.masks.params, pack, unpack),
         scopes=(ENGINE_SCOPE,))
     prof["fastmult_share"] = (prof["scopes"][ENGINE_SCOPE]
@@ -5299,9 +5357,10 @@ def phase_engine_times(card, device):
     dtoks = np.array([[r.out[-1]] for r in reqs[:B]], np.int32)
     pos = np.array([len(r.prompt) + 1 for r in reqs[:B]], np.int32)
     out["profile_decode"] = phase_calls_profile(
-        "engine decode tick", lambda: eng._decode(dtoks, pos), calls=4)
+        "engine decode tick", lambda: eng._decode(dtoks, pos))
     print(f"[engine times 5i profiles] plain prefill group busy "
-          f"{out['profile_prefill']['busy']:.2f}; tree group busy "
+          f"{out['profile_prefill']['busy']:.2f}; tree group "
+          f"({cfg_t.num_layers} layers) busy "
           f"{prof['busy']:.2f}, the fastmult {prof['fastmult_share']:.0%} "
           f"of its device time ({prof['scopes'][ENGINE_SCOPE]:.1f} of "
           f"{prof['device_ms']:.1f} ms); decode tick busy "
@@ -6092,6 +6151,14 @@ def _pshard_single(tmp, device) -> dict:
                             VIT["patch_dim"], device=device)
     patches = _patches(cfg, PSHARD["vit_batch"], torch.float32, device)
     out["vit"] = {"logits": _vit_forward(cfg, model, patches, device).cpu()}
+    # the mask coefficients' grads of 4m(d)'s plan run: impl "cuda" (the
+    # reference of the check) and "torch" (two single-device runs' spread)
+    p1 = _patches(cfg, PSHARD["vit_grad_batch"], torch.float32, device)
+    for impl, key in (("cuda", "coeff_grads"), ("torch", "coeff_grads_torch")):
+        out["vit"][key] = [g.cpu() for g in torch.autograd.grad(
+            vit.forward(cfg.replace(topo_attn_impl=impl), model, p1,
+                        device=device).sum(),
+            [b.topo.coeffs for b in model.blocks])]
     del model
     torch.cuda.empty_cache()
     return out
@@ -6438,7 +6505,94 @@ def _pshard_rank(a) -> dict:
                              f"device's, coefficient grads {gmax}")
     out["vit"] = {"logit_diff": d, "placements": str(logits.placements),
                   "coeff_grad_max": gmax, "seconds": vit_s}
+    out["vit_plan"] = _pshard_vit_plan(cfg, model, mesh, single["vit"], dev)
     return out
+
+
+def _pshard_vit_plan(cfg, model, mesh, single, dev) -> dict:
+    """4m(d) with `topo_shard_plan` (ROADMAP C12): the sharded model's
+    TopoViT with the plan's row blocks over the model axis, its logits and
+    mask coefficient grads against one device's, and its collectives by a
+    census of the forward and of the backward. Each layer trades the
+    fields between heads and rows by 2 all_to_alls (their VJPs in the
+    backward) and all_gathers no field (no 4-D tensor)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import sharding
+    from repro_torch.models import vit
+
+    rank = dist.get_rank()
+    cfg = cfg.replace(topo_shard_plan=True)
+    M = sharding.axis_size(mesh, "model")
+    B, L, layers = PSHARD["vit_batch"], cfg.num_prefix_embeddings, \
+        cfg.num_layers
+    D = sharding.axis_size(mesh, "data")
+
+    def gathered(images):  # 3 heads slabs in, the rows out, float32
+        return 4 * (M - 1) / M * (images // D * cfg.num_heads * L
+                                  * cfg.head_dim * 4)
+
+    fwd = sharding.CollectiveCensus(keep=True)
+    bwd = sharding.CollectiveCensus(keep=True)
+    with sharding.use_sharding(mesh):
+        with sharding.dtensor_scope():
+            t0 = time.perf_counter()
+            with torch.no_grad(), fwd:
+                logits = vit.forward(cfg, model, _patches(
+                    cfg, B, torch.float32, dev), device=dev)
+            torch.cuda.synchronize()
+            fwd_s = time.perf_counter() - t0
+            model.zero_grad(set_to_none=True)
+            out = vit.forward(cfg, model, _patches(
+                cfg, PSHARD["vit_grad_batch"], torch.float32, dev),
+                device=dev)
+            with bwd:  # every parameter's grad: each VJP of the layer
+                out.sum().backward()
+        got = sharding.full(logits).cpu()
+        grads = [sharding.full(b.topo.coeffs.grad).cpu()
+                 for b in model.blocks]
+    d = float((got - single["logits"]).abs().max())
+    # each block's grads relative to the largest of all blocks (the mask
+    # scalars as one leaf, 4f's unit): a block whose grads are ~1/300 of
+    # the largest reads ~3e-3 of its own max between two single-device
+    # runs (card "cuda" vs CPU "torch", and card "cuda" vs card "torch"
+    # below), so 4l(d)'s per-block unit cannot hold at these images
+    ones = single["coeff_grads"]
+    top = max(float(g1.abs().max()) for g1 in ones)
+    gerr = max(float((g - g1).abs().max()) for g, g1 in zip(grads, ones)) / top
+    rec = {"logit_diff": d, "coeff_grad_err": gerr, "forward_s": fwd_s,
+           "coeff_grad_rel_err_by_block": [
+               rel_err(g, g1) for g, g1 in zip(grads, ones)],
+           "single_spread": max(float((g - g1).abs().max()) for g, g1 in zip(
+               single["coeff_grads_torch"], ones)) / top,
+           "single_spread_by_block": [rel_err(g, g1) for g, g1 in zip(
+               single["coeff_grads_torch"], ones)]}
+    for key, census, images in (("forward", fwd, B),
+                                ("backward", bwd, PSHARD["vit_grad_batch"])):
+        sent = list(zip(census.sent_kinds, census.sent))
+        fields = [t for k, t in sent if k == "all_to_all" and t.dim() == 4]
+        rec[key] = {
+            "by_kind": {k: {"count": census.counts[k] / layers,
+                            "bytes": census.bytes[k] / layers}
+                        for k in sorted(census.counts)},
+            "field_all_gathers": sum(k == "all_gather" and t.dim() == 4
+                                     for k, t in sent),
+            "exchanges_a_layer": len(fields) / layers,
+            "received_a_layer": sum(t.numel() * t.element_size()
+                                    for t in fields) * (M - 1) / M / layers,
+            "gathered_a_layer": gathered(images), "images": images}
+        if not (rec[key]["field_all_gathers"] == 0
+                and rec[key]["exchanges_a_layer"] == 2
+                and rec[key]["received_a_layer"] <= gathered(images) / 2):
+            raise AssertionError(f"4m(d) topo_shard_plan rank {rank} "
+                                 f"{key}: {rec[key]}")
+    if not (d < PSHARD_TOL["vit"] and gerr < SHARD_GRAD_TOL):
+        raise AssertionError(f"4m(d) topo_shard_plan rank {rank}: logits "
+                             f"{d:.3e} (< {PSHARD_TOL['vit']}), coefficient "
+                             f"grads {gerr:.3e} of the largest (< "
+                             f"{SHARD_GRAD_TOL}) from one device's")
+    return rec
 
 
 def _pshard_routing(got, want, cfg, data: int, D: int) -> dict:
@@ -6658,6 +6812,27 @@ def _pshard_print(single, ranks, card) -> None:
               f"{min(v['coeff_grad_max']):.3e}.."
               f"{max(v['coeff_grad_max']):.3e}; forward {v['seconds']:.1f} s",
               flush=True)
+        v = g["vit_plan"]
+        print(f"[4m(d) topo_shard_plan rank {k}/4] logits "
+              f"{v['logit_diff']:.3e} from one device's (< "
+              f"{PSHARD_TOL['vit']}); mask coefficient grads "
+              f"{v['coeff_grad_err']:.3e} of the largest of all blocks (< "
+              f"{SHARD_GRAD_TOL}; two single-device impls "
+              f"{v['single_spread']:.3e}); by block, of each block's own "
+              f"largest: {max(v['coeff_grad_rel_err_by_block']):.3e} at "
+              f"most (single-device impls "
+              f"{max(v['single_spread_by_block']):.3e}); forward "
+              f"{v['forward_s']:.1f} s", flush=True)
+        for key in ("forward", "backward"):
+            c = v[key]
+            print(f"[4m(d) topo_shard_plan rank {k}/4] {key}, a layer: "
+                  + ", ".join(f"{kind} x{r['count']:g} {r['bytes']:.0f} B "
+                              "sent" for kind, r in c["by_kind"].items())
+                  + f"; heads<->rows all_to_alls {c['exchanges_a_layer']:g}"
+                  f", received {c['received_a_layer']:.0f} B against "
+                  f"{c['gathered_a_layer']:.0f} B by gathering the fields "
+                  f"whole ({c['images']} images); field all_gathers "
+                  f"{c['field_all_gathers']} | {PSHARD_LABEL}", flush=True)
         d = g["dense"]
         b = d["bytes"]
         for part in ("params", "grads", "adamw"):
@@ -7087,6 +7262,92 @@ def phase_serve_shard(card, device) -> dict:
     return {"serve_shard": ranks, "serve_shard_s": wall}
 
 
+# ----------------------------------------------------------------------------
+# slice 19: the reference's example entry points
+# ----------------------------------------------------------------------------
+
+# the training example's steps, cut from its default 300 for the script's
+# time (its two variants train 2 x 300 steps otherwise)
+EXAMPLES = {"train_steps": 30, "rel_tol": EXACT_TOL}
+
+
+def phase_examples(card) -> dict:
+    """Slice 19: each module of `repro_torch.examples` through its `main`
+    on the card, as `python -m repro_torch.examples.<name>` runs it. B1
+    counted from 0 around the quickstart (one launch per cross bucket of
+    its "cuda" Integrator), B2 around the training example (one a layer a
+    forward, and one a layer in the remat's recompute, in the topo
+    variant). Returns the record; raises on a failed check."""
+    import torch
+
+    from repro_torch.examples import (mesh_interpolation, quickstart,
+                                      serve_lm, train_topological_lm)
+    from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.kernels.topo_linear_attention import ops as topo_ops
+
+    rec, secs = {}, {}
+    ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    q = quickstart.main([])
+    secs["quickstart"] = time.perf_counter() - t0
+    errs = [q["host_rel_err"], q["fastmult_rel_err"]] + [
+        b["rel_err"] for b in q["backends"].values()]
+    buckets = q["backends"]["cuda"]["cross_buckets"]
+    if not (max(errs) <= EXAMPLES["rel_tol"] and ops.LAUNCHES == buckets
+            and q["edge_grad_finite"] and q["edge_grad_l1"] > 0):
+        raise AssertionError(f"[examples] quickstart: rel errs {errs} (<= "
+                             f"{EXAMPLES['rel_tol']}), {ops.LAUNCHES} B1 "
+                             f"launches for {buckets} cross buckets, edge "
+                             f"grad |g|_1 {q['edge_grad_l1']}")
+    rec["quickstart"] = dict(q, launches=ops.LAUNCHES)
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    m = mesh_interpolation.main([])
+    secs["mesh_interpolation"] = time.perf_counter() - t0
+    if not all(0.0 < r["cosine"] <= 1.0 and r["lambda"] in (1.0, 4.0, 16.0)
+               for r in m.values()):
+        raise AssertionError(f"[examples] mesh_interpolation: {m}")
+    rec["mesh_interpolation"] = {str(k): v for k, v in m.items()}
+
+    t0 = time.perf_counter()
+    sv = serve_lm.main([])
+    secs["serve_lm"] = time.perf_counter() - t0
+    if not (sv["tokens"] == 12 * sv["requests"]
+            and all(e is None for e in sv["errors"])):
+        raise AssertionError(f"[examples] serve_lm: {sv['tokens']} tokens "
+                             f"for {sv['requests']} requests, errors "
+                             f"{sv['errors']}")
+    rec["serve_lm"] = {k: sv[k] for k in ("requests", "tokens", "ticks",
+                                          "seconds")}
+    torch.cuda.empty_cache()
+
+    steps = EXAMPLES["train_steps"]
+    topo_ops.LAUNCHES = 0
+    t0 = time.perf_counter()
+    tr = train_topological_lm.main(["--topo-impl", "cuda", "--steps",
+                                    str(steps)])
+    secs["train_topological_lm"] = time.perf_counter() - t0
+    cfg = train_topological_lm.small_lm("topo", 128, "cuda")
+    want = steps * cfg.num_layers * (2 if cfg.remat else 1)
+    finite = all(np.all(np.isfinite(v)) and len(v) == steps
+                 for v in tr["losses"].values())
+    if not (finite and topo_ops.LAUNCHES == want):
+        raise AssertionError(f"[examples] train_topological_lm: losses "
+                             f"finite {finite}, {topo_ops.LAUNCHES} B2 "
+                             f"launches, {want} expected")
+    rec["train_topological_lm"] = dict(tr, launches=topo_ops.LAUNCHES,
+                                       steps=steps)
+    torch.cuda.empty_cache()
+    rec["seconds"] = secs
+    for name, t in secs.items():
+        print(f"[examples] {name}: {t:.1f} s | {card}", flush=True)
+    print(f"[examples] quickstart: {ops.LAUNCHES} B1 launches ({buckets} "
+          f"cross buckets), rel errs {max(errs):.2e} at most; training: "
+          f"{topo_ops.LAUNCHES} B2 launches over {steps} steps", flush=True)
+    return rec
+
+
 def run(cfg, device, out_path=None) -> dict:
     """All phases; returns the record. Raises on any failed check."""
     import torch
@@ -7269,8 +7530,10 @@ def run(cfg, device, out_path=None) -> dict:
     del scan_served
     torch.cuda.empty_cache()
     # the float32 model (28 GB) is freed when its phase returns
-    ssm_gate = phase_gate("falcon-mamba", _ssm_cfg("cuda", "float32"),
-                          _ssm_cfg("chunked", "float32"), scan_ops, device)
+    ssm_gate = phase_gate(
+        "falcon-mamba", _ssm_cfg("cuda", "float32").replace(
+            num_layers=SSM["gate_layers"]), _ssm_cfg("chunked", "float32")
+        .replace(num_layers=SSM["gate_layers"]), scan_ops, device)
     torch.cuda.empty_cache()
     ssm_serve = phase_serve("falcon-mamba", _ssm_cfg(), scan_ops, device,
                             card)
@@ -7433,8 +7696,28 @@ def run(cfg, device, out_path=None) -> dict:
     _stamp("slice 18 starts")
     serve_shard = phase_serve_shard(card, device)
     _stamp("slice 18 ends")
+    # slice 19: the reference's example entry points on the card (B1
+    # counted from 0 around the quickstart, B2 around the training)
+    torch.cuda.empty_cache()
+    _stamp("slice 19 starts")
+    examples = phase_examples(card)
+    _stamp("slice 19 ends")
+    for k in kernels:
+        if k["name"].startswith("fdist_matvec_batched"):
+            k.update(examples_launches=examples["quickstart"]["launches"],
+                     examples_at=(
+                         "the quickstart example's step 5: Integrator(..., "
+                         "backend='cuda') at n = 1,500, d = 8 (d-tile 16), "
+                         "one launch per cross bucket; all d-tiles"))
+        if k["name"] == "topo_attention_sweep[decay]":
+            k.update(examples_launches=examples["train_topological_lm"][
+                "launches"], examples_at=(
+                f"train_topological_lm --topo-impl cuda, "
+                f"{EXAMPLES['train_steps']} steps of the 4-layer topo LM "
+                "(decay mode): a launch a layer a forward and a layer in "
+                "the remat's recompute"))
     record = {**deepseek, **a10b, **engine, **shard, **pshard, **serve_shard,
-              "roofline": roof,
+              "roofline": roof, "examples": examples,
               "device": info, "build": build, "main_path": rows_a + rows_b,
               "forest": forest, "kernel_checks": checks, "times": times,
               "topo_kernel_checks": topo_checks, "topo_gates": gates,
@@ -7475,6 +7758,7 @@ def main(argv=None) -> int:
         print("chip_smoke: src/repro_torch is missing: run from a checkout "
               "of the repository", file=sys.stderr)
         return 2
+    _time_phases()
     run(FULL, torch.device("cuda"), args.out)
     return 0
 

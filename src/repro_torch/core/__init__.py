@@ -13,6 +13,10 @@ from repro_torch.core.engines import (  # noqa: F401
     CudaBackend, HostBackend, Integrator, PlanBackend, available_backends,
     execute_plan, get_backend, register_backend,
 )
+from repro_torch.core.itree_flat import (  # noqa: F401
+    FlatIT, build_flat_forest, build_flat_it, clear_flat_cache, flat_stats,
+    tree_fingerprint,
+)
 from repro_torch.core.integrator_tree import (  # noqa: F401
     build_integrator_tree, it_stats,
 )

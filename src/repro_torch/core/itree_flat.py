@@ -180,6 +180,24 @@ def build_flat_it(tree: WeightedTree, leaf_size: int = 64, seed: int = 0,
     return flat
 
 
+def flat_stats(flat: FlatIT) -> dict:
+    """Diagnostics matching `integrator_tree.it_stats` without materializing
+    ITNodes: max depth, node counts, Lemma-3.1 balance check (each side of
+    an internal node holds at least a quarter of its n - 1 vertices past
+    the pivot, the pivot counted on both sides)."""
+    k = np.array([[lt.ids.size, rt.ids.size]
+                  for lt, rt in zip(flat.left, flat.right)],
+                 np.int64).reshape(-1, 2)
+    nn = k.sum(axis=1, keepdims=True) - 1
+    return {
+        "max_depth": int(max(flat.node_depth.max(initial=0),
+                             flat.leaf_depth.max(initial=0))),
+        "internal": flat.num_internal,
+        "leaves": flat.num_leaves,
+        "balance_ok": bool(np.all(nn / 4.0 <= k)),
+    }
+
+
 def build_flat_forest(trees, leaf_size: int = 64, seed: int = 0,
                       use_cache: bool = True) -> FlatIT:
     """Build (or fetch from cache) ONE flat IT covering every tree of a

@@ -891,13 +891,15 @@ class CollectiveCensus(torch.utils._python_dispatch.TorchDispatchMode):
     `largest`): DTensor's redistributions (the mode lets DTensor desugar
     first) and direct `torch.distributed` calls, forward and backward.
     `keep=True`
-    also holds every tensor sent (`sent`), so that a caller can ask
-    whether one of them was a given tensor's storage."""
+    also holds every tensor sent (`sent`) and its collective's kind
+    (`sent_kinds`, alike in order), so that a caller can ask whether one
+    of them was a given tensor's storage, or a given kind and shape."""
 
     def __init__(self, keep: bool = False):
         super().__init__()
         self.counts, self.bytes, self.largest = {}, {}, {}
         self.sent: list | None = [] if keep else None
+        self.sent_kinds: list | None = [] if keep else None
         self._kinds = _collective_kinds()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -919,5 +921,7 @@ class CollectiveCensus(torch.utils._python_dispatch.TorchDispatchMode):
             self.bytes[kind] = self.bytes.get(kind, 0) + n
             self.largest[kind] = max(self.largest.get(kind, 0), n)
             if self.sent is not None:
-                self.sent.extend(t for t in ts if torch.is_tensor(t))
+                mine = [t for t in ts if torch.is_tensor(t)]
+                self.sent.extend(mine)
+                self.sent_kinds.extend([kind] * len(mine))
         return func(*args, **kwargs)

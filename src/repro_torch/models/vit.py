@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import ladder, plan_api
@@ -299,47 +300,87 @@ def _row_mesh(mesh):
     return mesh
 
 
+def _heads_to_rows(x, group, M: int, rows: int):
+    """(b, h, L, c), this rank's h heads of every row -> (b, M h, rows, c),
+    every head of this rank's rows [lo, lo + rows) (`collectives.
+    row_bounds`), by one all_to_all over `group`, whose M ranks hold the
+    heads in rank order. L is padded to M blocks of ceil(L / M) rows."""
+    from repro_torch.launch import collectives
+
+    b, h, L, c = x.shape
+    block = -(-L // M)
+    x = F.pad(x, (0, 0, 0, M * block - L)).permute(2, 0, 1, 3)
+    y = collectives.all_to_all(x, group).reshape(M, block, b, h, c)
+    return y.permute(2, 0, 3, 1, 4).reshape(b, M * h, block, c)[:, :, :rows]
+
+
+def _rows_to_heads(y, group, M: int, L: int):
+    """The inverse of `_heads_to_rows`: (b, H, rows, c), every head of this
+    rank's rows -> (b, H / M, L, c), this rank's heads of every row, by
+    one all_to_all over `group`."""
+    from repro_torch.launch import collectives
+
+    b, H, rows, c = y.shape
+    block = -(-L // M)
+    y = F.pad(y, (0, 0, 0, block - rows)).reshape(b, M, H // M, block, c)
+    y = y.permute(1, 3, 0, 2, 4).reshape(M * block, b, H // M, c)
+    return collectives.all_to_all(y, group)[:L].permute(1, 2, 0, 3)
+
+
 def _masked_attention_sharded(cfg, plan, backend, qf, kf, v, coeffs):
     """Alg. 1 on DTensor fields (B, H, L, .) of a sharded model, on each
-    rank's slab (`sharding.slab_face`): the batch over the data axes, the
-    heads over the model axis. With cfg.topo_shard_plan the heads are
-    first gathered over the model axis and the mask fastmults run the
-    multi-rank executor over that axis on row blocks: each rank of it
-    computes Alg. 1 for its rows (cut from the replicated fields with no
-    collective; their grads gathered back), and the attention output is
-    gathered over the rows once, since the output projection's weights
-    are sharded over the same axis by heads. The batch stays sharded."""
+    rank's slab: the batch over the data axes, the heads over the model
+    axis (`sharding.slab_face`). With cfg.topo_shard_plan the mask
+    fastmults run the multi-rank executor over the model axis on row
+    blocks: one all_to_all trades each rank's heads of every row for every
+    head of its rows (qf, kf and v in one exchange), Alg. 1 runs on those
+    rows, and one all_to_all brings the output back to the rank's heads,
+    where the output projection's weights are sharded. No collective of
+    the field's whole size: a rank receives (M - 1) / M^2 of each field.
+    The mask coefficients' grads are summed over the model axis inside
+    the fastmult (`make_tree_fastmult`), over the data axes here."""
     mesh = qf.device_mesh
-    plan_mesh = None
-    if cfg.topo_shard_plan:
-        qf, kf, v = (sharding.shard(t, ("field_batch", None, None, None))
-                     for t in (qf, kf, v))
-        rest = [a for a in sharding.mesh_axes(mesh)
-                if a not in (sharding.batch_axes() or ())]
-        plan_mesh = _row_mesh(mesh[rest[0]]) if rest else None
+    rest = [a for a in sharding.mesh_axes(mesh)
+            if a not in (sharding.batch_axes() or ())]
+    plan_mesh = (_row_mesh(mesh[rest[0]]) if cfg.topo_shard_plan and rest
+                 else None)
+    if plan_mesh is None:
+        def local(q, k, vv, c):
+            fm = make_tree_fastmult(plan, cfg.topo_g, c, cfg.topo_dist_scale,
+                                    backend=backend, device=q.device)
+            return masked_linear_attention(q, k, vv, fm)
+
+        return sharding.slab_face(local, (qf, kf, v, coeffs),
+                                  ((0, 1),) * 3 + ((None, None),), (0, 1))
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.launch import collectives
+
+    axis = rest[0]
+    M = sharding.axis_size(mesh, axis)
+    H, L = qf.shape[1], qf.shape[2]
+    if H % M:
+        raise ValueError(f"topo_shard_plan: {H} heads do not split over the "
+                         f"{M} ranks of mesh axis {axis!r}")
+    group = sharding.axis_group(mesh, axis)
+    lo, hi = collectives.row_bounds(L, M, sharding.axis_rank(mesh, axis))
+    field = [Shard(1) if name == axis else p if p.is_shard(0) else Replicate()
+             for name, p in zip(sharding.mesh_axes(mesh), qf.placements)]
+    coeff_grad = [Partial() if p.is_shard(0) else Replicate() for p in field]
 
     def local(q, k, vv, c):
         fm = make_tree_fastmult(plan, cfg.topo_g, c, cfg.topo_dist_scale,
                                 backend=backend, device=q.device,
                                 mesh=plan_mesh)
-        if plan_mesh is None:
-            return masked_linear_attention(q, k, vv, fm)
-        from torch.distributed.tensor import DTensor, Replicate, Shard
+        m = q.shape[-1]
+        q, k, vv = _heads_to_rows(torch.cat((q, k, vv), dim=-1), group, M,
+                                  hi - lo).split((m, m, vv.shape[-1]), -1)
+        return _rows_to_heads(masked_linear_attention(q, k, vv, fm), group,
+                              M, L)
 
-        from repro_torch.launch import collectives
-
-        def cut(t):  # the rank's rows of a field alike on the plan axis
-            return DTensor.from_local(t, plan_mesh, [Replicate()],
-                                      run_check=False).redistribute(
-                plan_mesh, [Shard(2)]).to_local()
-
-        out = masked_linear_attention(cut(q), cut(k), cut(vv), fm)
-        return collectives.rows_dtensor(out, plan_mesh,
-                                        sharding.plan_axis(plan_mesh),
-                                        q.shape[2], 2).full_tensor()
-
-    return sharding.slab_face(local, (qf, kf, v, coeffs),
-                              ((0, 1),) * 3 + ((None, None),), (0, 1))
+    return sharding.local_face(
+        local, (qf, kf, v, coeffs), (field,) * 3 + ([Replicate()] * len(
+            field),), field, (field,) * 3 + (coeff_grad,))
 
 
 def forward(cfg, model, patches, plan=None, *, backend: str | None = None,

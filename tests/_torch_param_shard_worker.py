@@ -112,6 +112,12 @@ def _loss_case(c: dict, mesh) -> dict:
     return out
 
 
+def _sent(census) -> list:
+    """(kind, shape, bytes) of each tensor a census saw sent, in order."""
+    return [(kind, tuple(t.shape), t.numel() * t.element_size())
+            for kind, t in zip(census.sent_kinds, census.sent)]
+
+
 def _vit_case(c: dict, mesh) -> dict:
     cfg = get_smoke_config("topovit_b16", dtype="float32",
                            topo_attn_impl="torch")
@@ -129,9 +135,11 @@ def _vit_case(c: dict, mesh) -> dict:
             with census:
                 logits = vit.forward(cfg_s, model, c["patches"], plan,
                                      device=CPU)
-            (logits * torch.as_tensor(c["W"])).sum().backward()
+            back = sharding.CollectiveCensus(keep=True)
+            with back:
+                (logits * torch.as_tensor(c["W"])).sum().backward()
     return {"single_logits": ref.detach().numpy(), "logits": _np(logits),
-            "forward_sent": [tuple(t.shape) for t in census.sent],
+            "forward_sent": _sent(census), "backward_sent": _sent(back),
             "single_coeff_grads": np.stack([b.topo.coeffs.grad.numpy()
                                             for b in single.blocks]),
             "placements": str(logits.placements),

@@ -25,7 +25,8 @@ tests/test_torch_topo_lm.py holds it, never its "fft": C1), the V2-Lite
 Falcon-Mamba, RecurrentGemma and Seamless losses (1e-3), TopoViT's
 forward with `topo_shard_plan` and the batch over data (1e-4; the mask
 coefficient grads finite, non-zero and within 1e-4 of the single
-device's), and the checkpoint saved on (2, 2) and restored on (1, 4) and
+device's; its fields traded between heads and rows by all_to_all, never
+gathered), and the checkpoint saved on (2, 2) and restored on (1, 4) and
 on one process, bitwise, then stepped once more on each."""
 import json
 import os
@@ -400,23 +401,40 @@ def test_sharded_topovit(ranks):
     assert dg < VIT_TOL
 
 
-def test_sharded_topovit_gathers_its_fields_a_layer(ranks):
-    """ROADMAP C12, pinned: the sharded model's TopoViT with
-    `topo_shard_plan` gathers qf, kf and v (heads over the model axis, a
-    rank's slab (B/D, H/M, L, hd)) and the attention output (its rows,
-    (B/D, H, L/M, hd)) over the model axis: 4 field-sized collectives a
-    layer in the forward, where the reference's executor moves the field
-    by rows only."""
+def test_sharded_topovit_exchanges_heads_for_rows(ranks):
+    """ROADMAP C12, repaired: the sharded model's TopoViT with
+    `topo_shard_plan` trades each rank's heads of every row (its slab
+    (B/D, H/M, L, .)) for every head of its rows by all_to_all over the
+    model axis: one exchange of qf, kf and v together and one of the
+    attention output back, 2 a layer in the forward and their 2 VJPs in
+    the backward. No field (a heads slab or a row block (B/D, H, L/M, hd),
+    or any 4-D tensor) is all_gathered either way, and a rank receives at
+    most half the bytes a layer that gathering the fields whole would (3
+    heads slabs in, the rows out: 4 all_gathers, each receiving (M - 1) /
+    M of a field)."""
     _, _, results = ranks
     cfg = get_smoke_config("topovit_b16")
     B = results[0]["vit"]["logits"].shape[0]
-    L, H, hd = cfg.num_prefix_embeddings, cfg.num_heads, cfg.head_dim
+    L, H, hd, layers = (cfg.num_prefix_embeddings, cfg.num_heads,
+                        cfg.head_dim, cfg.num_layers)
     D = M = 2  # the (2, 2) mesh: data, model
     heads, rows = (B // D, H // M, L, hd), (B // D, H, L // M, hd)
+    into = (M * -(-L // M), B // D, H // M, 3 * hd)  # qf, kf, v: m == hd
+    out = into[:3] + (hd,)
+    field = B // D * H * L * hd * 4  # float32
+    gathered = 4 * (M - 1) / M * field
     for r in results:
-        sent = r["vit"]["forward_sent"]
-        assert sent.count(heads) == 3 * cfg.num_layers
-        assert sent.count(rows) == cfg.num_layers
+        for key in ("forward_sent", "backward_sent"):
+            sent = r["vit"][key]
+            assert not any(kind == "all_gather" and (
+                shape in (heads, rows) or len(shape) == 4)
+                for kind, shape, _ in sent), key
+            fields = [(shape, n) for kind, shape, n in sent
+                      if kind == "all_to_all" and len(shape) == 4]
+            assert sorted(s for s, _ in fields) == sorted(
+                [into] * layers + [out] * layers), key
+            received = sum(n for _, n in fields) * (M - 1) / M / layers
+            assert received <= gathered / 2, (key, received, gathered)
 
 
 def test_checkpoint_restores_across_meshes(ranks):
