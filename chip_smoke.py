@@ -272,7 +272,15 @@ interpolation (icosphere 3 and 4, the "host" walk; each best cosine in
 topological LM's training with `--topo-impl cuda`, cut to
 `EXAMPLES["train_steps"]` steps for the script's time (B2 counted from 0
 around it: one launch a layer a forward and one a layer in the remat's
-recompute; every loss finite).
+recompute; every loss finite). Slice 20 adds the graph classification
+(the paper's application (b)) with `--backend torch,cuda` at D&D's graph
+sizes, 30-539 vertices, cut from D&D's 1,178 graphs to
+`EXAMPLES["graph_classification"]`'s 300 for the script's time: its forest
+plan has cross buckets (asserted), B1 is counted from 0 around it (one
+launch a cross bucket an `integrate` of the "cuda" route, two calls), both
+routes' kernels read with the host loop's float64 `eigvalsh` are within
+1e-5 of the host loop and of each other, and B1 is timed against its
+plain version, `bmm` and its bound at the plan's buckets (d = n_max).
 
 Cut for the script's time when slice 16 came: the served paths' decode
 steps 32 -> 8, 4e's float32 batch 64 -> 32 images (2 column chunks), 5e's
@@ -696,16 +704,9 @@ def phase_tree(name, tree, fams, widths, cfg, device, exact_torch):
 def graph_dataset(cfg):
     """bench_graph_classification.make_dataset's graphs (3 families x
     per_class graphs of 24-60 vertices, seed 0)."""
-    from repro_torch.graphs.graph import random_graph_family
+    from repro_torch.examples.graph_classification import make_dataset
 
-    rng = np.random.default_rng(0)
-    graphs = []
-    for fam in ("ring_lattice", "pref_attach", "community"):
-        for i in range(cfg["per_class"]):
-            n = int(rng.integers(*cfg["size_range"]))
-            # make_dataset(seed=0) seeds graph i with seed * 977 + i
-            graphs.append(random_graph_family(fam, n, i))
-    return graphs
+    return make_dataset(cfg["per_class"], cfg["size_range"])[0]
 
 
 def phase_forest(cfg, device):
@@ -7268,7 +7269,13 @@ def phase_serve_shard(card, device) -> dict:
 
 # the training example's steps, cut from its default 300 for the script's
 # time (its two variants train 2 x 300 steps otherwise)
-EXAMPLES = {"train_steps": 30, "rel_tol": EXACT_TOL}
+EXAMPLES = {"train_steps": 30, "rel_tol": EXACT_TOL,
+            # D&D's sizes (TU Dortmund: 284.3 vertices a graph on average)
+            # at 300 of its 1,178 graphs
+            "graph_classification": ["--backend", "torch,cuda",
+                                     "--n-per-class", "100",
+                                     "--size-range", "30-540"],
+            "reps": 10}
 
 
 def phase_examples(card) -> dict:
@@ -7339,6 +7346,11 @@ def phase_examples(card) -> dict:
     rec["train_topological_lm"] = dict(tr, launches=topo_ops.LAUNCHES,
                                        steps=steps)
     torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rec["graph_classification"] = _graph_classification(card)
+    secs["graph_classification"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
     rec["seconds"] = secs
     for name, t in secs.items():
         print(f"[examples] {name}: {t:.1f} s | {card}", flush=True)
@@ -7346,6 +7358,104 @@ def phase_examples(card) -> dict:
           f"cross buckets), rel errs {max(errs):.2e} at most; training: "
           f"{topo_ops.LAUNCHES} B2 launches over {steps} steps", flush=True)
     return rec
+
+
+def _graph_classification(card) -> dict:
+    """Slice 20: the graph-classification example's `main` on the card at
+    D&D's sizes. B1 counted from 0 around it (its "torch" route, host
+    loop and BGFI launch none); the inputs of the "cuda" route's first
+    `integrate` kept for B1's times at d = n_max against its plain version,
+    `bmm` on a precomputed M and its bound. Returns the record; raises on a
+    failed check."""
+    import torch
+
+    from repro_torch.examples import graph_classification
+    from repro_torch.kernels.fdist_matvec import ops
+    from repro_torch.kernels.fdist_matvec.ref import (
+        f_eval, fdist_matvec_batched_ref)
+
+    forward, seen = ops._forward, []
+
+    def keep(x, y, v, coeffs, mode):  # the inputs only; ops counts
+        seen.append((x, y, v, coeffs, mode))
+        return forward(x, y, v, coeffs, mode)
+
+    ops.LAUNCHES = 0
+    ops._forward = keep
+    try:
+        g = graph_classification.main(EXAMPLES["graph_classification"])
+    finally:
+        ops._forward = forward
+    launches = ops.LAUNCHES
+    feats = g.pop("features")
+    cuda, plain = g["backends"]["cuda"], g["backends"]["torch"]
+    buckets = cuda["cross_buckets"]
+    want = buckets * cuda["integrate_calls"]
+    errs = {"cuda_f64": cuda["rel_err_f64"], "torch_f64": plain["rel_err_f64"],
+            "cuda_vs_torch_f64": graph_classification._rel_err(
+                feats["cuda_f64"], feats["torch_f64"])}
+    if not (buckets >= 1 and launches == want == len(seen)
+            and max(errs.values()) <= EXAMPLES["rel_tol"]
+            and cuda["plan_reused"]):
+        raise AssertionError(
+            f"[examples] graph_classification: {buckets} cross buckets (>= 1),"
+            f" {launches} B1 launches ({want} expected), rel errs {errs} (<= "
+            f"{EXAMPLES['rel_tol']}), plan reused {cuda['plan_reused']}")
+    g.update(launches=launches, rel_errs=errs)
+
+    # B1 at the plan's buckets: the first integrate's inputs, d = n_max
+    reps, rows = EXAMPLES["reps"], []
+    for x, y, v, coeffs, mode in seen[:buckets]:
+        B, a = x.shape
+        b, d = v.shape[1:]
+        got = ops.fdist_matvec_batched(x, y, v, coeffs, mode)
+        ref = fdist_matvec_batched_ref(x, y, v, coeffs, mode)
+        M = f_eval(x[:, :, None] + y[:, None, :], coeffs, mode)
+        nbytes, ops_ = work(B, a, b, d, mode, coeffs.shape[0])
+        b_ms, b_by = bound(nbytes, ops_)
+        rows.append({
+            "B": B, "a": a, "b": b, "d": d,
+            "abs_err": float((got - ref).abs().max()),
+            "ms": device_ms(lambda: ops.fdist_matvec_batched(
+                x, y, v, coeffs, mode), reps),
+            "plain_ms": device_ms(lambda: fdist_matvec_batched_ref(
+                x, y, v, coeffs, mode), reps),
+            "library_ms": device_ms(lambda: torch.bmm(M, v), reps),
+            "bytes": nbytes, "ops": ops_, "bound_ms": b_ms, "bound_by": b_by})
+        del M, got, ref
+        r = rows[-1]
+        print(f"[examples] graph_classification B1 bucket B={B} a={a} b={b} "
+              f"d={d}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
+              f"ms, bmm {r['library_ms']:.4f} ms, bound {b_ms:.5f} ms "
+              f"({b_by}), |kernel - plain| {r['abs_err']:.2e} | {card}",
+              flush=True)
+    del seen
+    if not max(r["abs_err"] for r in rows) < FP32_TOL:
+        raise AssertionError(f"[examples] graph_classification: B1 vs its "
+                             f"plain version {rows} (< {FP32_TOL})")
+    b_ms, b_by = bound(sum(r["bytes"] for r in rows),
+                       sum(r["ops"] for r in rows))
+    g["b1"] = {"buckets": rows, "d": rows[0]["d"],
+               "ms": sum(r["ms"] for r in rows),
+               "plain_ms": sum(r["plain_ms"] for r in rows),
+               "library_ms": sum(r["library_ms"] for r in rows),
+               "bound_ms": b_ms, "bound_by": b_by,
+               "max_abs_err": max(r["abs_err"] for r in rows)}
+    print(f"[examples] graph_classification: {g['graphs']} graphs, "
+          f"{g['vertices']} vertices, n_max {g['n_max']}; {buckets} cross "
+          f"buckets, {launches} B1 launches over 2 integrates; features "
+          f"(float64 reads) rel errs {errs}; float32 spectra rel errs "
+          f"cuda {cuda['rel_err']:.2e}, torch {plain['rel_err']:.2e}; "
+          f"accuracy cuda {cuda['acc']:.3f}±{cuda['acc_std']:.3f}, host loop "
+          f"{g['host_loop']['acc']:.3f}, BGFI {g['bgfi']['acc']:.3f}; forest "
+          f"steady cuda {cuda['steady_ms']:.1f} ms, torch "
+          f"{plain['steady_ms']:.1f} ms, host loop "
+          f"{g['host_loop']['ms']:.1f} ms, BGFI {g['bgfi']['ms']:.1f} ms; "
+          f"B1 at d={g['b1']['d']}: {g['b1']['ms']:.4f} ms over {buckets} "
+          f"buckets (plain {g['b1']['plain_ms']:.4f}, bmm "
+          f"{g['b1']['library_ms']:.4f}, bound {b_ms:.5f} ms) | {card}",
+          flush=True)
+    return g
 
 
 def run(cfg, device, out_path=None) -> dict:
@@ -7704,11 +7814,20 @@ def run(cfg, device, out_path=None) -> dict:
     _stamp("slice 19 ends")
     for k in kernels:
         if k["name"].startswith("fdist_matvec_batched"):
-            k.update(examples_launches=examples["quickstart"]["launches"],
-                     examples_at=(
+            gc = examples["graph_classification"]
+            k.update(examples_launches=examples["quickstart"]["launches"]
+                     + gc["launches"], examples_at=(
                          "the quickstart example's step 5: Integrator(..., "
                          "backend='cuda') at n = 1,500, d = 8 (d-tile 16), "
-                         "one launch per cross bucket; all d-tiles"))
+                         "and graph_classification --backend torch,cuda at "
+                         f"D&D's sizes: {gc['graphs']} MSTs in one forest "
+                         f"plan, d = n_max = {gc['n_max']} (d-tile 64), 2 "
+                         "integrates; one launch per cross bucket; all "
+                         "d-tiles"))
+            if k["name"] == "fdist_matvec_batched[d=64]":
+                k["examples_b1"] = {key: gc["b1"][key] for key in (
+                    "d", "ms", "plain_ms", "library_ms", "bound_ms",
+                    "bound_by", "max_abs_err")}
         if k["name"] == "topo_attention_sweep[decay]":
             k.update(examples_launches=examples["train_topological_lm"][
                 "launches"], examples_at=(

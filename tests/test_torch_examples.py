@@ -35,7 +35,7 @@ from repro_torch.graphs.graph import WeightedTree  # noqa: E402
 from test_itree_flat import TREES  # noqa: E402
 
 EXAMPLES = ("quickstart", "mesh_interpolation", "serve_lm",
-            "train_topological_lm")
+            "train_topological_lm", "graph_classification")
 REL_TOL = 1e-5  # examples/quickstart.py's claim: exact against BTFI
 COS_TOL = 1e-6
 
